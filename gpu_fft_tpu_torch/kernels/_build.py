@@ -1,0 +1,114 @@
+"""Build and load the Hopper kernels (``csrc/*.cu``) with nvcc and ctypes.
+
+The sources compile into one shared library with a plain C interface,
+``gpu_fft_tpu_torch/_build/libgft_<hash>.so``, named by a hash of the
+sources and flags so a changed source rebuilds.  The build runs at the first
+kernel launch in a process (never at import); a failed build raises with
+nvcc's output.  Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # xr, xi, f1r, f1i, twr, twi, f2r, f2i, yr, yi, batch, n1, stream
+    "gft_whole_split": [_P] * 10 + [_I, _I, _P],
+    # xr, xi, packed, yr, yi, batch, n1, stream
+    "gft_whole_packed": [_P] * 5 + [_I, _I, _P],
+    # xr, xi, f1r, f1i, two_r, two_i, twi_r, twi_i, yr, yi,
+    # batch, n1, n2, ct, rows, ncols, stream
+    "gft_stage_a": [_P] * 10 + [_I] * 6 + [_P],
+}
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # wall time of the nvcc run; 0.0 when the library existed
+    log: str  # nvcc's output (ptxas register / spill report)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgft_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless the library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return BuildInfo(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return BuildInfo(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), argtypes declared."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.gft_error_string.argtypes = [ctypes.c_int]
+    lib.gft_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = library().gft_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
