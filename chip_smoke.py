@@ -8,7 +8,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 1. device and build: a CUDA card, TF32 off, the kernels built from
    ``gpu_fft_tpu_torch/csrc`` with nvcc (build seconds printed);
 2. every kernel against its plain torch version on the card, at the shapes
-   the transform path gives it (gate: max|kernel - plain| <= 1e-5 max|plain|);
+   its path gives it (gate: max|kernel - plain| <= 1e-5 max|plain|): K1, K2
+   and K3 of the transform path (K3 also at each ct that the levers
+   harness sets at 2^18); K3-legacy, S2 and S3 of the stage-A
+   ablation harnesses, with S3's error against float64 (gate for f32 and
+   bf16_x6: 5*log2(n1)*eps; bf16_x1 printed);
 3. the main path through the public API on ``device="cuda"``: the sine ->
    fft -> psd -> dominant frequency -> ifft demo, fft/ifft from n = 1024 to
    2^22, fft_batch and ifft_batch, each checked against numpy in float64 with
@@ -16,7 +20,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    kernel ran;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
-   against its plain version and each main-path call against torch.fft.
+   against its plain version, its bound on the card and, where one exists,
+   the one PyTorch call that computes the same function; each main-path call
+   against torch.fft;
+5. the second path: the three stage-A ablation harnesses
+   (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
+   the launch counts show K3-legacy, S2 and S3 ran, no row holds an error
+   other than the unported irfft rows, and every timed levers row agrees
+   with its reference row within 5*log2(2^22)*eps.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.  Details go to
@@ -35,6 +46,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5  # kernel vs plain, relative to max|plain|: both fp32, TF32 would be ~50x over
 EPS32 = 1.1920929e-07
+MAIN_PATH_KERNELS = ("whole_transform", "whole_transform_packed", "stage_a")
+# Published H100 SXM peaks at 700 W (dense): fp32 outside the tensor cores,
+# bf16 on the tensor cores, HBM bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -44,6 +61,42 @@ def fail(msg: str) -> None:
 
 def gate(n: int) -> float:
     return 5.0 * (n.bit_length() - 1) * EPS32
+
+
+def bound(flop: float, peak: float, nbytes: float):
+    """(ms, wall): the least time for ``flop`` operations at ``peak`` and
+    ``nbytes`` moved at the HBM rate, and which of the two is larger."""
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def whole_bound(n: int, packed: bool):
+    """K1/K2, B = 1, real forward: stage 1 two real (n1, n1) x (n1, 128)
+    products, the twiddle (6 FLOP per complex value), stage 2 a Karatsuba
+    complex (128, 128) x (128, n1) product; x and every table read once,
+    the complex output written once."""
+    n1 = n // 128
+    flop = 4 * n1 * n1 * 128 + 6 * n + 6 * 128 * 128 * n1
+    tables = (4 * n1 + 256) * 128 if packed else 2 * n1 * n1 + 2 * n + 2 * 128 * 128
+    return bound(flop, PEAK_FP32, 4 * (n + tables + 2 * n))
+
+
+def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, twiddle_floats: int):
+    """K3 / K3-legacy / S2, B = 1: rows x n1 x n2 real products (2 for real
+    input, Karatsuba 3 for complex), 6 FLOP per output for the twiddle; x,
+    F1's rows and the twiddle read once, the output written once."""
+    flop = (6 if complex_ else 4) * rows * n1 * n2 + 6 * rows * n2
+    nbytes = 4 * ((2 if complex_ else 1) * n1 * n2 + 2 * rows * n1 + twiddle_floats + 2 * rows * n2)
+    return bound(flop, PEAK_FP32, nbytes)
+
+
+def dot_bound(n1: int, n2: int, variant: str):
+    """S3: two (n1, n1) x (n1, n2) products (six bf16 passes each for
+    bf16_x6); x and the LHS read once, Yr and Yi written once."""
+    if variant == "f32_highest":
+        return bound(4 * n1 * n1 * n2, PEAK_FP32, 4 * (3 * n1 * n2 + 2 * n1 * n1))
+    passes, parts = (6, 3) if variant == "bf16_x6" else (1, 1)
+    return bound(passes * 4 * n1 * n1 * n2, PEAK_BF16, 4 * 3 * n1 * n2 + 2 * 2 * parts * n1 * n1)
 
 
 def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
@@ -66,25 +119,29 @@ def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, attempts: int = 3):
     """Device time per call (ms) summed over the CUDA kernels torch.profiler
-    records for ``iters`` warm calls, and the top kernels by time; None where
-    the profiler records no device time."""
+    records for ``iters`` warm calls, and the top kernels by time.  A profile
+    that comes back with no device event is taken again, up to ``attempts``
+    times; None where none of them records device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us > 0:
-            by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1000.0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0)
+            if us > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1000.0
+        if by_name:
+            break
     if not by_name:
         return None, []
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
@@ -105,7 +162,9 @@ def main() -> None:
     from gpu_fft_tpu_torch import plan as P
     from gpu_fft_tpu_torch.config import apply_precision
     from gpu_fft_tpu_torch.kernels import _build
+    from gpu_fft_tpu_torch.kernels import ablation as A
     from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.scripts import ablate_2e20_levers, ablate_large, ablate_mosaic_x6
 
     dev = torch.device("cuda")
     out_dir = ROOT / "chiprun_out"
@@ -136,7 +195,7 @@ def main() -> None:
     # ── Phase 2: each kernel against its plain version on the card ──────────
     print("phase 2: kernels vs plain torch (gate max|d| <= 1e-5 max|plain|)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {"whole_transform": 0.0, "whole_transform_packed": 0.0, "stage_a": 0.0}
+    max_err = {name: 0.0 for name in (*K.COUNTS, *A.COUNTS)}
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
@@ -165,8 +224,13 @@ def main() -> None:
         compare(name, f"B={b} n={n} complex inv 1/n", kern(xr, xi, inv), plain(xr, xi, inv))
         torch.cuda.synchronize()
 
-    for n in (1 << 17, 1 << 20, 1 << 24):
-        plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
+    # The shipped ct at 2^17, 2^20 and 2^24; at 2^18 (n2 = 2,048) every ct
+    # that the L4 lever of ablate_2e20_levers sets.
+    k3_cases = [(1 << 17, None), *(((1 << 18), ct) for ct in (512, 1024, 2048)),
+                (1 << 20, None), (1 << 24, None)]
+    for n, ct in k3_cases:
+        ct = P.stage_a_ct_full_range(n) if ct is None else ct
+        plan = P.on_device(P.get_stage_a_plan, n, -1, ct, device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         rows = P.stage_a_real_rows(n1)
         xr, xi = randn(1, n1, n2), randn(1, n1, n2)
@@ -179,6 +243,58 @@ def main() -> None:
             compare("stage_a", f"{case} ct={ct}", got, want)
         del xr, xi
         torch.cuda.synchronize()
+
+    # K3-legacy: every (n, n1) of the ablate_large sweep (materialized
+    # twiddle, real input as staged_fft gives it), and the complex, rows and
+    # col_tiles forms of the wrapper.
+    legacy_cases = [(n, n1, False, None, None) for n, n1s in ablate_large.SWEEPS.items() for n1 in n1s]
+    legacy_cases += [(1 << 17, 16, True, None, None), (1 << 17, 128, False, None, 72),
+                     (1 << 17, 128, True, 1, None), (1 << 20, 128, True, None, None)]
+    for n, n1, complex_, tiles, r in legacy_cases:
+        plan = P.on_device(ablate_large.make_plan, n, n1, -1, device=dev)
+        n2 = plan["n2"]
+        ct = P.stage_a_col_tile(n1, n2)
+        xr = randn(1, n1, n2)
+        xi = randn(1, n1, n2) if complex_ else None
+        got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=r)
+        want = K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=r)
+        case = f"n={n} n1={n1} {'complex' if complex_ else 'real'} rows={r} col_tiles={tiles} ct={ct}"
+        compare("stage_a_legacy", case, got, want)
+        del xr, xi, got, want
+        torch.cuda.synchronize()
+
+    # S2 at 2^20 on the legacy plan of the shipped digit (n1 = 128).
+    s2_plan = P.on_device(ablate_large.make_plan, 1 << 20, 128, -1, device=dev)
+    x = randn(128, s2_plan["n2"])
+    compare("stage_a_manual", "n=2^20 n1=128 real", A.stage_a_manual(x, s2_plan),
+            A.stage_a_manual_plain(x, s2_plan))
+    torch.cuda.synchronize()
+
+    # S3 at (128, 8192), the ablate_mosaic_x6 shape; also against float64.
+    s3_rng = np.random.default_rng(7)
+    n1_s3, n2_s3 = 128, 8192
+    fr_np = s3_rng.standard_normal((n1_s3, n1_s3)).astype(np.float32) / n1_s3
+    fi_np = s3_rng.standard_normal((n1_s3, n1_s3)).astype(np.float32) / n1_s3
+    x_np = s3_rng.standard_normal((1, n1_s3, n2_s3)).astype(np.float32)
+    s3_tables = A.dot_tables(torch.from_numpy(fr_np).to(dev), torch.from_numpy(fi_np).to(dev))
+    s3_x = torch.from_numpy(x_np).to(dev)
+    ref_r = fr_np.astype(np.float64) @ x_np[0].astype(np.float64)
+    ref_i = fi_np.astype(np.float64) @ x_np[0].astype(np.float64)
+    peak = max(np.abs(ref_r).max(), np.abs(ref_i).max())
+    s3_gate = 5 * np.log2(n1_s3) * EPS32
+    report["s3_rel_err"] = {}
+    for v in A.VARIANTS:
+        got = A.stage_a_dot(s3_x, s3_tables, v)
+        compare(f"stage_a_dot_{v}", f"(1, {n1_s3}, {n2_s3})", got, A.stage_a_dot_plain(s3_x, s3_tables, v))
+        rel = max(float(np.abs(got[0][0].cpu().numpy() - ref_r).max()),
+                  float(np.abs(got[1][0].cpu().numpy() - ref_i).max())) / peak
+        report["s3_rel_err"][v] = rel
+        gated = v != "bf16_x1"
+        print(f"  stage_a_dot_{v:12s} vs float64: rel err {rel:.3e}"
+              + (f" gate {s3_gate:.3e} {'ok' if rel <= s3_gate else 'FAIL'}" if gated else " (not gated)"))
+        if gated and not rel <= s3_gate:
+            fail(f"stage_a_dot {v}: error {rel:.3e} against float64 over {s3_gate:.3e}")
+    torch.cuda.synchronize()
 
     # ── Phase 3: the main path through the public API ───────────────────────
     print("phase 3: main path on device='cuda' (gate 5*log2(N)*eps)")
@@ -247,7 +363,7 @@ def main() -> None:
             check(f"ifft_batch B={b} n={n} vs torch.fft", n,
                   max(float(np.abs(o - v).max()) for o, v in zip(outs, vouts)), gate(n))
 
-    main_launches = launches()
+    main_launches = {k: v for k, v in launches().items() if k in MAIN_PATH_KERNELS}
     print(f"  launches in phase 3: {main_launches}")
     print(f"  launches per size: {per_size}")
     report["launches"] = main_launches
@@ -268,32 +384,69 @@ def main() -> None:
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
 
-    def time_pair(label, name, kern_fn, plain_fn):
+    def time_pair(label, name, kern_fn, plain_fn, bnd, lib_fn=None):
+        """Kernel, plain version and (where one exists) the library call:
+        event and profiler times, and the kernel's share of its bound."""
         k_ms, p_ms = cuda_ms(kern_fn), cuda_ms(plain_fn)
         (k_dev, _), (p_dev, _) = device_ms(kern_fn), device_ms(plain_fn)
-        report["times"].append(dict(what=label, kernel=name, ms=k_ms, plain_ms=p_ms,
-                                    device_ms=k_dev, plain_device_ms=p_dev))
-        print(f"  {label:40s} events: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms | "
-              f"device: kernel {fmt(k_dev)} plain {fmt(p_dev)}")
-        return k_ms, p_ms
+        lib_ms, lib_dev = (cuda_ms(lib_fn), device_ms(lib_fn)[0]) if lib_fn else (None, None)
+        share = None if k_dev is None else bnd[0] / k_dev
+        rec = dict(what=label, kernel=name, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
+                   plain_device_ms=p_dev, bound_ms=bnd[0], bound_by=bnd[1], share_of_bound=share,
+                   library_ms=lib_ms, library_device_ms=lib_dev)
+        report["times"].append(rec)
+        print(f"  {label:44s} events: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms"
+              + (f" library {lib_ms:.4f} ms" if lib_fn else "")
+              + f" | device: kernel {fmt(k_dev)} plain {fmt(p_dev)}"
+              + (f" library {fmt(lib_dev)}" if lib_fn else "")
+              + f" | bound {bnd[0] * 1e3:.2f} us ({bnd[1]})"
+              + ("" if share is None else f", {share * 100:.1f}% of bound"))
+        kernel_ms.setdefault(name, rec)
+        return rec
 
     for name, n in (("whole_transform_packed", 1024), ("whole_transform", 4096), ("whole_transform", 16384)):
         make_plan = P.get_whole_packed_plan if name == "whole_transform_packed" else P.get_whole_plan
         fwd = P.on_device(make_plan, n, -1, None, device=dev)
         x = randn(1, n)
         kern, plain = getattr(K, name), getattr(K, name + "_plain")
-        res = time_pair(f"{name} B=1 n={n} real fwd", name,
-                        lambda: kern(x, None, fwd), lambda: plain(x, None, fwd))
-        kernel_ms.setdefault(name, res)
+        time_pair(f"{name} B=1 n={n} real fwd", name,
+                  lambda: kern(x, None, fwd), lambda: plain(x, None, fwd),
+                  whole_bound(n, name == "whole_transform_packed"), lambda: torch.fft.fft(x))
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         rows = P.stage_a_real_rows(n1)
         x = randn(1, n1, n2)
-        res = time_pair(f"stage_a n={n} real rows={rows}", "stage_a",
-                        lambda: K.stage_a(x, None, n1, n2, plan, ct, rows=rows),
-                        lambda: K.stage_a_plain(x, None, n1, n2, plan, ct, rows=rows))
-        kernel_ms.setdefault("stage_a", res)
+        factored_tw = 2 * rows * (n2 // ct) + 2 * rows * ct
+        time_pair(f"stage_a n={n} real rows={rows}", "stage_a",
+                  lambda: K.stage_a(x, None, n1, n2, plan, ct, rows=rows),
+                  lambda: K.stage_a_plain(x, None, n1, n2, plan, ct, rows=rows),
+                  stage_a_bound(n1, n2, rows, False, factored_tw))
+        # K3-legacy at the same shape and rows: the materialized twiddle's
+        # extra read against the factored one.
+        legacy = P.on_device(ablate_large.make_plan, n, n1, -1, device=dev)
+        lct = P.stage_a_col_tile(n1, n2)
+        if n == 1 << 20:  # all rows: the shape S2 computes
+            time_pair(f"stage_a_legacy n={n} real all rows", "stage_a_legacy",
+                      lambda: K.stage_a(x, None, n1, n2, legacy, lct),
+                      lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct),
+                      stage_a_bound(n1, n2, n1, False, 2 * n1 * n2))
+            x2 = x[0]
+            time_pair(f"stage_a_manual n={n} real", "stage_a_manual",
+                      lambda: A.stage_a_manual(x2, legacy), lambda: A.stage_a_manual_plain(x2, legacy),
+                      stage_a_bound(n1, n2, n1, False, 2 * n1 * n2))
+        time_pair(f"stage_a_legacy n={n} real rows={rows}", "stage_a_legacy",
+                  lambda: K.stage_a(x, None, n1, n2, legacy, lct, rows=rows),
+                  lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct, rows=rows),
+                  stage_a_bound(n1, n2, rows, False, 2 * rows * n2))
+        del x
+    s3_cat = torch.cat([s3_tables["fr"], s3_tables["fi"]])
+    for v in A.VARIANTS:
+        lib = (lambda: torch.matmul(s3_cat, s3_x[0])) if v == "f32_highest" else None
+        time_pair(f"stage_a_dot_{v} (1, {n1_s3}, {n2_s3})", f"stage_a_dot_{v}",
+                  lambda v=v: A.stage_a_dot(s3_x, s3_tables, v),
+                  lambda v=v: A.stage_a_dot_plain(s3_x, s3_tables, v),
+                  dot_bound(n1_s3, n2_s3, v), lib)
 
     for b, n in ((1, 1024), (1, 4096), (1, 16384), (1, 65536), (1, 1 << 20), (1, 1 << 22),
                  (16, 65536), (64, 4096)):
@@ -316,16 +469,57 @@ def main() -> None:
               f"device: port {fmt(idev)}")
         print(f"    fft top kernels: {[(k, round(v, 4)) for k, v in ftop]}")
 
+    # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
+    print("phase 5: stage-A ablation harnesses, quick setting (device times from CUDA graphs)")
+    K.reset_counts()
+    A.reset_counts()
+    large_res = ablate_large.main(quick=True, out_dir=str(out_dir))
+    levers_res = ablate_2e20_levers.main(quick=True, out_dir=str(out_dir))
+    x6_res = ablate_mosaic_x6.main(quick=True, out_dir=str(out_dir))
+    second_launches = {k: c.launches for k, c in {**K.COUNTS, **A.COUNTS}.items()
+                       if k not in MAIN_PATH_KERNELS}
+    print(f"  launches in phase 5: {second_launches}")
+    report.update(launches_phase5=second_launches, ablate_large=large_res,
+                  ablate_2e20_levers=levers_res, ablate_mosaic_x6=x6_res)
+    for name, count in second_launches.items():
+        if count < 1:
+            fail(f"{name} was launched no time by the stage-A harnesses")
+    bad = ablate_2e20_levers.unexpected_errors(levers_res)
+    if bad:
+        fail(f"ablate_2e20_levers rows failed: {bad}")
+    off = ablate_2e20_levers.parity_failures(levers_res)
+    if off:
+        fail(f"ablate_2e20_levers rows over parity {ablate_2e20_levers.PARITY_LIMIT:.3e}: {off}")
+    times = [e["us"] for e in large_res["entries"]]
+    times += [r["us"] for r in levers_res["rows"].values() if "us" in r]
+    times += [r["us_per_call"] for r in x6_res["rows"]]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        fail(f"a harness time is not a positive number: {times}")
+    for r in x6_res["rows"]:
+        if r["variant"] != "bf16_x1" and not r["rel_err"] <= s3_gate:
+            fail(f"ablate_mosaic_x6 ct={r['ct']} {r['variant']}: rel_err {r['rel_err']:.3e} over {s3_gate:.3e}")
+    print("  harnesses: every row measured and within parity; no error rows but the unported irfft rows")
+
     sources = {
         "whole_transform_packed": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:383"),
         "whole_transform": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:424"),
         "stage_a": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:188"),
+        "stage_a_legacy": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:153"),
+        "stage_a_manual": ("gpu_fft_tpu_torch/csrc/stage_a_manual.cu", "scripts/ablate_2e20_levers.py:188"),
+        **{f"stage_a_dot_{v}": ("gpu_fft_tpu_torch/csrc/stage_a_dot.cu", "scripts/ablate_mosaic_x6.py:105")
+           for v in A.VARIANTS},
     }
-    kernels = [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=main_launches[name],
-             max_abs_err=max_err[name], ms=kernel_ms[name][0], plain_ms=kernel_ms[name][1])
-        for name, (src, rep) in sources.items()
-    ]
+    all_launches = {**main_launches, **second_launches}
+    kernels = []
+    for name, (src, rep) in sources.items():
+        t = kernel_ms[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=all_launches[name],
+            max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
+            plain_device_ms=t["plain_device_ms"], library_device_ms=t["library_device_ms"],
+            timed=t["what"],
+        ))
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

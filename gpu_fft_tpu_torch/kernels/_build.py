@@ -1,10 +1,11 @@
 """Build and load the Hopper kernels (``csrc/*.cu``) with nvcc and ctypes.
 
-The sources compile into one shared library with a plain C interface,
-``gpu_fft_tpu_torch/_build/libgft_<hash>.so``, named by a hash of the
-sources and flags so a changed source rebuilds.  The build runs at the first
-kernel launch in a process (never at import); a failed build raises with
-nvcc's output.  Nothing falls back.
+Each ``.cu`` source compiles to an object in its own nvcc process, all
+started together, and the objects link into one shared library with a plain
+C interface, ``gpu_fft_tpu_torch/_build/libgft_<hash>.so``, named by a hash
+of the sources and flags so a changed source rebuilds.  The build runs at the
+first kernel launch in a process (never at import); a failed build raises
+with nvcc's output.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,6 +40,14 @@ _SIGNATURES = {
     # xr, xi, f1r, f1i, two_r, two_i, twi_r, twi_i, yr, yi,
     # batch, n1, n2, ct, rows, ncols, stream
     "gft_stage_a": [_P] * 10 + [_I] * 6 + [_P],
+    # xr, xi, f1r, f1i, twr, twi, yr, yi, batch, n1, n2, rows, ncols, stream
+    "gft_stage_a_full": [_P] * 8 + [_I] * 5 + [_P],
+    # x, f1r, f1i, twr, twi, yr, yi, n1, n2, stream
+    "gft_stage_a_manual": [_P] * 7 + [_I] * 2 + [_P],
+    # x, fr, fi, yr, yi, batch, n1, n2, stream
+    "gft_stage_a_dot_f32": [_P] * 5 + [_I] * 3 + [_P],
+    # x, far, fai, yr, yi, batch, n1, n2, parts, stream
+    "gft_stage_a_dot_bf16": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
@@ -72,26 +81,34 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists: one
+    nvcc per source, all in parallel, then one link."""
     out = library_path()
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sorted(CSRC.glob("*.cu"))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / (o.stem + ".cu"))] for o in objs]
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for c, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{log}")
+        lib = Path(tmp) / out.name
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(lib),
+                *(str(o) for o in objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              check=False)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stdout}")
+        os.replace(lib, out)
+    return BuildInfo(out, time.perf_counter() - t0, "".join(logs) + proc.stdout)
 
 
 @functools.lru_cache(maxsize=1)

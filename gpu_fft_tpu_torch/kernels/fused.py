@@ -7,7 +7,9 @@ Three Pallas kernels of the JAX package sit on the transform path
   four-step of a B = 1 transform with 1024 <= n <= 16384 in one launch
   (``csrc/whole_transform.cu``);
 * ``stage_a`` (K3): column DFT + twiddle, the first half of every staged
-  transform (``csrc/stage_a.cu``).
+  transform (``csrc/stage_a.cu``), with the plan's factored twiddle; given a
+  legacy plan with a materialized (n1, n2) twiddle it launches K3-legacy,
+  the same kernel reading that table (counted as ``stage_a_legacy``).
 
 Each wrapper keeps the JAX signature.  For a tensor on the CPU it runs its
 plain torch version (``*_plain``); for a CUDA tensor it launches the kernel
@@ -48,6 +50,7 @@ COUNTS = {
     "whole_transform": LaunchCount(),
     "whole_transform_packed": LaunchCount(),
     "stage_a": LaunchCount(),
+    "stage_a_legacy": LaunchCount(),
 }
 
 
@@ -66,9 +69,11 @@ def _on_cpu(x: torch.Tensor, kernel: str) -> bool:
     return False
 
 
-def _check(kernel: str, device: torch.device, tensors: dict, shapes: dict) -> None:
-    """Every tensor: fp32, contiguous, 16-byte aligned, on ``device``, and of
-    the shape in ``shapes`` (a None tensor is skipped)."""
+def _check(
+    kernel: str, device: torch.device, tensors: dict, shapes: dict, dtype=torch.float32
+) -> None:
+    """Every tensor: of ``dtype``, contiguous, 16-byte aligned, on ``device``,
+    and of the shape in ``shapes`` (a None tensor is skipped)."""
     for name, t in tensors.items():
         if t is None:
             continue
@@ -76,8 +81,8 @@ def _check(kernel: str, device: torch.device, tensors: dict, shapes: dict) -> No
             raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
         if t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{kernel}: {name} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
         if t.data_ptr() % 16:
@@ -195,17 +200,14 @@ def whole_transform_packed(xr, xi, plan: dict):
     return yr, yi
 
 
-# ── K3: stage A ──────────────────────────────────────────────────────────────
+# ── K3 / K3-legacy: stage A ──────────────────────────────────────────────────
 
 
 def _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows):
-    """(output rows, output columns) after the JAX wrapper's checks."""
-    if "two_r" not in tables:
-        raise NotImplementedError(
-            "stage_a: only the factored-twiddle plan layout is ported; the legacy "
-            "materialized (n1, n2) twiddle is not"
-        )
-    if col_tile != tables["ct"]:
+    """(output rows, output columns) after the JAX wrapper's checks.  A
+    factored plan must be tiled by its own ``ct``; a legacy plan has none, so
+    ``col_tile`` just tiles the columns."""
+    if "two_r" in tables and col_tile != tables["ct"]:
         raise ValueError(
             f"col_tile {col_tile} does not match the plan's factored tile {tables['ct']}"
         )
@@ -223,12 +225,15 @@ def _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows):
 def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
     """Plain torch version of :func:`stage_a`."""
     r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
-    t = {
-        "f1r": tables["f1r"][:r], "f1i": tables["f1i"][:r],
-        "two_r": tables["two_r"][:r, : ncols // col_tile],
-        "two_i": tables["two_i"][:r, : ncols // col_tile],
-        "twi_r": tables["twi_r"][:r], "twi_i": tables["twi_i"][:r],
-    }
+    t = {"f1r": tables["f1r"][:r], "f1i": tables["f1i"][:r]}
+    if "two_r" in tables:
+        t.update(
+            two_r=tables["two_r"][:r, : ncols // col_tile],
+            two_i=tables["two_i"][:r, : ncols // col_tile],
+            twi_r=tables["twi_r"][:r], twi_i=tables["twi_i"][:r],
+        )
+    else:
+        t.update(twr=tables["twr"][:r, :ncols], twi=tables["twi"][:r, :ncols])
     return stage_a_torch(
         xr[:, :, :ncols], None if xi is None else xi[:, :, :ncols], t
     )
@@ -237,32 +242,41 @@ def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
 def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, rows=None):
     """Column DFT + twiddle over a (B, n1, n2) view (JAX: ``stage_a``).
 
-    ``tables``: :func:`plan.get_stage_a_plan` on ``xr``'s device.
-    ``col_tiles`` keeps only the first column tiles and ``rows`` only the first
-    k1 rows.  Returns split-complex (B, rows or n1, col_tiles * ct or n2).
+    ``tables``: :func:`plan.get_stage_a_plan` on ``xr``'s device (factored
+    twiddle, K3), or a legacy plan with a materialized (n1, n2) ``twr``/``twi``
+    pair (K3-legacy).  ``col_tiles`` keeps only the first column tiles and
+    ``rows`` only the first k1 rows.  Returns split-complex
+    (B, rows or n1, col_tiles * col_tile or n2).
     """
-    count = COUNTS["stage_a"]
+    factored = "two_r" in tables
+    count = COUNTS["stage_a" if factored else "stage_a_legacy"]
     if _on_cpu(xr, "stage_a"):
         count.plain_calls += 1
         return stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles, rows)
     r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
-    if n1 % 32 or col_tile % 4:
+    if n2 % 4 or ncols % 4 or (factored and col_tile % 4):
         raise ValueError(
-            f"stage_a kernel needs n1 % 32 == 0 and ct % 4 == 0 (n1={n1}, ct={col_tile})"
+            f"stage_a kernel needs n2, the kept columns and ct to be multiples of 4 "
+            f"(n2={n2}, columns={ncols}, ct={col_tile})"
         )
     b = xr.shape[0]
-    names = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
-    outer, inner = (n1, n2 // col_tile), (n1, col_tile)
-    shapes = {"xr": (b, n1, n2), "xi": (b, n1, n2), "f1r": (n1, n1), "f1i": (n1, n1),
-              "two_r": outer, "two_i": outer, "twi_r": inner, "twi_i": inner}
+    shapes = {"xr": (b, n1, n2), "xi": (b, n1, n2), "f1r": (n1, n1), "f1i": (n1, n1)}
+    if factored:
+        names = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
+        outer, inner = (n1, n2 // col_tile), (n1, col_tile)
+        shapes.update(two_r=outer, two_i=outer, twi_r=inner, twi_i=inner)
+    else:
+        names = ("f1r", "f1i", "twr", "twi")
+        shapes.update(twr=(n1, n2), twi=(n1, n2))
     _check("stage_a", xr.device, {"xr": xr, "xi": xi, **{k: tables[k] for k in names}}, shapes)
     yr = torch.empty((b, r, ncols), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
     lib = _build.library()
-    err = lib.gft_stage_a(
-        _ptr(xr), _ptr(xi), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi),
-        b, n1, n2, col_tile, r, ncols, _stream(xr.device),
-    )
+    ptrs = (_ptr(xr), _ptr(xi), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi))
+    if factored:
+        err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, r, ncols, _stream(xr.device))
+    else:
+        err = lib.gft_stage_a_full(*ptrs, b, n1, n2, r, ncols, _stream(xr.device))
     _build.check(err, "stage_a")
     count.launches += 1
     return yr, yi

@@ -181,18 +181,23 @@ def stage_b_half(yr, yi, n1: int, n2: int, t: dict):
 
 
 def stage_a_torch(x3r, x3i, plan: dict):
-    """Column DFT + twiddle of the staged path over (B, n1, n2) views, with
-    the factored twiddle rebuilt in full: Y[b, k1, c] = (sum_a F1[k1, a]
-    x[b, a, c]) * two[k1, c // ct] * twi[k1, c % ct].  ``x3i`` may be None."""
+    """Column DFT + twiddle of the staged path over (B, n1, n2) views:
+    Y[b, k1, c] = (sum_a F1[k1, a] x[b, a, c]) * W[k1, c].  ``x3i`` may be
+    None.  W is the factored twiddle rebuilt in full, two[k1, c // ct] *
+    twi[k1, c % ct] (the production plan), or a legacy materialized (n1, n2)
+    ``twr``/``twi`` pair."""
     f1r, f1i = plan["f1r"], plan["f1i"]
-    n1 = f1r.shape[0]
-    o_r = plan["two_r"][:, :, None]  # (n1, n2/ct, 1)
-    o_i = plan["two_i"][:, :, None]
-    i_r = plan["twi_r"][:, None, :]  # (n1, 1, ct)
-    i_i = plan["twi_i"][:, None, :]
-    n2 = plan["two_r"].shape[1] * plan["twi_r"].shape[1]
-    twr = (o_r * i_r - o_i * i_i).reshape(n1, n2)
-    twi = (o_r * i_i + o_i * i_r).reshape(n1, n2)
+    if "two_r" in plan:
+        n1 = f1r.shape[0]
+        o_r = plan["two_r"][:, :, None]  # (n1, n2/ct, 1)
+        o_i = plan["two_i"][:, :, None]
+        i_r = plan["twi_r"][:, None, :]  # (n1, 1, ct)
+        i_i = plan["twi_i"][:, None, :]
+        n2 = plan["two_r"].shape[1] * plan["twi_r"].shape[1]
+        twr = (o_r * i_r - o_i * i_i).reshape(n1, n2)
+        twi = (o_r * i_i + o_i * i_r).reshape(n1, n2)
+    else:
+        twr, twi = plan["twr"], plan["twi"]
     pr = torch.einsum("ka,bac->bkc", f1r, x3r)
     pi = torch.einsum("ka,bac->bkc", f1i, x3r)
     if x3i is not None:

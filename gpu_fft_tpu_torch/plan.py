@@ -24,6 +24,7 @@ from .tuning import get_tuning
 __all__ = [
     "FusedPlan",
     "balanced_split",
+    "clear_device_cache",
     "from_jax_plan",
     "get_fused_plan",
     "get_stage_a_plan",
@@ -306,6 +307,13 @@ def on_device(make_plan, *args, device) -> Any:
     """``make_plan(*args)`` (a cached plan function above) with every table as a
     torch tensor on ``device``; cached per (make_plan, args, device)."""
     return _on_device(make_plan, args, torch.device(device))
+
+
+def clear_device_cache() -> None:
+    """Drop every plan :func:`on_device` holds.  A caller that patches a plan
+    builder (the ablation harnesses) clears the builder's own cache and this
+    one, so no transform keeps computing from the old tables."""
+    _on_device.cache_clear()
 
 
 @functools.lru_cache(maxsize=None)

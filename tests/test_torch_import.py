@@ -23,7 +23,10 @@ def _run(code, cwd=ROOT, env=None):
 def test_import_leaves_jax_out():
     code = (
         "import sys, gpu_fft_tpu_torch, gpu_fft_tpu_torch.kernels.large, "
-        "gpu_fft_tpu_torch.kernels._build, gpu_fft_tpu_torch.backends.torch_fft\n"
+        "gpu_fft_tpu_torch.kernels._build, gpu_fft_tpu_torch.backends.torch_fft, "
+        "gpu_fft_tpu_torch.kernels.ablation, gpu_fft_tpu_torch.utils.profiling, "
+        "gpu_fft_tpu_torch.scripts.ablate_large, gpu_fft_tpu_torch.scripts.ablate_2e20_levers, "
+        "gpu_fft_tpu_torch.scripts.ablate_mosaic_x6\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"

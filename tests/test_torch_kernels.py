@@ -105,9 +105,18 @@ def test_stage_a_checks_match_the_jax_wrapper():
         K.stage_a(x, None, tp["n1"], tp["n2"], tp, 512, col_tiles=3)
     with pytest.raises(ValueError, match="col_tile"):
         K.stage_a(x, None, tp["n1"], tp["n2"], tp, 256)
-    legacy = {k: v for k, v in tp.items() if not k.startswith("tw")}
-    with pytest.raises(NotImplementedError, match="factored"):
-        K.stage_a(x, None, tp["n1"], tp["n2"], legacy, 512)
+    # A legacy plan (materialized twiddle) now runs: the factored table
+    # rebuilt in full gives the same result.
+    o = tp["two_r"][:, :, None], tp["two_i"][:, :, None]
+    i = tp["twi_r"][:, None, :], tp["twi_i"][:, None, :]
+    legacy = {
+        "f1r": tp["f1r"], "f1i": tp["f1i"],
+        "twr": (o[0] * i[0] - o[1] * i[1]).reshape(tp["n1"], tp["n2"]),
+        "twi": (o[0] * i[1] + o[1] * i[0]).reshape(tp["n1"], tp["n2"]),
+    }
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(tuple(x.shape)).astype(np.float32))
+    want = K.stage_a(x, None, tp["n1"], tp["n2"], tp, 512)
+    _close(K.stage_a(x, None, tp["n1"], tp["n2"], legacy, 512), [w.numpy() for w in want])
 
 
 @pytest.mark.parametrize("name", ["whole_transform", "whole_transform_packed", "stage_a"])
