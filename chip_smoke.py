@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 1. device and build: a CUDA card, TF32 off, the kernels built from
    ``gpu_fft_tpu_torch/csrc`` with nvcc (build seconds printed);
 2. every kernel against its plain torch version on the card, at the shapes
-   its path gives it (gate: max|kernel - plain| <= 1e-5 max|plain|): K1, K2
+   its path gives it (gate: max|kernel - plain| <= 1e-5 max|plain|, and
+   bit-equal for S4 and S5, whose steps are rounded one at a time): K1, K2
    and K3 of the transform path (K3 also at each ct that the levers
    harness sets at 2^18); K3-legacy, S2 and S3 of the stage-A
    ablation harnesses, with S3's error against float64 (gate for f32 and
@@ -27,7 +28,18 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error
    other than the unported irfft rows, and every timed levers row agrees
-   with its reference row within 5*log2(2^22)*eps.
+   with its reference row within 5*log2(2^22)*eps;
+6. the third path, calibration: ``calibrate_latency``, ``calibrate_matmul``,
+   ``ablate_whole_packed``, ``ablate_engines`` and ``calibrate_chip`` in
+   their quick setting; the launch counts show S1, S4 and S5 (and K1, K2,
+   K3) ran, every timed row is a positive number, the only rows without a
+   time are the retired and unported ones, and every parity row is within
+   5*log2(n)*eps.
+
+Phase 2 also holds S1 (the left-matmul four-step), S4 (the operand probe)
+and S5 (the launch-floor copy) against their plain versions, S1 also
+against float64 (5*log2(n)*eps); phase 4 times them.  Bounds use the
+card's published peaks, ``gpu_fft_tpu_torch.utils.roofline.CHIPS["h100"]``.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.  Details go to
@@ -36,6 +48,7 @@ is a JSON object with one entry per kernel.  Details go to
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -47,11 +60,10 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-5  # kernel vs plain, relative to max|plain|: both fp32, TF32 would be ~50x over
 EPS32 = 1.1920929e-07
 MAIN_PATH_KERNELS = ("whole_transform", "whole_transform_packed", "stage_a")
-# Published H100 SXM peaks at 700 W (dense): fp32 outside the tensor cores,
-# bf16 on the tensor cores, HBM bandwidth.
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
+CALIBRATION_KERNELS = ("fused_fft_lm", "operand_probe", "copy_min")
+# The transform-path kernels the calibration scripts also drive.
+CALIBRATION_PATH_KERNELS = (*CALIBRATION_KERNELS, *MAIN_PATH_KERNELS)
+LM_CASES = ((1, 4096), (1, 16384), (1, 65536), (16, 4096), (16, 65536), (64, 4096), (1, 32768))
 
 
 def fail(msg: str) -> None:
@@ -63,10 +75,22 @@ def gate(n: int) -> float:
     return 5.0 * (n.bit_length() - 1) * EPS32
 
 
-def bound(flop: float, peak: float, nbytes: float):
-    """(ms, wall): the least time for ``flop`` operations at ``peak`` and
-    ``nbytes`` moved at the HBM rate, and which of the two is larger."""
-    t_ops, t_bytes = flop / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+@functools.lru_cache(maxsize=1)
+def h100():
+    """The card's published peaks (``roofline.CHIPS["h100"]``: fp32 outside
+    the tensor cores, dense bf16, HBM)."""
+    from gpu_fft_tpu_torch.utils.roofline import CHIPS
+
+    return CHIPS["h100"]
+
+
+def bound(flop: float, peak: str, nbytes: float):
+    """(ms, wall): the least time for ``flop`` operations at the ``peak``
+    ("fp32" or "bf16") rate and ``nbytes`` moved at the HBM rate, and which
+    of the two is larger."""
+    spec = h100()
+    rate = {"fp32": spec.vpu_tflops, "bf16": spec.bf16_tflops}[peak] * 1e12
+    t_ops, t_bytes = flop / rate * 1e3, nbytes / (spec.hbm_gbps * 1e9) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -78,7 +102,7 @@ def whole_bound(n: int, packed: bool):
     n1 = n // 128
     flop = 4 * n1 * n1 * 128 + 6 * n + 6 * 128 * 128 * n1
     tables = (4 * n1 + 256) * 128 if packed else 2 * n1 * n1 + 2 * n + 2 * 128 * 128
-    return bound(flop, PEAK_FP32, 4 * (n + tables + 2 * n))
+    return bound(flop, "fp32", 4 * (n + tables + 2 * n))
 
 
 def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, twiddle_floats: int):
@@ -87,16 +111,32 @@ def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, twiddle_floats: i
     F1's rows and the twiddle read once, the output written once."""
     flop = (6 if complex_ else 4) * rows * n1 * n2 + 6 * rows * n2
     nbytes = 4 * ((2 if complex_ else 1) * n1 * n2 + 2 * rows * n1 + twiddle_floats + 2 * rows * n2)
-    return bound(flop, PEAK_FP32, nbytes)
+    return bound(flop, "fp32", nbytes)
 
 
 def dot_bound(n1: int, n2: int, variant: str):
     """S3: two (n1, n1) x (n1, n2) products (six bf16 passes each for
     bf16_x6); x and the LHS read once, Yr and Yi written once."""
     if variant == "f32_highest":
-        return bound(4 * n1 * n1 * n2, PEAK_FP32, 4 * (3 * n1 * n2 + 2 * n1 * n1))
+        return bound(4 * n1 * n1 * n2, "fp32", 4 * (3 * n1 * n2 + 2 * n1 * n1))
     passes, parts = (6, 3) if variant == "bf16_x6" else (1, 1)
-    return bound(passes * 4 * n1 * n1 * n2, PEAK_BF16, 4 * 3 * n1 * n2 + 2 * 2 * parts * n1 * n1)
+    return bound(passes * 4 * n1 * n1 * n2, "bf16", 4 * 3 * n1 * n2 + 2 * 2 * parts * n1 * n1)
+
+
+def lm_bound(b: int, n: int, n1: int, n2: int):
+    """S1, real forward: stage 1 two real (n1, n1) x (n1, n2) products, the
+    twiddle (6 FLOP per complex value), stage 2 a Karatsuba complex
+    (n1, n2) x (n2, n2) product, per row; x, F1 (two tables), the twiddle,
+    F2 (three) read once, the complex output written once."""
+    flop = b * (4 * n * n1 + 6 * n + 6 * n * n2)
+    return bound(flop, "fp32", 4 * (b * n + 2 * n1 * n1 + 2 * n + 3 * n2 * n2 + 2 * b * n))
+
+
+def probe_bound(k: int):
+    """S4 with k tables (S5 at k = 0): one multiply per element of the
+    (8, 128) tile and a multiply and an add per table element it reads; x,
+    the eight rows read of each table, the output."""
+    return bound(1024 * (1 + 2 * k), "fp32", 4 * 1024 * (2 + k))
 
 
 def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
@@ -163,8 +203,19 @@ def main() -> None:
     from gpu_fft_tpu_torch.config import apply_precision
     from gpu_fft_tpu_torch.kernels import _build
     from gpu_fft_tpu_torch.kernels import ablation as A
+    from gpu_fft_tpu_torch.kernels import engines as E
     from gpu_fft_tpu_torch.kernels import fused as K
-    from gpu_fft_tpu_torch.scripts import ablate_2e20_levers, ablate_large, ablate_mosaic_x6
+    from gpu_fft_tpu_torch.kernels import probes as Pr
+    from gpu_fft_tpu_torch.scripts import (
+        ablate_2e20_levers,
+        ablate_engines,
+        ablate_large,
+        ablate_mosaic_x6,
+        ablate_whole_packed,
+        calibrate_chip,
+        calibrate_latency,
+        calibrate_matmul,
+    )
 
     dev = torch.device("cuda")
     out_dir = ROOT / "chiprun_out"
@@ -195,18 +246,20 @@ def main() -> None:
     # ── Phase 2: each kernel against its plain version on the card ──────────
     print("phase 2: kernels vs plain torch (gate max|d| <= 1e-5 max|plain|)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {name: 0.0 for name in (*K.COUNTS, *A.COUNTS)}
+    max_err = {name: 0.0 for name in (*K.COUNTS, *A.COUNTS, *E.COUNTS, *Pr.COUNTS)}
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
 
-    def compare(name, case, got, want):
+    def compare(name, case, got, want, exact=False):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         scale = max(float(w.abs().max()) for w in want)
-        ok = err <= TOL * scale
+        ok = all(torch.equal(g, w) for g, w in zip(got, want)) if exact else err <= TOL * scale
         max_err[name] = max(max_err[name], err)
-        report["kernel_checks"].append(dict(kernel=name, case=case, max_abs_err=err, max_abs=scale, ok=ok))
-        print(f"  {name:24s} {case:40s} max|d| {err:.3e} max|plain| {scale:.3e} {'ok' if ok else 'FAIL'}")
+        report["kernel_checks"].append(dict(kernel=name, case=case, max_abs_err=err, max_abs=scale,
+                                            exact=exact, ok=ok))
+        print(f"  {name:24s} {case:40s} max|d| {err:.3e} max|plain| {scale:.3e}"
+              f"{' (bit-equal gate)' if exact else ''} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{name} {case}: kernel disagrees with its plain version")
 
@@ -294,6 +347,37 @@ def main() -> None:
               + (f" gate {s3_gate:.3e} {'ok' if rel <= s3_gate else 'FAIL'}" if gated else " (not gated)"))
         if gated and not rel <= s3_gate:
             fail(f"stage_a_dot {v}: error {rel:.3e} against float64 over {s3_gate:.3e}")
+    torch.cuda.synchronize()
+
+    # S1 at every ablate_engines shape and at the uneven split (1, 32,768);
+    # also against float64.
+    report["s1_rel_err"] = {}
+    for b, n in LM_CASES:
+        t = P.on_device(E.lm_tables, n, -1, device=dev)
+        x = randn(b, n)
+        got = E.fused_fft_lm(x, t)
+        compare("fused_fft_lm", f"B={b} n={n} ({t['n1']} x {t['n2']}) real fwd", got,
+                E.fused_fft_lm_plain(x, t))
+        ref = np.fft.fft(x.cpu().double().numpy(), axis=-1)
+        rel = max(float(np.abs(got[0].cpu().numpy() - ref.real).max()),
+                  float(np.abs(got[1].cpu().numpy() - ref.imag).max())) / float(np.abs(ref).max())
+        report["s1_rel_err"][f"B={b} n={n}"] = rel
+        print(f"  fused_fft_lm             B={b} n={n} vs float64: rel err {rel:.3e} gate {gate(n):.3e} "
+              f"{'ok' if rel <= gate(n) else 'FAIL'}")
+        if not rel <= gate(n):
+            fail(f"fused_fft_lm B={b} n={n}: error {rel:.3e} against float64 over {gate(n):.3e}")
+        del x, got
+        torch.cuda.synchronize()
+
+    # S4 at each k and S5, at the scripts' (8, 128) tile, bit for bit: a
+    # table left out (t * 2^-24) or the scale left out (x * 2^-20) is well
+    # under 1e-5 of max|plain|.
+    probe_x = randn(8, 128)
+    probe_tables = [randn(128, 128) for _ in range(max(Pr.PROBE_KS))]
+    for k in Pr.PROBE_KS:
+        compare("operand_probe", f"k={k} (8, 128)", (Pr.operand_probe(probe_x, probe_tables[:k]),),
+                (Pr.operand_probe_plain(probe_x, probe_tables[:k]),), exact=True)
+    compare("copy_min", "(8, 128)", (Pr.copy_min(probe_x),), (Pr.copy_min_plain(probe_x),), exact=True)
     torch.cuda.synchronize()
 
     # ── Phase 3: the main path through the public API ───────────────────────
@@ -448,6 +532,19 @@ def main() -> None:
                   lambda v=v: A.stage_a_dot_plain(s3_x, s3_tables, v),
                   dot_bound(n1_s3, n2_s3, v), lib)
 
+    for b, n in ((1, 65536), (16, 65536)):
+        t = P.on_device(E.lm_tables, n, -1, device=dev)
+        x = randn(b, n)
+        time_pair(f"fused_fft_lm B={b} n={n} real fwd", "fused_fft_lm",
+                  lambda: E.fused_fft_lm(x, t), lambda: E.fused_fft_lm_plain(x, t),
+                  lm_bound(b, n, t["n1"], t["n2"]), lambda: torch.fft.fft(x))
+        del x
+    time_pair("operand_probe k=8 (8, 128)", "operand_probe",
+              lambda: Pr.operand_probe(probe_x, probe_tables), lambda: Pr.operand_probe_plain(probe_x, probe_tables),
+              probe_bound(8))
+    time_pair("copy_min (8, 128)", "copy_min", lambda: Pr.copy_min(probe_x), lambda: Pr.copy_min_plain(probe_x),
+              probe_bound(0), lambda: probe_x * Pr.SCALE)
+
     for b, n in ((1, 1024), (1, 4096), (1, 16384), (1, 65536), (1, 1 << 20), (1, 1 << 22),
                  (16, 65536), (64, 4096)):
         x = randn(b, n)
@@ -500,6 +597,51 @@ def main() -> None:
             fail(f"ablate_mosaic_x6 ct={r['ct']} {r['variant']}: rel_err {r['rel_err']:.3e} over {s3_gate:.3e}")
     print("  harnesses: every row measured and within parity; no error rows but the unported irfft rows")
 
+    # ── Phase 6: the third path, the calibration scripts ────────────────────
+    print("phase 6: calibration scripts, quick setting (device times from CUDA graphs)")
+    for mod in (K, A, E, Pr):
+        mod.reset_counts()
+    lat_res = calibrate_latency.main(quick=True, out_dir=str(out_dir))
+    mm_res = calibrate_matmul.main(quick=True, out_dir=str(out_dir))
+    wp_res = ablate_whole_packed.main(quick=True, out_dir=str(out_dir))
+    eng_res = ablate_engines.main(quick=True, out_dir=str(out_dir))
+    chip_res = calibrate_chip.main(quick=True, out_dir=str(out_dir))
+    third_launches = {k: c.launches for k, c in {**K.COUNTS, **E.COUNTS, **Pr.COUNTS}.items()
+                      if k in CALIBRATION_PATH_KERNELS}
+    print(f"  launches in phase 6: {third_launches}")
+    report.update(launches_phase6=third_launches, calibrate_latency=lat_res, calibrate_matmul=mm_res,
+                  ablate_whole_packed=wp_res, ablate_engines=eng_res, calibrate_chip=chip_res)
+    for name, count in third_launches.items():
+        if count < 1:
+            fail(f"{name} was launched no time by the calibration scripts")
+    bad = ablate_engines.unexpected_errors(eng_res)
+    if bad:
+        fail(f"ablate_engines rows failed: {bad}")
+    off = {"ablate_engines": ablate_engines.accuracy_failures(eng_res),
+           "ablate_whole_packed": ablate_whole_packed.parity_failures(wp_res)}
+    if any(off.values()):
+        fail(f"calibration rows over 5*log2(n)*eps: {off}")
+    if any(chip_res[k] != {"error": calibrate_chip.NOT_PORTED} for k in ("oa_block", "irfft_fold")):
+        fail("calibrate_chip: an unported section holds something else than 'not ported'")
+    times = [r["per_call_us"] for r in lat_res["rows"].values()]
+    times += [r["unchained_us"][q] for r in lat_res["rows"].values() for q in ("median", "min")]
+    times += [r["per_step_us"] for r in lat_res["launch_chain"].values()]
+    times += [c[k] for c in mm_res["classes"].values() for k in ("us_d1", "us_d2", "marginal_us", "tflops")]
+    times += [p["us"] for p in mm_res["patterns"].values()]
+    times += list(wp_res["operand_probe"].values())
+    times += [r[k] for r in wp_res["rows"] for k in ("w1_us", "w2_us", "folded_us")]
+    times += [e["best_us"] for e in eng_res["entries"] if e["group"] == "engine" and "error" not in e]
+    times += [r[k] for r in chip_res["wide_split"] for k in ("balanced_us", "wide_us")]
+    times += [r["us"] for r in chip_res["stage_a_digit"]]
+    times += [r[k] for r in chip_res["half_spectrum"] for k in ("full_us", "half_us")]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        fail(f"a calibration time is not a positive number: {times}")
+    for name, row in lat_res["roofline"].items():
+        if row["n_kernels"] < 1 or not row["sol_us"] > 0:
+            fail(f"calibrate_latency roofline row {name} is empty: {row}")
+    print(f"  calibration: {len(times)} timed values, all positive; parity within 5*log2(n)*eps; "
+          f"no error rows but the retired and unported ones")
+
     sources = {
         "whole_transform_packed": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:383"),
         "whole_transform": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:424"),
@@ -508,8 +650,12 @@ def main() -> None:
         "stage_a_manual": ("gpu_fft_tpu_torch/csrc/stage_a_manual.cu", "scripts/ablate_2e20_levers.py:188"),
         **{f"stage_a_dot_{v}": ("gpu_fft_tpu_torch/csrc/stage_a_dot.cu", "scripts/ablate_mosaic_x6.py:105")
            for v in A.VARIANTS},
+        "fused_fft_lm": ("gpu_fft_tpu_torch/csrc/fused_lm.cu", "scripts/ablate_engines.py:111"),
+        "operand_probe": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/ablate_whole_packed.py:66"),
+        "copy_min": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/calibrate_latency.py:79"),
     }
-    all_launches = {**main_launches, **second_launches}
+    all_launches = {**main_launches, **second_launches,
+                    **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
     for name, (src, rep) in sources.items():
         t = kernel_ms[name]

@@ -48,6 +48,12 @@ _SIGNATURES = {
     "gft_stage_a_dot_f32": [_P] * 5 + [_I] * 3 + [_P],
     # x, far, fai, yr, yi, batch, n1, n2, parts, stream
     "gft_stage_a_dot_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # x, f1r, f1i, twr, twi, f2r, f2s, f2d, yr, yi, batch, n1, n2, stream
+    "gft_fused_lm": [_P] * 10 + [_I] * 3 + [_P],
+    # x, o, stream
+    "gft_copy_min": [_P] * 3,
+    # x, t0 .. t7, o, k, stream
+    "gft_operand_probe": [_P] * 10 + [_I, _P],
 }
 
 

@@ -1,0 +1,331 @@
+"""Roofline accounting: FLOPs, bytes and the least time per configuration.
+
+Counterpart of ``gpu_fft_tpu/utils/roofline.py``, with its names.  For a
+(B, n, kind) configuration, :func:`transform_cost` counts the FLOPs of each
+matmul stage (with its contraction size K), the elementwise FLOPs and the
+bytes of input and output; :func:`roofline_row` turns them into the least
+time on a :class:`ChipSpec`,
+
+    sol = max(t_bytes, t_matmul, t_elementwise[, t_latency]),
+
+and names the wall that sets it (``bound``).  The stages mirror the port's
+dispatch (``kernels/large.py:transform_any``), so the cost is that of the
+plan that runs.  Only the kinds of a ported caller are costed (``fft``,
+``ifft``, ``roundtrip``); the JAX package's other kinds raise
+``NotImplementedError`` naming the ROADMAP item that ports their module.
+
+* ``CHIPS`` holds ``h100`` and ``cpu-approx`` (order-of-magnitude figures so
+  that the accounting stays defined in the CPU tests).
+* The ``h100`` rates are NVIDIA's published figures for the H100 SXM at
+  700 W: 3,350 GB/s of HBM (``hbm_gbps``), 989 TFLOP/s dense bf16 on the
+  tensor cores (``bf16_tflops``), 67 TFLOP/s fp32 outside the tensor cores
+  (``vpu_tflops``).  No L2 wall is charged: its stream rate is not measured.
+* ``kernel_call_us`` (JAX: ``pallas_call_us``) is S5's chained step time,
+  the least a launch costs on the card, measured on an H100 80GB HBM3 at a
+  700 W power limit by ``python -m gpu_fft_tpu_torch.scripts.calibrate_latency``:
+  the median over three separate runs (``PERF.md`` gives them and their
+  spread).  Every kernel of a step is charged it, so ``t_latency =
+  kernel_call_us * n_kernels``: a lower bound, since a chained tiny kernel
+  reads 0.96 to 1.35 us per kernel at one to eight kernels a step, between
+  and within runs, at an unchanged SM clock.
+* ``EFF_PASSES`` keeps the JAX package's unit: a matmul stage of F FLOPs
+  with contraction K costs ``F * eff_passes(K) / bf16_peak``, so an fp32
+  SGEMM at an effective R TFLOP/s reads 989 / R passes (989 / 67 = 14.8 at
+  the fp32 peak).  ``h100`` holds the per-K rates of bare fp32
+  ``torch.matmul`` chains with TF32 off, measured on the same card
+  (``python -m gpu_fft_tpu_torch.scripts.calibrate_matmul``).  A bare
+  SGEMM bounds a stage that cuBLAS runs; a hand-written kernel that keeps
+  its operands on chip can beat it, so against such a kernel the matmul
+  wall is not a lower bound.
+
+The kernels of a step are counted by :func:`compiled_stats`, from a
+``torch.profiler`` trace of the step on the card.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import re
+from dataclasses import dataclass
+
+import torch
+
+from .. import plan as _plan
+from ..config import DIRECT_MAX, FUSED_MAX
+
+__all__ = [
+    "CHIPS",
+    "ChipSpec",
+    "EFF_PASSES",
+    "NOT_PORTED_KINDS",
+    "OWN_KERNELS",
+    "compiled_stats",
+    "detect_chip",
+    "eff_passes",
+    "roofline_row",
+    "transform_cost",
+    "transform_stages",
+]
+
+
+@dataclass(frozen=True)
+class ChipSpec:
+    name: str
+    hbm_gbps: float  # device-memory stream rate, GB/s
+    bf16_tflops: float  # dense bf16 peak, TFLOP/s: the unit of EFF_PASSES
+    vpu_tflops: float  # fp32 peak outside the tensor cores, TFLOP/s (elementwise work)
+    kernel_call_us: float | None = None  # chained step of one launch (None: not measured)
+
+
+CHIPS = {
+    "h100": ChipSpec("h100", 3350.0, 989.0, 67.0, kernel_call_us=0.9709),
+    "cpu-approx": ChipSpec("cpu-approx", 50.0, 1.0, 0.1),
+}
+
+#: Effective bf16 passes per fp32 matmul stage, by contraction class K:
+#: 989 / (11.65, 19.54, 26.58, 32.76, 36.81) TFLOP/s of a bare SGEMM.
+EFF_PASSES = {
+    "h100": {32: 84.869, 64: 50.623, 128: 37.214, 256: 30.185, 512: 26.87},
+}
+_EFF_DEFAULT = EFF_PASSES["h100"]
+
+_BENCH = "ROADMAP item 1 (the H100 bench's config kinds)"
+#: The JAX package's transform_cost kinds that the port does not cost yet,
+#: with the ROADMAP queue item that ports what they need.
+NOT_PORTED_KINDS = {
+    **{k: _BENCH for k in ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch",
+                           "ifft_sequential", "roundtrip_batch", "roundtrip_sequential")},
+    "irfft": "ROADMAP item 2 (the irfft gates and plans)",
+    "grad_fft": "ROADMAP item 3 (autodiff)",
+    "welch": "ROADMAP item 6 (ops/spectral)",
+    "stft_roundtrip": "ROADMAP items 2 and 7 (irfft_direct_k128, ops/stft)",
+    "fft_exact": "ROADMAP item 8 (ops/exact.mixed_split)",
+    "dct_roundtrip": "ROADMAP items 2 and 9 (the irfft dispatch, ops/dct)",
+    "resample": "ROADMAP items 2 and 9 (the irfft dispatch, ops/dsp)",
+    "hilbert": "ROADMAP item 9 (ops/dsp)",
+    "oaconvolve": "ROADMAP item 9 (ops/filter)",
+    "fftfilt": "ROADMAP item 9 (ops/filter)",
+    "conv2d": "ROADMAP items 9 and 10 (ops/filter, ops/fft2d)",
+    "fft2": "ROADMAP item 10 (ops/fft2d)",
+}
+
+#: The ``__global__`` functions of ``csrc/``: a profiled kernel whose name
+#: holds one of these is one of the port's own.
+OWN_KERNELS = (
+    "copy_min_kernel",
+    "fused_lm_kernel",
+    "operand_probe_kernel",
+    "stage_a_dot_bf16_kernel",
+    "stage_a_manual_kernel",
+    "stage_a_tile_kernel",
+    "whole_kernel",
+)
+_OWN = re.compile(r"\b(" + "|".join(OWN_KERNELS) + r")\b")
+
+
+def eff_passes(chip_name: str, k: int) -> float:
+    """Effective passes for a contraction of size k (nearest class)."""
+    table = EFF_PASSES.get(chip_name, _EFF_DEFAULT)
+    key = min(table, key=lambda c: abs(c - k) / c)
+    return table[key]
+
+
+def detect_chip() -> ChipSpec:
+    """``h100`` on an H100, else ``cpu-approx`` (the tuning table's rule)."""
+    if torch.cuda.is_available() and "H100" in torch.cuda.get_device_name(0):
+        return CHIPS["h100"]
+    return CHIPS["cpu-approx"]
+
+
+def _own_launches() -> dict:
+    from ..kernels import ablation, engines, fused, probes
+
+    return {k: c.launches for m in (fused, ablation, engines, probes) for k, c in m.COUNTS.items()}
+
+
+def compiled_stats(step, x0) -> dict:
+    """Kernels that one ``step(x0)`` launches on the card (eager torch has no
+    compiled module to read).
+
+    The port's own kernels (JAX: ``n_pallas``) are counted by their wrappers'
+    launch counters: a ``torch.profiler`` trace does not always hold the
+    launches made through the ctypes library.  Every other CUDA kernel
+    (copies and memsets excluded) is counted from a trace of three steps.
+    ``n_kernels`` is their sum, the unit of the launch floor;
+    ``own_kernels`` the launches per wrapper; ``kernel_names`` the other
+    kernels of one step in launch order; ``fingerprint`` a sha256 prefix of
+    both, equal for two runs of the same launches.  One warm call runs
+    first (kernel build, plan upload).  Raises for a tensor that is not on a
+    CUDA device.
+    """
+    if not isinstance(x0, torch.Tensor) or x0.device.type != "cuda":
+        where = x0.device if isinstance(x0, torch.Tensor) else type(x0).__name__
+        raise ValueError(f"compiled_stats counts kernels on a CUDA card; x0 is on {where}")
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 3
+    step(x0)
+    torch.cuda.synchronize(x0.device)
+    for _ in range(3):  # a trace that holds no device event is taken again
+        before = _own_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step(x0)
+            torch.cuda.synchronize(x0.device)
+        after = _own_launches()
+        events = [
+            e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))
+        ]
+        if events:
+            break
+    else:
+        raise RuntimeError("compiled_stats: the profiler recorded no CUDA kernel")
+    own = {k: (after[k] - before[k]) // reps for k in after if after[k] > before[k]}
+    other = [e.name for e in sorted(events, key=lambda e: e.time_range.start) if not _OWN.search(e.name)]
+    per_step = round(len(other) / reps)
+    names = other[len(other) - per_step:]
+    key = "\n".join(names + [f"{k}:{v}" for k, v in sorted(own.items())])
+    return {
+        "n_kernels": per_step + sum(own.values()),
+        "n_own_kernels": sum(own.values()),
+        "own_kernels": own,
+        "kernel_names": names,
+        "fingerprint": hashlib.sha256(key.encode()).hexdigest()[:16],
+    }
+
+
+def transform_stages(b: int, n: int, real_input: bool):
+    """Per-matmul-stage (flops, contraction) list and elementwise flops of
+    the port's dispatch (``kernels/large.py:transform_any``): the whole
+    kernel band, direct, half-spectrum, the fused split, and staged.  A real
+    matmul (m, k) @ (k, j) counts 2*m*k*j, a complex one 3 real products
+    (Karatsuba), a complex elementwise multiply 6 flops.  The JAX package's
+    real-input packing branch is gate-closed and not ported (ROADMAP item 17).
+    """
+    if DIRECT_MAX < n <= FUSED_MAX and _plan.whole_kernel_applies(b, n):
+        # K1/K2: n2 = 128, stage 1 contracts n1 = n/128 (2 real or 3
+        # Karatsuba products), stage 2 the 128 columns (3), one twiddle.
+        n1 = n // 128
+        if real_input:
+            return [(2 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * 128, 128)], 6.0 * b * n
+        return [(3 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * 128, 128)], 6.0 * b * n
+    if n <= DIRECT_MAX:
+        if real_input:
+            return [(2 * 2.0 * b * n * n, n)], 0.0
+        return [(3 * 2.0 * b * n * n, n)], 7.0 * b * n
+    if n <= FUSED_MAX:
+        if real_input and _plan.half_spectrum_applies(n):
+            # fused_fft_half: full first stage, then only h = n1/2 + 1 k1
+            # rows; the mirror epilogue charged ~2 flops/elem.
+            n1, n2 = _plan.balanced_split(n)
+            frac = (n1 // 2 + 1) / n1
+            stages = [(2 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * n2 * frac, n2)]
+            return stages, (6.0 + 5.0) * b * n * frac + 2.0 * b * n
+        n1, n2 = _plan.fused_split(n, b)
+        if real_input:
+            stages = [(2 * 2.0 * b * n * n1, n1)]
+            elem = 6.0 * b * n
+        else:
+            stages = [(3 * 2.0 * b * n * n1, n1)]
+            elem = 6.0 * b * n + 5.0 * b * n
+        stages.append((3 * 2.0 * b * n * n2, n2))
+        return stages, elem + 5.0 * b * n
+    n1 = _plan._stage_a_n1(n)
+    n2 = n // n1
+    half = real_input and _plan.half_spectrum_applies(n)
+    # Row-limited stage A: a real input's half path computes
+    # stage_a_real_rows(n1) k1 rows.
+    frac_a = _plan.stage_a_real_rows(n1) / n1 if half else 1.0
+    if real_input:
+        stages = [(2 * 2.0 * b * n * n1 * frac_a, n1)]
+        elem = 6.0 * b * n * frac_a
+    else:
+        stages = [(3 * 2.0 * b * n * n1, n1)]
+        elem = 6.0 * b * n + 5.0 * b * n
+    s2, e2 = transform_stages(b * n1, n2, real_input=False)
+    if half:
+        # stage_b_half: h = n1/2 + 1 rows of stage B, plus the mirror.
+        frac = (n1 // 2 + 1) / n1
+        s2 = [(f * frac, k) for f, k in s2]
+        e2 = e2 * frac + 2.0 * b * n
+    return stages + s2, elem + e2
+
+
+def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
+    """FLOPs, least bytes and per-stage classes of one configuration.
+
+    ``kind``: fft (real in, split-complex out), ifft (complex in and out) or
+    roundtrip (fft + ifft).  The kinds of :data:`NOT_PORTED_KINDS` raise
+    ``NotImplementedError``; any other raises ``ValueError``.
+    """
+    f32 = 4
+    if kind in NOT_PORTED_KINDS:
+        raise NotImplementedError(f"transform_cost kind {kind!r} is not ported: {NOT_PORTED_KINDS[kind]}")
+    if kind == "fft":
+        stages, elem = transform_stages(b, n, True)
+        bytes_ = b * n * f32 * (1 + 2)  # read x, write (re, im)
+    elif kind == "ifft":
+        stages, elem = transform_stages(b, n, False)
+        elem += 2.0 * b * n  # 1/N scale
+        bytes_ = b * n * f32 * (2 + 2)
+    elif kind == "roundtrip":
+        s1, e1 = transform_stages(b, n, True)
+        s2, e2 = transform_stages(b, n, False)
+        stages, elem = s1 + s2, e1 + e2 + 2.0 * b * n
+        bytes_ = b * n * f32 * (1 + 2)
+    else:
+        raise ValueError(f"unknown config kind {kind!r}")
+    return {
+        "flops": sum(f for f, _ in stages) + elem,
+        "bytes": bytes_,
+        "stages": stages,
+        "elem_flops": elem,
+    }
+
+
+def roofline_row(
+    b: int,
+    n: int,
+    kind: str,
+    measured_s: float,
+    chip: ChipSpec | None = None,
+    n_kernels: int | None = None,
+) -> dict:
+    """The least time of a measured configuration and its share of it.
+
+    ``t_matmul`` charges each matmul stage its effective passes
+    (:data:`EFF_PASSES`) at the bf16 peak; ``t_bytes`` the least bytes at
+    the HBM rate; ``t_elementwise`` the elementwise flops at the fp32 peak.
+    Given ``n_kernels`` (:func:`compiled_stats`) and a chip with a measured
+    launch floor, ``t_latency = kernel_call_us * n_kernels``.  ``sol`` is
+    the largest wall, ``bound`` its name: ``hbm``, ``matmul``,
+    ``elementwise`` or ``latency``.
+    """
+    chip = chip or detect_chip()
+    cost = transform_cost(b, n, kind)
+    walls = {
+        "hbm": cost["bytes"] / (chip.hbm_gbps * 1e9),
+        "matmul": sum(f * eff_passes(chip.name, k) for f, k in cost["stages"])
+        / (chip.bf16_tflops * 1e12),
+        "elementwise": cost["elem_flops"] / (chip.vpu_tflops * 1e12),
+    }
+    if n_kernels is not None and chip.kernel_call_us is not None:
+        walls["latency"] = chip.kernel_call_us * n_kernels * 1e-6
+    bound = max(walls, key=walls.get)
+    sol = walls[bound]
+    row = {
+        "flops": cost["flops"],
+        "bytes": cost["bytes"],
+        "sol_us": sol * 1e6,
+        "pct_sol": 100.0 * sol / measured_s if measured_s > 0 else 0.0,
+        "bound": bound,
+        "walls_us": {k: v * 1e6 for k, v in walls.items()},
+        "chip": chip.name,
+    }
+    if n_kernels is not None:
+        row["n_kernels"] = n_kernels
+        if "latency" in walls:
+            row["t_latency_us"] = walls["latency"] * 1e6
+    return row

@@ -16,11 +16,14 @@ import torch
 
 import gpu_fft_tpu_torch as gt
 import gpu_fft_tpu_torch.kernels.ablation as A
+import gpu_fft_tpu_torch.kernels.engines as E
 import gpu_fft_tpu_torch.kernels.fused as K
+import gpu_fft_tpu_torch.kernels.probes as Pr
 import gpu_fft_tpu_torch.plan as P
 from gpu_fft_tpu_torch.config import apply_precision
 from gpu_fft_tpu_torch.scripts.ablate_large import make_plan as legacy_plan
 from gpu_fft_tpu_torch.utils.profiling import chained_step_stats
+from gpu_fft_tpu_torch.utils.roofline import compiled_stats
 
 pytestmark = pytest.mark.cuda
 RTOL = 1e-5
@@ -114,6 +117,47 @@ def test_stage_a_dot_kernel(dev, variant, b, n1, n2):
     got = A.stage_a_dot(x, tables, variant)
     assert A.COUNTS[f"stage_a_dot_{variant}"].launches == 1
     _close(got, A.stage_a_dot_plain(x, tables, variant))
+
+
+@pytest.mark.parametrize("n", [4096, 16384, 32768, 65536])  # n2 = 64, 128, 256, 256
+@pytest.mark.parametrize("b", [1, 3])
+def test_fused_fft_lm_kernel(dev, n, b):
+    t = P.on_device(E.lm_tables, n, -1, device=dev)
+    x = torch.randn(b, n, device=dev, generator=torch.Generator(device=dev).manual_seed(n + b))
+    E.reset_counts()
+    got = E.fused_fft_lm(x, t)
+    assert E.COUNTS["fused_fft_lm"].launches == 1 and E.COUNTS["fused_fft_lm"].plain_calls == 0
+    _close(got, E.fused_fft_lm_plain(x, t))
+    ref = np.fft.fft(x.cpu().double().numpy(), axis=-1)
+    gate = 5 * np.log2(n) * np.finfo(np.float32).eps
+    err = max(np.abs(got[0].cpu().numpy() - ref.real).max(), np.abs(got[1].cpu().numpy() - ref.imag).max())
+    assert err <= gate * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("k", Pr.PROBE_KS)
+def test_operand_probe_kernel(dev, k):
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randn(8, 128, device=dev, generator=g)
+    tables = [torch.randn(128, 128, device=dev, generator=g) for _ in range(k)]
+    Pr.reset_counts()
+    got = Pr.operand_probe(x, tables)
+    assert Pr.COUNTS["operand_probe"].launches == 1
+    assert torch.equal(got, Pr.operand_probe_plain(x, tables))
+
+
+def test_copy_min_kernel(dev):
+    x = torch.randn(8, 128, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    Pr.reset_counts()
+    got = Pr.copy_min(x)
+    assert Pr.COUNTS["copy_min"].launches == 1
+    assert torch.equal(got, Pr.copy_min_plain(x))
+
+
+def test_compiled_stats_counts_the_own_kernels(dev):
+    plan = P.on_device(P.get_whole_plan, 4096, -1, None, device=dev)
+    stats = compiled_stats(lambda z: K.whole_transform(z, None, plan)[0] * 0.5, torch.ones(1, 4096, device=dev))
+    assert stats["n_kernels"] == 2 and stats["own_kernels"] == {"whole_transform": 1}, stats
+    assert len(stats["kernel_names"]) == 1 and "whole_kernel" not in stats["kernel_names"][0]
 
 
 def test_chained_step_stats_times_a_graph(dev):

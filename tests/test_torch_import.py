@@ -26,7 +26,11 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.kernels._build, gpu_fft_tpu_torch.backends.torch_fft, "
         "gpu_fft_tpu_torch.kernels.ablation, gpu_fft_tpu_torch.utils.profiling, "
         "gpu_fft_tpu_torch.scripts.ablate_large, gpu_fft_tpu_torch.scripts.ablate_2e20_levers, "
-        "gpu_fft_tpu_torch.scripts.ablate_mosaic_x6\n"
+        "gpu_fft_tpu_torch.scripts.ablate_mosaic_x6, gpu_fft_tpu_torch.kernels.engines, "
+        "gpu_fft_tpu_torch.kernels.probes, gpu_fft_tpu_torch.utils.roofline, "
+        "gpu_fft_tpu_torch.scripts.calibrate_latency, gpu_fft_tpu_torch.scripts.calibrate_matmul, "
+        "gpu_fft_tpu_torch.scripts.calibrate_chip, gpu_fft_tpu_torch.scripts.ablate_whole_packed, "
+        "gpu_fft_tpu_torch.scripts.ablate_engines\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"
