@@ -22,8 +22,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
-   the one PyTorch call that computes the same function; each main-path call
-   against torch.fft;
+   the one PyTorch call that computes the same function (K1 and K2 on real
+   forward and on complex inverse input, beside torch.fft.fft and
+   torch.fft.ifft); each main-path call against torch.fft;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error
@@ -94,15 +95,14 @@ def bound(flop: float, peak: str, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def whole_bound(n: int, packed: bool):
-    """K1/K2, B = 1, real forward: stage 1 two real (n1, n1) x (n1, 128)
-    products, the twiddle (6 FLOP per complex value), stage 2 a Karatsuba
-    complex (128, 128) x (128, n1) product; x and every table read once,
-    the complex output written once."""
+def whole_bound(n: int, complex_: bool):
+    """K1/K2, B = 1 (the same for both table layouts): a radix-2 FFT's
+    5 n log2 n FLOP and the twiddle's 6 per complex value; x (both parts for
+    complex input), TW, the n1- and 128-point root rows and the scale read
+    once, the complex output written once."""
     n1 = n // 128
-    flop = 4 * n1 * n1 * 128 + 6 * n + 6 * 128 * 128 * n1
-    tables = (4 * n1 + 256) * 128 if packed else 2 * n1 * n1 + 2 * n + 2 * 128 * 128
-    return bound(flop, "fp32", 4 * (n + tables + 2 * n))
+    flop = 5 * n * (n.bit_length() - 1) + 6 * n
+    return bound(flop, "fp32", 4 * ((2 if complex_ else 1) * n + 2 * n + 2 * (n1 + 128) + 1 + 2 * n))
 
 
 def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, twiddle_floats: int):
@@ -491,11 +491,16 @@ def main() -> None:
     for name, n in (("whole_transform_packed", 1024), ("whole_transform", 4096), ("whole_transform", 16384)):
         make_plan = P.get_whole_packed_plan if name == "whole_transform_packed" else P.get_whole_plan
         fwd = P.on_device(make_plan, n, -1, None, device=dev)
-        x = randn(1, n)
+        inv = P.on_device(make_plan, n, 1, 1.0 / n, device=dev)
+        x, xi = randn(1, n), randn(1, n)
+        z = torch.complex(x, xi)
         kern, plain = getattr(K, name), getattr(K, name + "_plain")
         time_pair(f"{name} B=1 n={n} real fwd", name,
                   lambda: kern(x, None, fwd), lambda: plain(x, None, fwd),
-                  whole_bound(n, name == "whole_transform_packed"), lambda: torch.fft.fft(x))
+                  whole_bound(n, False), lambda: torch.fft.fft(x))
+        time_pair(f"{name} B=1 n={n} complex inv 1/n", name,
+                  lambda: kern(x, xi, inv), lambda: plain(x, xi, inv),
+                  whole_bound(n, True), lambda: torch.fft.ifft(z))
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]

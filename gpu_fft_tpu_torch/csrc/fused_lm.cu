@@ -15,20 +15,19 @@
 // 12.6 MB (x, the tables, the output) that take 3.8 us at 3.35 TB/s.
 //
 // Design: the TPU kernel's batch tile was a VMEM budget and has no meaning
-// here.  This is K1's decomposition (csrc/whole_transform.cu): each k1 row of
-// Z needs only the F1 row k1 and all of x, and each output column k1 of Y
-// only Z row k1, so a block owns RB = 16 rows k1 of one transform, runs both
-// stages for them and needs no other block.  Both stages are register-tiled
-// products: a thread keeps a 4-row tile (rows r0 .. r0 + 3) of P, then of
-// the three Karatsuba products, so each value it loads of x or F2 feeds four
-// FMAs instead of one.  The 64 threads of a row group take
-// neighbouring columns, so x and F2 rows are read coalesced; F1 rows are read
-// as float4 along a, the same address across a warp.  Z is kept in shared
-// memory transposed, [c][k1], so stage 2 reads its four rows at one c as one
-// float4, and the 4 k1 of a tile leave as one float4 of Y.  n2 (64, 128 or
-// 256) is a template parameter.  Where the (k1, batch) blocks alone leave
-// most SMs idle (B = 1) the output columns j are split H = n2 / 64 ways as
-// well, each such block recomputing stage 1 for its rows, as K1 does.
+// here.  Each k1 row of Z needs only the F1 row k1 and all of x, and each
+// output column k1 of Y only Z row k1, so a block owns RB = 16 rows k1 of
+// one transform, runs both stages for them and needs no other block.  Both
+// stages are register-tiled products: a thread keeps a 4-row tile (rows
+// r0 .. r0 + 3) of P, then of the three Karatsuba products, so each value it
+// loads of x or F2 feeds four FMAs instead of one.  The 64 threads of a row
+// group take neighbouring columns, so x and F2 rows are read coalesced; F1
+// rows are read as float4 along a, the same address across a warp.  Z is
+// kept in shared memory transposed, [c][k1], so stage 2 reads its four rows
+// at one c as one float4, and the 4 k1 of a tile leave as one float4 of Y.
+// n2 (64, 128 or 256) is a template parameter.  Where the (k1, batch) blocks
+// alone leave most SMs idle (B = 1) the output columns j are split
+// H = n2 / 64 ways as well, each such block recomputing stage 1 for its rows.
 #include "common.cuh"
 
 namespace {

@@ -33,10 +33,11 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # xr, xi, f1r, f1i, twr, twi, f2r, f2i, yr, yi, batch, n1, stream
-    "gft_whole_split": [_P] * 10 + [_I, _I, _P],
-    # xr, xi, packed, yr, yi, batch, n1, stream
-    "gft_whole_packed": [_P] * 5 + [_I, _I, _P],
+    # xr, xi, f1r, f1i, twr, twi, f2r, f2i, yr, yi,
+    # batch, n1, cluster, threads, smem_bytes, stream
+    "gft_whole_split": [_P] * 10 + [_I] * 5 + [_P],
+    # xr, xi, packed, yr, yi, batch, n1, cluster, threads, smem_bytes, stream
+    "gft_whole_packed": [_P] * 5 + [_I] * 5 + [_P],
     # xr, xi, f1r, f1i, two_r, two_i, twi_r, twi_i, yr, yi,
     # batch, n1, n2, ct, rows, ncols, stream
     "gft_stage_a": [_P] * 10 + [_I] * 6 + [_P],

@@ -4,8 +4,9 @@ Three Pallas kernels of the JAX package sit on the transform path
 (``gpu_fft_tpu/kernels/fused.py``); each is a CUDA kernel here (``csrc/``):
 
 * ``whole_transform`` (K1) and ``whole_transform_packed`` (K2): the whole
-  four-step of a B = 1 transform with 1024 <= n <= 16384 in one launch
-  (``csrc/whole_transform.cu``);
+  four-step of a B = 1 transform with 1024 <= n <= 16384 in one launch, a
+  radix FFT on one thread-block cluster per transform
+  (``csrc/whole_transform.cu``; launch shape from :func:`whole_geometry`);
 * ``stage_a`` (K3): column DFT + twiddle, the first half of every staged
   transform (``csrc/stage_a.cu``), with the plan's factored twiddle; given a
   legacy plan with a materialized (n1, n2) twiddle it launches K3-legacy,
@@ -31,6 +32,8 @@ __all__ = [
     "reset_counts",
     "stage_a",
     "stage_a_plain",
+    "whole_geometry",
+    "whole_slices",
     "whole_transform",
     "whole_transform_packed",
     "whole_transform_packed_plain",
@@ -38,6 +41,7 @@ __all__ = [
 ]
 
 _N2 = 128  # row length of the whole-transform (n1, 128) view
+_WHOLE_VALUES = 8  # complex values a thread of the whole kernel holds in a pass
 
 
 @dataclass
@@ -139,13 +143,59 @@ def whole_transform_packed_plain(xr, xi, plan: dict):
     return _whole_plain(xr, xi, *_packed_tables(plan))
 
 
+#: Blocks per cluster at B = 1, by n1 = n / 128: the fastest of the swept
+#: sizes, real forward and complex inverse alike (``scripts/time_whole.py``
+#: on an H100 80GB HBM3 at 700 W: 1,024 threads at the most, 1,024 to 4,096
+#: values a block).
+_B1_CLUSTER = {8: 1, 16: 1, 32: 4, 64: 8, 128: 16, 256: 16, 512: 16}
+_SMS = 132  # SMs of an H100 SXM
+
+
+def _stage2_ld(rows: int) -> int:
+    """Row stride (complex values) of the kernel's stage-2 tile."""
+    return _N2 + (16 // rows if rows < 16 else 1)
+
+
+def whole_smem_bytes(n1: int, cluster: int) -> int:
+    """Dynamic shared memory of one block: its tile (stage 1: 128/C padded
+    columns of n1, stage 2: n1/C padded rows of 128, in turn) and the n1-
+    and 128-point root tables, as complex fp32
+    (``csrc/whole_transform.cu:smem_values``)."""
+    rows = n1 // cluster
+    return 8 * (max(_N2 // cluster * (n1 + 1), rows * _stage2_ld(rows)) + n1 + _N2)
+
+
+def whole_geometry(b: int, n1: int) -> tuple[int, int, int]:
+    """(cluster, threads, smem_bytes) of the whole kernel for B = ``b`` rows
+    of n = 128 * n1 points: one cluster of ``cluster`` blocks per row, each of
+    ``threads`` = n / (8 * cluster) threads.  At B = 1 the cluster is the
+    swept fastest; a larger batch halves it while the grid holds more blocks
+    than the card has SMs, down to the least cluster whose blocks fit 1,024
+    threads (the fastest of the sweep at B = 16 and 64, n = 4,096 and
+    16,384, too)."""
+    if n1 not in _B1_CLUSTER:
+        raise ValueError(f"whole kernel: n1 must be a power of two in [8, 512], got {n1}")
+    least = max(1, n1 * _N2 // (_WHOLE_VALUES * 1024))
+    cluster = _B1_CLUSTER[n1]
+    while cluster > least and b * cluster > _SMS:
+        cluster //= 2
+    return cluster, n1 * _N2 // (_WHOLE_VALUES * cluster), whole_smem_bytes(n1, cluster)
+
+
+def whole_slices(n1: int, cluster: int) -> list[tuple[range, range]]:
+    """What block ``r`` of a cluster owns: the x columns of its stage 1 and
+    the rows k1 of its stage 2 (and so the output columns ``j * n1 + k1``)."""
+    w, m = _N2 // cluster, n1 // cluster
+    return [(range(r * w, (r + 1) * w), range(r * m, (r + 1) * m)) for r in range(cluster)]
+
+
 def _whole_args(kernel: str, xr, xi, plan: dict):
     b, n = xr.shape
     n1, n2 = plan["n1"], plan["n2"]
     if n2 != _N2 or n != n1 * n2:
         raise ValueError(f"{kernel}: x is (B, {n}), plan is n1={n1} x n2={n2}")
-    if n1 < 8 or n1 & (n1 - 1):
-        raise ValueError(f"{kernel}: n1 = n/128 must be a power of two >= 8, got n1={n1}")
+    if n1 < 8 or n1 & (n1 - 1) or n1 > 512:
+        raise ValueError(f"{kernel}: n1 = n/128 must be a power of two in [8, 512], got n1={n1}")
     if xi is not None and xi.shape != xr.shape:
         raise ValueError(f"{kernel}: xr {tuple(xr.shape)} and xi {tuple(xi.shape)} differ")
     return b, n1
@@ -171,7 +221,7 @@ def whole_transform(xr, xi, plan: dict):
     lib = _build.library()
     err = lib.gft_whole_split(
         _ptr(xr), _ptr(xi), *(_ptr(plan[k]) for k in names),
-        _ptr(yr), _ptr(yi), b, n1, _stream(xr.device),
+        _ptr(yr), _ptr(yi), b, n1, *whole_geometry(b, n1), _stream(xr.device),
     )
     _build.check(err, "whole_transform")
     count.launches += 1
@@ -193,7 +243,8 @@ def whole_transform_packed(xr, xi, plan: dict):
     yi = torch.empty_like(xr)
     lib = _build.library()
     err = lib.gft_whole_packed(
-        _ptr(xr), _ptr(xi), _ptr(plan["packed"]), _ptr(yr), _ptr(yi), b, n1, _stream(xr.device)
+        _ptr(xr), _ptr(xi), _ptr(plan["packed"]), _ptr(yr), _ptr(yi), b, n1,
+        *whole_geometry(b, n1), _stream(xr.device),
     )
     _build.check(err, "whole_transform_packed")
     count.launches += 1

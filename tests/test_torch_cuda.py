@@ -43,24 +43,40 @@ def _close(got, want):
     assert err <= RTOL * scale, f"max|d| {err:.3e} > {RTOL} * {scale:.3e}"
 
 
+def _signal(kind, b, n, g, dev):
+    """(b, n) input: normal noise, a constant (DC), or an impulse at 1."""
+    if kind == "randn":
+        return torch.randn(b, n, device=dev, generator=g)
+    x = torch.ones(b, n, device=dev) if kind == "dc" else torch.zeros(b, n, device=dev)
+    if kind == "impulse":
+        x[:, 1] = 1.0
+    return x
+
+
 @pytest.mark.parametrize(
     "name,n",
-    [("whole_transform_packed", 1024), ("whole_transform", 1024), ("whole_transform", 8192),
-     ("whole_transform", 65536)],
+    [("whole_transform", n) for n in (1024, 2048, 4096, 8192, 16384, 32768, 65536)]
+    + [("whole_transform_packed", n) for n in (1024, 2048, 4096, 8192, 16384)],
 )
-@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("b", [1, 2, 3])
 @pytest.mark.parametrize("complex_", [False, True])
-def test_whole_kernel(dev, name, n, b, complex_):
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_whole_kernel(dev, name, n, b, complex_, signal):
+    """Against the plain version (1e-5) and numpy in float64 (5 log2(n) eps)."""
     make_plan = P.get_whole_packed_plan if name == "whole_transform_packed" else P.get_whole_plan
     sign, scale = (1, 1.0 / n) if complex_ else (-1, None)
     plan = P.on_device(make_plan, n, sign, scale, device=dev)
     g = torch.Generator(device=dev).manual_seed(n + b)
-    xr = torch.randn(b, n, device=dev, generator=g)
-    xi = torch.randn(b, n, device=dev, generator=g) if complex_ else None
+    xr = _signal(signal, b, n, g, dev)
+    xi = 0.5 * _signal(signal, b, n, g, dev) if complex_ else None
     K.reset_counts()
     got = getattr(K, name)(xr, xi, plan)
     assert K.COUNTS[name].launches == 1 and K.COUNTS[name].plain_calls == 0
     _close(got, getattr(K, name + "_plain")(xr, xi, plan))
+    x = xr.cpu().double().numpy() + (0 if xi is None else 1j * xi.cpu().double().numpy())
+    ref = np.fft.ifft(x, axis=-1) if complex_ else np.fft.fft(x, axis=-1)
+    err = max(np.abs(got[0].cpu().numpy() - ref.real).max(), np.abs(got[1].cpu().numpy() - ref.imag).max())
+    assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("complex_,rows,tiles", [(False, 72, None), (True, None, None), (True, None, 1)])

@@ -133,6 +133,26 @@ def test_wrapper_has_no_fallback_off_the_cpu(name):
     assert K.COUNTS[name].plain_calls == 0 and K.COUNTS[name].launches == 0
 
 
+@pytest.mark.parametrize("n1", [8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("b", [1, 3])
+def test_whole_geometry_fits_and_covers(n1, b):
+    """The whole kernel's launch rule: one cluster of at most 16 blocks per
+    row, each block within the H100's 1,024 threads and 232,448 bytes of
+    shared memory, 8 complex values per thread; the blocks' column slices
+    (stage 1) and row slices (stage 2) cover the (n1, 128) view exactly once."""
+    cluster, threads, smem = K.whole_geometry(b, n1)
+    assert cluster & (cluster - 1) == 0 and 1 <= cluster <= min(16, n1)
+    assert threads <= 1024 and threads * 8 * cluster == n1 * 128
+    assert smem <= 232_448
+    assert smem >= 8 * (n1 * 128 // cluster + n1 + 128)  # the tile and both root tables
+    slices = K.whole_slices(n1, cluster)
+    assert len(slices) == cluster
+    assert sorted(c for cols, _ in slices for c in cols) == list(range(128))
+    assert sorted(r for _, rows in slices for r in rows) == list(range(n1))
+    # Each block's stage-1 tile and stage-2 tile hold n / cluster values.
+    assert all(len(cols) * n1 == len(rows) * 128 == threads * 8 for cols, rows in slices)
+
+
 @pytest.mark.parametrize("n1", [4, 12])
 def test_whole_kernel_rejects_bad_n1(n1):
     with pytest.raises(ValueError, match=r"n1 = n/128"):
