@@ -24,7 +24,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    against its plain version, its bound on the card and, where one exists,
    the one PyTorch call that computes the same function (K1 and K2 on real
    forward and on complex inverse input, beside torch.fft.fft and
-   torch.fft.ifft); each main-path call against torch.fft;
+   torch.fft.ifft; K3 at 2^20 and 2^22 on real input with the real path's
+   rows and on complex input with the inverse plan, the ifft path); each
+   main-path call against torch.fft;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error
@@ -67,6 +69,14 @@ CALIBRATION_PATH_KERNELS = (*CALIBRATION_KERNELS, *MAIN_PATH_KERNELS)
 LM_CASES = ((1, 4096), (1, 16384), (1, 65536), (16, 4096), (16, 65536), (64, 4096), (1, 32768))
 
 
+T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Seconds since the start, on stderr: where the run's time goes."""
+    print(f"chip_smoke: {what} at {time.perf_counter() - T0:.1f} s", file=sys.stderr, flush=True)
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -105,13 +115,22 @@ def whole_bound(n: int, complex_: bool):
     return bound(flop, "fp32", 4 * ((2 if complex_ else 1) * n + 2 * n + 2 * (n1 + 128) + 1 + 2 * n))
 
 
-def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, twiddle_floats: int):
-    """K3 / K3-legacy / S2, B = 1: rows x n1 x n2 real products (2 for real
-    input, Karatsuba 3 for complex), 6 FLOP per output for the twiddle; x,
-    F1's rows and the twiddle read once, the output written once."""
-    flop = (6 if complex_ else 4) * rows * n1 * n2 + 6 * rows * n2
-    nbytes = 4 * ((2 if complex_ else 1) * n1 * n2 + 2 * rows * n1 + twiddle_floats + 2 * rows * n2)
+def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int):
+    """K3, B = 1: a radix-2 FFT's 5 n1 log2 n1 FLOP per column and 6 per
+    stored output for the factored twiddle (rebuilt, 6 more); x (both parts
+    for complex input), the n1-point root row, the twiddle's rows (two
+    (rows, n2/ct), twi (rows, ct)) read once, the output written once."""
+    flop = 5 * n1 * (n1.bit_length() - 1) * n2 + 12 * rows * n2
+    nbytes = 4 * ((2 if complex_ else 1) * n1 * n2 + 2 * n1 + 2 * rows * (n2 // ct + ct) + 2 * rows * n2)
     return bound(flop, "fp32", nbytes)
+
+
+def dense_stage_a_bound(n1: int, n2: int, rows: int, twiddle_floats: int):
+    """K3-legacy / S2 (real input), B = 1: rows x n1 x n2 real products,
+    6 FLOP per output for the twiddle; x, F1's rows and the twiddle read
+    once, the output written once."""
+    flop = 4 * rows * n1 * n2 + 6 * rows * n2
+    return bound(flop, "fp32", 4 * (n1 * n2 + 2 * rows * n1 + twiddle_floats + 2 * rows * n2))
 
 
 def dot_bound(n1: int, n2: int, variant: str):
@@ -124,12 +143,11 @@ def dot_bound(n1: int, n2: int, variant: str):
 
 
 def lm_bound(b: int, n: int, n1: int, n2: int):
-    """S1, real forward: stage 1 two real (n1, n1) x (n1, n2) products, the
-    twiddle (6 FLOP per complex value), stage 2 a Karatsuba complex
-    (n1, n2) x (n2, n2) product, per row; x, F1 (two tables), the twiddle,
-    F2 (three) read once, the complex output written once."""
-    flop = b * (4 * n * n1 + 6 * n + 6 * n * n2)
-    return bound(flop, "fp32", 4 * (b * n + 2 * n1 * n1 + 2 * n + 3 * n2 * n2 + 2 * b * n))
+    """S1, real forward: per row a radix-2 FFT's 5 n log2 n FLOP and 6 per
+    twiddle; x, TW, the n1- and n2-point root rows and F2[0, 0] read once,
+    the complex output written once."""
+    flop = b * (5 * n * (n.bit_length() - 1) + 6 * n)
+    return bound(flop, "fp32", 4 * (b * n + 2 * n + 2 * n1 + n2 + 1 + 2 * b * n))
 
 
 def probe_bound(k: int):
@@ -244,6 +262,7 @@ def main() -> None:
     report.update(card=smi, build_seconds=info.seconds, build_log=info.log)
 
     # ── Phase 2: each kernel against its plain version on the card ──────────
+    stamp("phase 2")
     print("phase 2: kernels vs plain torch (gate max|d| <= 1e-5 max|plain|)")
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = {name: 0.0 for name in (*K.COUNTS, *A.COUNTS, *E.COUNTS, *Pr.COUNTS)}
@@ -381,6 +400,7 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # ── Phase 3: the main path through the public API ───────────────────────
+    stamp("phase 3")
     print("phase 3: main path on device='cuda' (gate 5*log2(N)*eps)")
     K.reset_counts()
     rng = np.random.default_rng(0)
@@ -462,6 +482,7 @@ def main() -> None:
             fail(f"{name} was launched no time on the main path")
 
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
+    stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
     kernel_ms = {}
 
@@ -506,11 +527,18 @@ def main() -> None:
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         rows = P.stage_a_real_rows(n1)
         x = randn(1, n1, n2)
-        factored_tw = 2 * rows * (n2 // ct) + 2 * rows * ct
         time_pair(f"stage_a n={n} real rows={rows}", "stage_a",
                   lambda: K.stage_a(x, None, n1, n2, plan, ct, rows=rows),
                   lambda: K.stage_a_plain(x, None, n1, n2, plan, ct, rows=rows),
-                  stage_a_bound(n1, n2, rows, False, factored_tw))
+                  stage_a_bound(n1, n2, rows, False, ct))
+        # Complex input, all rows, the inverse plan: the ifft path.
+        inv = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
+        xi = randn(1, n1, n2)
+        time_pair(f"stage_a n={n} complex inv", "stage_a",
+                  lambda: K.stage_a(x, xi, n1, n2, inv, ct),
+                  lambda: K.stage_a_plain(x, xi, n1, n2, inv, ct),
+                  stage_a_bound(n1, n2, n1, True, ct))
+        del xi
         # K3-legacy at the same shape and rows: the materialized twiddle's
         # extra read against the factored one.
         legacy = P.on_device(ablate_large.make_plan, n, n1, -1, device=dev)
@@ -519,15 +547,15 @@ def main() -> None:
             time_pair(f"stage_a_legacy n={n} real all rows", "stage_a_legacy",
                       lambda: K.stage_a(x, None, n1, n2, legacy, lct),
                       lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct),
-                      stage_a_bound(n1, n2, n1, False, 2 * n1 * n2))
+                      dense_stage_a_bound(n1, n2, n1, 2 * n1 * n2))
             x2 = x[0]
             time_pair(f"stage_a_manual n={n} real", "stage_a_manual",
                       lambda: A.stage_a_manual(x2, legacy), lambda: A.stage_a_manual_plain(x2, legacy),
-                      stage_a_bound(n1, n2, n1, False, 2 * n1 * n2))
+                      dense_stage_a_bound(n1, n2, n1, 2 * n1 * n2))
         time_pair(f"stage_a_legacy n={n} real rows={rows}", "stage_a_legacy",
                   lambda: K.stage_a(x, None, n1, n2, legacy, lct, rows=rows),
                   lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct, rows=rows),
-                  stage_a_bound(n1, n2, rows, False, 2 * rows * n2))
+                  dense_stage_a_bound(n1, n2, rows, 2 * rows * n2))
         del x
     s3_cat = torch.cat([s3_tables["fr"], s3_tables["fi"]])
     for v in A.VARIANTS:
@@ -572,6 +600,7 @@ def main() -> None:
         print(f"    fft top kernels: {[(k, round(v, 4)) for k, v in ftop]}")
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
+    stamp("phase 5")
     print("phase 5: stage-A ablation harnesses, quick setting (device times from CUDA graphs)")
     K.reset_counts()
     A.reset_counts()
@@ -603,6 +632,7 @@ def main() -> None:
     print("  harnesses: every row measured and within parity; no error rows but the unported irfft rows")
 
     # ── Phase 6: the third path, the calibration scripts ────────────────────
+    stamp("phase 6")
     print("phase 6: calibration scripts, quick setting (device times from CUDA graphs)")
     for mod in (K, A, E, Pr):
         mod.reset_counts()
@@ -679,6 +709,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    t0 = time.perf_counter()
     main()
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    stamp("end")

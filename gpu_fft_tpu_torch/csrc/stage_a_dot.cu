@@ -188,9 +188,8 @@ stage_a_dot_bf16_kernel(const float* __restrict__ x, const unsigned short* __res
 
 extern "C" int gft_stage_a_dot_f32(const float* x, const float* fr, const float* fi, float* yr,
                                    float* yi, int batch, int n1, int n2, void* stream) {
-  return gft::launch_stage_a_tile<gft::TW_NONE>(x, nullptr, fr, fi, nullptr, nullptr, nullptr,
-                                                nullptr, yr, yi, batch, n1, n2, 1, n1, n2,
-                                                stream);
+  return gft::launch_stage_a_tile<gft::TW_NONE>(x, nullptr, fr, fi, nullptr, nullptr, yr, yi, batch,
+                                                n1, n2, n1, n2, stream);
 }
 
 extern "C" int gft_stage_a_dot_bf16(const float* x, const void* far, const void* fai, float* yr,

@@ -1,13 +1,13 @@
-// The tiled column-DFT kernel shared by stage A (K3, K3-legacy) and the f32
-// variant of the stage-A dot ablation (S3 f32_highest).
+// The tiled column-DFT product that serves K3-legacy (stage A on a plan with
+// a materialized twiddle, stage_a.cu) and the f32 variant of the stage-A dot
+// ablation (S3 f32_highest, stage_a_dot.cu).  K3 itself, on the production
+// plan's factored twiddle, is a radix FFT (stage_a.cu, radix.cuh).
 //
 // Over a (B, n1, n2) view of x it computes, for k1 < rows and c < ncols,
 //   P[b, k1, c] = sum_a F1[k1, a] x[b, a, c]
-// and writes Y = P * W[k1, c], where the twiddle W comes from one of three
+// and writes Y = P * W[k1, c], where the twiddle W comes from one of two
 // sources (the TW template parameter):
 //   TW_NONE      W = 1: the bare product (S3's f32 variant);
-//   TW_FACTORED  W = two[k1, c / ct] * twi[k1, c % ct], the production plan's
-//                factored table, rebuilt in the epilogue (K3);
 //   TW_FULL      W = tw[k1 * n2 + c], a materialized (n1, n2) table read with
 //                coalesced float4 loads in the epilogue (K3-legacy).
 //
@@ -26,7 +26,6 @@
 namespace gft {
 
 constexpr int TW_NONE = 0;
-constexpr int TW_FACTORED = 1;
 constexpr int TW_FULL = 2;
 
 namespace stage_a_tile {
@@ -36,16 +35,14 @@ constexpr int TK = 32;   // contraction depth per shared-memory stage
 constexpr int THREADS = 256;
 }  // namespace stage_a_tile
 
-// tw_a / tw_b: two_r / two_i (TW_FACTORED) or twr / twi (TW_FULL);
-// tw_c / tw_d: twi_r / twi_i (TW_FACTORED only).
+// twr / twi: the (n1, n2) twiddle (TW_FULL only).
 template <bool COMPLEX, int TW, bool DEPTH_MASK>
 __global__ void __launch_bounds__(stage_a_tile::THREADS)
 stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     const float* __restrict__ f1r, const float* __restrict__ f1i,
-                    const float* __restrict__ tw_a, const float* __restrict__ tw_b,
-                    const float* __restrict__ tw_c, const float* __restrict__ tw_d,
-                    float* __restrict__ yr, float* __restrict__ yi, int n1, int n2, int ct,
-                    int rows, int ncols, int col_blocks) {
+                    const float* __restrict__ twr, const float* __restrict__ twi,
+                    float* __restrict__ yr, float* __restrict__ yi, int n1, int n2, int rows,
+                    int ncols, int col_blocks) {
   using namespace stage_a_tile;
   __shared__ float sfr[TK][TM + 1];
   __shared__ float sfi[TK][TM + 1];
@@ -127,7 +124,6 @@ stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 
   // Epilogue: Y = P * W.
-  const int n_outer = TW == TW_FACTORED ? n2 / ct : 1;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int k1 = row0 + ty * 2 + i;
@@ -138,8 +134,8 @@ stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       if (cb >= ncols) continue;
       float4 full_r, full_i;  // TW_FULL: W for the four columns cb..cb+3
       if constexpr (TW == TW_FULL) {
-        full_r = ldg4(tw_a + (size_t)k1 * n2 + cb);
-        full_i = ldg4(tw_b + (size_t)k1 * n2 + cb);
+        full_r = ldg4(twr + (size_t)k1 * n2 + cb);
+        full_i = ldg4(twi + (size_t)k1 * n2 + cb);
       }
       float outr[4], outi[4];
 #pragma unroll
@@ -149,19 +145,7 @@ stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           outr[q] = pr;
           outi[q] = pi;
         } else {
-          float wr, wi;
-          if constexpr (TW == TW_FULL) {
-            wr = f4(full_r, q);
-            wi = f4(full_i, q);
-          } else {
-            const int c = cb + q;
-            const float o_r = __ldg(tw_a + (size_t)k1 * n_outer + c / ct);
-            const float o_i = __ldg(tw_b + (size_t)k1 * n_outer + c / ct);
-            const float in_r = __ldg(tw_c + (size_t)k1 * ct + c % ct);
-            const float in_i = __ldg(tw_d + (size_t)k1 * ct + c % ct);
-            wr = o_r * in_r - o_i * in_i;
-            wi = o_r * in_i + o_i * in_r;
-          }
+          const float wr = f4(full_r, q), wi = f4(full_i, q);
           outr[q] = pr * wr - pi * wi;
           outi[q] = pr * wi + pi * wr;
         }
@@ -176,9 +160,8 @@ stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // Launch over (B, n1, n2) -> (B, rows, ncols); returns cudaGetLastError().
 template <int TW>
 int launch_stage_a_tile(const float* xr, const float* xi, const float* f1r, const float* f1i,
-                        const float* tw_a, const float* tw_b, const float* tw_c,
-                        const float* tw_d, float* yr, float* yi, int batch, int n1, int n2,
-                        int ct, int rows, int ncols, void* stream) {
+                        const float* twr, const float* twi, float* yr, float* yi, int batch,
+                        int n1, int n2, int rows, int ncols, void* stream) {
   using namespace stage_a_tile;
   if (batch < 1 || n1 < 1 || n2 % 4 || ncols % 4 || ncols < 4 || ncols > n2 || rows < 1 ||
       rows > n1)
@@ -192,7 +175,7 @@ int launch_stage_a_tile(const float* xr, const float* xi, const float* f1r, cons
                          : (mask ? stage_a_tile_kernel<false, TW, true>
                                  : stage_a_tile_kernel<false, TW, false>);
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, f1r, f1i, tw_a, tw_b, tw_c, tw_d, yr, yi, n1, n2, ct, rows, ncols, (int)col_blocks);
+      xr, xi, f1r, f1i, twr, twi, yr, yi, n1, n2, rows, ncols, (int)col_blocks);
   return (int)cudaGetLastError();
 }
 

@@ -39,8 +39,8 @@ _SIGNATURES = {
     # xr, xi, packed, yr, yi, batch, n1, cluster, threads, smem_bytes, stream
     "gft_whole_packed": [_P] * 5 + [_I] * 5 + [_P],
     # xr, xi, f1r, f1i, two_r, two_i, twi_r, twi_i, yr, yi,
-    # batch, n1, n2, ct, rows, ncols, stream
-    "gft_stage_a": [_P] * 10 + [_I] * 6 + [_P],
+    # batch, n1, n2, ct, rows, ncols, width, threads, smem_bytes, stream
+    "gft_stage_a": [_P] * 10 + [_I] * 9 + [_P],
     # xr, xi, f1r, f1i, twr, twi, yr, yi, batch, n1, n2, rows, ncols, stream
     "gft_stage_a_full": [_P] * 8 + [_I] * 5 + [_P],
     # x, f1r, f1i, twr, twi, yr, yi, n1, n2, stream
@@ -49,8 +49,9 @@ _SIGNATURES = {
     "gft_stage_a_dot_f32": [_P] * 5 + [_I] * 3 + [_P],
     # x, far, fai, yr, yi, batch, n1, n2, parts, stream
     "gft_stage_a_dot_bf16": [_P] * 5 + [_I] * 4 + [_P],
-    # x, f1r, f1i, twr, twi, f2r, f2s, f2d, yr, yi, batch, n1, n2, stream
-    "gft_fused_lm": [_P] * 10 + [_I] * 3 + [_P],
+    # x, f1r, f1i, twr, twi, f2r, f2s, f2d, yr, yi,
+    # batch, n1, n2, cluster, threads, smem_bytes, stream
+    "gft_fused_lm": [_P] * 10 + [_I] * 6 + [_P],
     # x, o, stream
     "gft_copy_min": [_P] * 3,
     # x, t0 .. t7, o, k, stream

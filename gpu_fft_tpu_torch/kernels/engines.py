@@ -4,8 +4,10 @@ plain version.
 ``scripts/ablate_engines.py`` measures two left-matmul forms of the real
 input fused four-step: ``pallas_lm``, a Pallas kernel, and ``jnp_lm``, the
 same contractions in jnp.  Here ``pallas_lm`` is the CUDA kernel
-``csrc/fused_lm.cu`` behind :func:`fused_fft_lm` and ``jnp_lm`` is its plain
-version :func:`fused_fft_lm_plain`.  Both read :func:`lm_tables`: the
+``csrc/fused_lm.cu`` behind :func:`fused_fft_lm` (the whole-transform radix
+kernel of K1 at n2 = 64, 128 or 256, launch shape from
+:func:`.fused.lm_geometry`) and ``jnp_lm`` is its plain version
+:func:`fused_fft_lm_plain`.  Both read :func:`lm_tables`: the
 balanced split (n1 <= n2), the Karatsuba table groups of both digits and the
 (n1, n2) twiddle oriented [k1, c].
 
@@ -20,7 +22,7 @@ import torch
 
 from ..plan import balanced_split
 from . import _build
-from .fused import LaunchCount, _check, _on_cpu, _ptr, _stream
+from .fused import LaunchCount, _check, _on_cpu, _ptr, _stream, lm_geometry
 from .tables import dft_matrix_ext, twiddle_table
 
 __all__ = [
@@ -33,7 +35,6 @@ __all__ = [
 ]
 
 LM_N2 = (64, 128, 256)  # the kernel's n2 instantiations: n = 2,048 ... 65,536
-_RB = 16  # k1 rows per kernel block: n1 must be a multiple
 
 COUNTS = {"fused_fft_lm": LaunchCount()}
 
@@ -88,11 +89,9 @@ def fused_fft_lm(x, t: dict):
         return fused_fft_lm_plain(x, t)
     b, n = x.shape
     n1, n2 = t["n1"], t["n2"]
-    if n != n1 * n2 or n2 not in LM_N2 or n1 % _RB or n1 > n2:
-        raise ValueError(
-            f"fused_fft_lm kernel needs n = n1 * n2 with n2 in {LM_N2} and n1 <= n2 a "
-            f"multiple of {_RB} (n={n}, n1={n1}, n2={n2})"
-        )
+    if n != n1 * n2:
+        raise ValueError(f"fused_fft_lm: x is (B, {n}), tables are n1={n1} x n2={n2}")
+    geometry = lm_geometry(b, n1, n2)
     names = ("f1r", "f1i", "twr", "twi", "f2r", "f2s", "f2d")
     shapes = {"x": (b, n), "f1r": (n1, n1), "f1i": (n1, n1), "twr": (n1, n2), "twi": (n1, n2),
               "f2r": (n2, n2), "f2s": (n2, n2), "f2d": (n2, n2)}
@@ -100,7 +99,8 @@ def fused_fft_lm(x, t: dict):
     yr = torch.empty_like(x)
     yi = torch.empty_like(x)
     err = _build.library().gft_fused_lm(
-        _ptr(x), *(_ptr(t[k]) for k in names), _ptr(yr), _ptr(yi), b, n1, n2, _stream(x.device)
+        _ptr(x), *(_ptr(t[k]) for k in names), _ptr(yr), _ptr(yi), b, n1, n2, *geometry,
+        _stream(x.device),
     )
     _build.check(err, "fused_fft_lm")
     count.launches += 1

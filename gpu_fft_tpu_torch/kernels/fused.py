@@ -8,9 +8,14 @@ Three Pallas kernels of the JAX package sit on the transform path
   radix FFT on one thread-block cluster per transform
   (``csrc/whole_transform.cu``; launch shape from :func:`whole_geometry`);
 * ``stage_a`` (K3): column DFT + twiddle, the first half of every staged
-  transform (``csrc/stage_a.cu``), with the plan's factored twiddle; given a
-  legacy plan with a materialized (n1, n2) twiddle it launches K3-legacy,
-  the same kernel reading that table (counted as ``stage_a_legacy``).
+  transform, with the plan's factored twiddle: a radix FFT per column of the
+  (n1, n2) view (``csrc/stage_a.cu``; launch shape from
+  :func:`stage_a_geometry`); given a legacy plan with a materialized (n1, n2)
+  twiddle it launches K3-legacy, a tiled product reading that table
+  (``csrc/stage_a_tile.cuh``, counted as ``stage_a_legacy``).
+
+:func:`lm_geometry` gives the launch shape of the same whole kernel at
+n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
 
 Each wrapper keeps the JAX signature.  For a tensor on the CPU it runs its
 plain torch version (``*_plain``); for a CUDA tensor it launches the kernel
@@ -29,8 +34,10 @@ from .fused_torch import stage_a_torch
 
 __all__ = [
     "COUNTS",
+    "lm_geometry",
     "reset_counts",
     "stage_a",
+    "stage_a_geometry",
     "stage_a_plain",
     "whole_geometry",
     "whole_slices",
@@ -41,7 +48,8 @@ __all__ = [
 ]
 
 _N2 = 128  # row length of the whole-transform (n1, 128) view
-_WHOLE_VALUES = 8  # complex values a thread of the whole kernel holds in a pass
+_VALUES = 8  # complex values a thread of a radix kernel holds in a pass
+_MAX_THREADS = 1024
 
 
 @dataclass
@@ -148,21 +156,39 @@ def whole_transform_packed_plain(xr, xi, plan: dict):
 #: on an H100 80GB HBM3 at 700 W: 1,024 threads at the most, 1,024 to 4,096
 #: values a block).
 _B1_CLUSTER = {8: 1, 16: 1, 32: 4, 64: 8, 128: 16, 256: 16, 512: 16}
+#: The same for S1, by n = n1 * n2 (``time_whole``'s S1 sweep).
+_LM_B1_CLUSTER = {512: 1, 1024: 1, 2048: 1, 4096: 4, 8192: 8, 16384: 16, 32768: 16, 65536: 16}
 _SMS = 132  # SMs of an H100 SXM
 
 
-def _stage2_ld(rows: int) -> int:
-    """Row stride (complex values) of the kernel's stage-2 tile."""
-    return _N2 + (16 // rows if rows < 16 else 1)
+def _pow2_in(v: int, lo: int, hi: int) -> bool:
+    return lo <= v <= hi and v & (v - 1) == 0
 
 
-def whole_smem_bytes(n1: int, cluster: int) -> int:
-    """Dynamic shared memory of one block: its tile (stage 1: 128/C padded
-    columns of n1, stage 2: n1/C padded rows of 128, in turn) and the n1-
-    and 128-point root tables, as complex fp32
-    (``csrc/whole_transform.cu:smem_values``)."""
+def _stage2_ld(rows: int, n2: int = _N2) -> int:
+    """Row stride (complex values) of the whole kernel's stage-2 tile."""
+    return n2 + (16 // rows if rows < 16 else 1)
+
+
+def whole_smem_bytes(n1: int, cluster: int, n2: int = _N2) -> int:
+    """Dynamic shared memory of one block of the whole kernel: its tile
+    (stage 1: n2/C padded columns of n1, stage 2: n1/C padded rows of n2, in
+    turn) and the n1- and n2-point root tables, as complex fp32
+    (``csrc/radix.cuh:smem_values``)."""
     rows = n1 // cluster
-    return 8 * (max(_N2 // cluster * (n1 + 1), rows * _stage2_ld(rows)) + n1 + _N2)
+    return 8 * (max(n2 // cluster * (n1 + 1), rows * _stage2_ld(rows, n2)) + n1 + n2)
+
+
+def _cluster_geometry(b: int, n1: int, n2: int, b1_cluster: int,
+                      max_threads: int = _MAX_THREADS) -> tuple[int, int, int]:
+    """(cluster, threads, smem_bytes): ``b1_cluster`` at B = 1, halved while
+    the grid holds more blocks than the card has SMs, down to the least
+    cluster whose blocks fit ``max_threads``."""
+    least = max(1, n1 * n2 // (_VALUES * max_threads))
+    cluster = b1_cluster
+    while cluster > least and b * cluster > _SMS:
+        cluster //= 2
+    return cluster, n1 * n2 // (_VALUES * cluster), whole_smem_bytes(n1, cluster, n2)
 
 
 def whole_geometry(b: int, n1: int) -> tuple[int, int, int]:
@@ -175,17 +201,27 @@ def whole_geometry(b: int, n1: int) -> tuple[int, int, int]:
     16,384, too)."""
     if n1 not in _B1_CLUSTER:
         raise ValueError(f"whole kernel: n1 must be a power of two in [8, 512], got {n1}")
-    least = max(1, n1 * _N2 // (_WHOLE_VALUES * 1024))
-    cluster = _B1_CLUSTER[n1]
-    while cluster > least and b * cluster > _SMS:
-        cluster //= 2
-    return cluster, n1 * _N2 // (_WHOLE_VALUES * cluster), whole_smem_bytes(n1, cluster)
+    return _cluster_geometry(b, n1, _N2, _B1_CLUSTER[n1])
 
 
-def whole_slices(n1: int, cluster: int) -> list[tuple[range, range]]:
+def lm_geometry(b: int, n1: int, n2: int) -> tuple[int, int, int]:
+    """(cluster, threads, smem_bytes) of S1, the whole kernel at n2 = 64, 128
+    or 256 and n1 <= n2 a power of two >= 8, for B = ``b`` rows: the rule of
+    :func:`whole_geometry` with S1's own cluster at B = 1, halved only while
+    a block keeps to 512 threads (at (16, 65,536) two blocks of 512 a SM beat
+    one of 1,024: ``time_whole``'s S1 sweep)."""
+    if n2 not in (64, 128, 256) or not _pow2_in(n1, 8, n2):
+        raise ValueError(
+            f"fused_fft_lm kernel: n2 must be 64, 128 or 256 and n1 <= n2 a power of two >= 8 "
+            f"(n1={n1}, n2={n2})"
+        )
+    return _cluster_geometry(b, n1, n2, _LM_B1_CLUSTER[n1 * n2], max_threads=512)
+
+
+def whole_slices(n1: int, cluster: int, n2: int = _N2) -> list[tuple[range, range]]:
     """What block ``r`` of a cluster owns: the x columns of its stage 1 and
     the rows k1 of its stage 2 (and so the output columns ``j * n1 + k1``)."""
-    w, m = _N2 // cluster, n1 // cluster
+    w, m = n2 // cluster, n1 // cluster
     return [(range(r * w, (r + 1) * w), range(r * m, (r + 1) * m)) for r in range(cluster)]
 
 
@@ -273,6 +309,28 @@ def _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows):
     return out_rows, n_tiles * col_tile
 
 
+def stage_a_geometry(b: int, n1: int, n2: int, ncols: int) -> tuple[int, int, int]:
+    """(width, threads, smem_bytes) of the K3 kernel over a (``b``, n1, n2)
+    view of which the first ``ncols`` columns are kept: one block per row and
+    tile of ``width`` columns (``ceil(ncols / width)`` tiles a row), each of
+    ``threads`` = n1 * width / 8 threads; its shared memory holds the
+    (n1, width) tile and the n1-point root table, as complex fp32.  The width
+    is 32 columns (one warp's lanes on neighbouring columns), more where n1
+    is small so that a block keeps 128 threads, fewer where n1 = 512 so that
+    it keeps to 1,024, and at most the power of two that holds ``ncols``.
+    It does not depend on ``b``: the grid is ``b`` times a row's tiles, and
+    W = 32 is the fastest or within 1.5% of it at B = 1, 2^20 and 2^22
+    (``scripts/time_stage_a.py --sweep`` on an H100 80GB HBM3 at 700 W)."""
+    if not _pow2_in(n1, 8, 512):
+        raise ValueError(f"stage_a kernel: n1 must be a power of two in [8, 512], got {n1}")
+    if not 4 <= ncols <= n2 or ncols % 4 or n2 & (n2 - 1):
+        raise ValueError(f"stage_a kernel: n2={n2} must be a power of two and ncols={ncols} "
+                         f"a multiple of 4 in [4, n2]")
+    width = min(max(32, 128 * _VALUES // n1), _VALUES * _MAX_THREADS // n1, n2,
+                1 << (ncols - 1).bit_length())
+    return width, n1 * width // _VALUES, 8 * (n1 * width + n1)
+
+
 def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
     """Plain torch version of :func:`stage_a`."""
     r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
@@ -311,6 +369,7 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
             f"(n2={n2}, columns={ncols}, ct={col_tile})"
         )
     b = xr.shape[0]
+    geometry = stage_a_geometry(b, n1, n2, ncols) if factored else ()
     shapes = {"xr": (b, n1, n2), "xi": (b, n1, n2), "f1r": (n1, n1), "f1i": (n1, n1)}
     if factored:
         names = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
@@ -325,7 +384,7 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
     lib = _build.library()
     ptrs = (_ptr(xr), _ptr(xi), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi))
     if factored:
-        err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, r, ncols, _stream(xr.device))
+        err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, r, ncols, *geometry, _stream(xr.device))
     else:
         err = lib.gft_stage_a_full(*ptrs, b, n1, n2, r, ncols, _stream(xr.device))
     _build.check(err, "stage_a")

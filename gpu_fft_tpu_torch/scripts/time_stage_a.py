@@ -1,7 +1,7 @@
 """Device time of the stage-A kernel (K3) at the main path's shapes, for
 comparing two checkouts of the port on one card.
 
-    python gpu_fft_tpu_torch/scripts/time_stage_a.py --tree DIR --label NAME
+    python gpu_fft_tpu_torch/scripts/time_stage_a.py --tree DIR --label NAME [--sweep]
 
 imports ``gpu_fft_tpu_torch`` from the checkout at DIR (built there on first
 use), times K3 on the factored plan that ``transform_any`` uses at 2^20 and
@@ -10,6 +10,12 @@ one JSON line to ``chiprun_out/time_stage_a.jsonl``.  The time is the
 profiler's device time of the stage-A kernel, median of 5 profiles of 50
 calls each.  Run it once per checkout, in turns (A B B A), in one session on
 the card: times from two sessions do not compare.
+
+``--sweep`` (a checkout whose K3 is the radix kernel, with the geometry
+arguments) also times it at every column-tile width W in {16, 32, 64, 128}
+that fits 1,024 threads (n1 W / 8), each launch checked against the plain
+version (max|d| <= 1e-5 max|plain|), beside the width ``stage_a_geometry``
+picks; the rows go into the same JSON line under ``sweep``.
 """
 
 from __future__ import annotations
@@ -44,16 +50,53 @@ def kernel_ms(fn, calls: int = 50, profiles: int = 5) -> float:
     return statistics.median(samples)
 
 
+def sweep_widths(lib, K, plan, xr, xi, rows: int) -> list[dict]:
+    """K3 at every width W that fits, launched through the C entry point."""
+    import torch
+
+    n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+    names = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
+    want = K.stage_a_plain(xr, xi, n1, n2, plan, ct, rows=rows)
+    scale = max(float(w.abs().max()) for w in want)
+    yr, yi = torch.empty_like(want[0]), torch.empty_like(want[1])
+    stream = torch.cuda.current_stream().cuda_stream
+    shipped = K.stage_a_geometry(1, n1, n2, n2)[0]
+    out = []
+    for width in (16, 32, 64, 128):
+        threads = n1 * width // 8
+        if threads > 1024:
+            continue
+
+        def launch(width=width, threads=threads):
+            err = lib.gft_stage_a(xr.data_ptr(), None if xi is None else xi.data_ptr(),
+                                  *(plan[k].data_ptr() for k in names), yr.data_ptr(), yi.data_ptr(),
+                                  1, n1, n2, ct, rows, n2, width, threads, 8 * (n1 * width + n1), stream)
+            if err:
+                raise RuntimeError(lib.gft_error_string(err).decode())
+
+        launch()
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip((yr, yi), want))
+        row = {"n": n1 * n2, "kind": "real" if xi is None else "complex", "rows": rows, "width": width,
+               "threads": threads, "shipped": width == shipped, "max_abs_err": err,
+               "ok": err <= 1e-5 * scale, "ms": kernel_ms(launch)}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True, help="root of the checkout to import the port from")
     ap.add_argument("--label", required=True, help="name of the checkout in the output")
+    ap.add_argument("--sweep", action="store_true", help="also time every column-tile width")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
 
     from gpu_fft_tpu_torch import plan as P
     from gpu_fft_tpu_torch.config import apply_precision
+    from gpu_fft_tpu_torch.kernels import _build
     from gpu_fft_tpu_torch.kernels import fused as K
 
     if not torch.cuda.is_available():
@@ -65,7 +108,7 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     rec = {"label": args.label, "tree": args.tree, "card": card,
-           "module": K.__file__, "ms": {}}
+           "module": K.__file__, "ms": {}, "sweep": []}
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
@@ -75,6 +118,8 @@ def main() -> None:
         rec["ms"][f"n={n} real rows={rows}"] = kernel_ms(
             lambda: K.stage_a(xr, None, n1, n2, plan, ct, rows=rows))
         rec["ms"][f"n={n} complex"] = kernel_ms(lambda: K.stage_a(xr, xi, n1, n2, plan, ct))
+        for xi_, r in ((None, rows), (xi, n1)) if args.sweep else ():
+            rec["sweep"] += sweep_widths(_build.library(), K, plan, xr, xi_, r)
     out = Path("chiprun_out") / "time_stage_a.jsonl"
     out.parent.mkdir(exist_ok=True)
     with out.open("a") as f:

@@ -35,6 +35,7 @@ import gpu_fft_tpu.kernels.fused as jfused
 import gpu_fft_tpu.kernels.tables as jtables
 import gpu_fft_tpu.plan as jplan
 import gpu_fft_tpu_torch.kernels.engines as E
+import gpu_fft_tpu_torch.kernels.fused as K
 import gpu_fft_tpu_torch.kernels.probes as Pr
 import gpu_fft_tpu_torch.plan as tplan
 from gpu_fft_tpu_torch.scripts import (
@@ -207,6 +208,37 @@ def test_calibration_wrappers_have_no_fallback_off_the_cpu(name):
         _meta_calls()[name]()
     c = {**E.COUNTS, **Pr.COUNTS}[name]
     assert c.launches == 0 and c.plain_calls == 0
+
+
+# Every (n1, n2) of the kernel's range: n1 <= n2 a power of two >= 8 (the
+# balanced splits of 2,048 ... 65,536 among them).
+LM_SPLITS = [(n1, n2) for n2 in E.LM_N2 for n1 in (8, 16, 32, 64, 128, 256) if n1 <= n2]
+
+
+@pytest.mark.parametrize("n1,n2", LM_SPLITS)
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_lm_geometry_fits_and_covers(n1, n2, b):
+    """S1's launch rule (the whole kernel at n2 = 64, 128, 256): one cluster
+    of at most 16 blocks per row, each within the H100's 1,024 threads and
+    232,448 bytes of shared memory, 8 complex values per thread; the blocks'
+    column slices (stage 1) and row slices (stage 2) cover the (n1, n2) view
+    exactly once."""
+    cluster, threads, smem = K.lm_geometry(b, n1, n2)
+    assert cluster & (cluster - 1) == 0 and 1 <= cluster <= min(16, n1)
+    assert threads <= 1024 and threads * 8 * cluster == n1 * n2
+    assert 8 * (n1 * n2 // cluster + n1 + n2) <= smem <= 232_448
+    slices = K.whole_slices(n1, cluster, n2)
+    assert sorted(c for cols, _ in slices for c in cols) == list(range(n2))
+    assert sorted(r for _, rows in slices for r in rows) == list(range(n1))
+    assert all(len(cols) * n1 == len(rows) * n2 == threads * 8 for cols, rows in slices)
+    if n1 * n2 >= 2048:
+        assert tplan.balanced_split(n1 * n2) in LM_SPLITS
+
+
+@pytest.mark.parametrize("n1,n2", [(12, 256), (4, 64), (48, 128), (512, 256), (16, 96)])
+def test_lm_geometry_rejects_what_the_kernel_cannot_take(n1, n2):
+    with pytest.raises(ValueError, match="power of two"):
+        K.lm_geometry(1, n1, n2)
 
 
 # ── The scripts' arithmetic ──────────────────────────────────────────────────

@@ -79,17 +79,58 @@ def test_whole_kernel(dev, name, n, b, complex_, signal):
     assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("complex_,rows,tiles", [(False, 72, None), (True, None, None), (True, None, 1)])
-def test_stage_a_kernel(dev, complex_, rows, tiles):
-    n = 1 << 17
-    ct = P.stage_a_ct_full_range(n)
-    plan = P.on_device(P.get_stage_a_plan, n, -1, ct, device=dev)
-    n1, n2 = plan["n1"], plan["n2"]
+def _stage_a_plan(n, ct, digit, dev):
+    """The factored stage-A plan at ``n`` (ct None: the shipped one).  With
+    a ``digit``, ``plan._stage_a_n1`` is patched to it as
+    ``scripts/calibrate_chip.py`` does, the plan caches cleared before and
+    after, and the digit restored."""
+    orig = P._stage_a_n1
+    if digit:
+        P._stage_a_n1 = lambda n, d=digit: d
+        P.get_stage_a_plan.cache_clear()
+        P.clear_device_cache()
+    try:
+        ct = P.stage_a_ct_full_range(n) if ct is None else ct
+        return P.on_device(P.get_stage_a_plan, n, -1, ct, device=dev)
+    finally:
+        if digit:
+            P._stage_a_n1 = orig
+            P.get_stage_a_plan.cache_clear()
+            P.clear_device_cache()
+
+
+# (n, ct or None for the shipped one, n1 forced or None): the shipped plans,
+# every ct the L4 lever of ablate_2e20_levers sets at 2^18, and the digit
+# calibrate_chip tries there.
+STAGE_A_SHAPES = [(1 << 17, None, None), *((1 << 18, ct, None) for ct in (512, 1024, 2048)),
+                  (1 << 18, None, 256), (1 << 20, None, None), (1 << 22, None, None)]
+
+
+@pytest.mark.parametrize("n,ct,digit", STAGE_A_SHAPES)
+@pytest.mark.parametrize("kind", ["real_rows", "complex", "complex_col_tiles1"])
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_stage_a_kernel(dev, n, ct, digit, kind, signal):
+    """Against the plain version (1e-5) and, for the DC and impulse inputs,
+    numpy in float64 (5 log2(n) eps)."""
+    plan = _stage_a_plan(n, ct, digit, dev)
+    n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+    rows = P.stage_a_real_rows(n1) if kind == "real_rows" else None
+    tiles = 1 if kind == "complex_col_tiles1" else None
     g = torch.Generator(device=dev).manual_seed(1)
-    xr = torch.randn(2, n1, n2, device=dev, generator=g)
-    xi = torch.randn(2, n1, n2, device=dev, generator=g) if complex_ else None
+    xr = _signal(signal, 2, n, g, dev).reshape(2, n1, n2)
+    xi = 0.5 * _signal(signal, 2, n, g, dev).reshape(2, n1, n2) if kind != "real_rows" else None
+    K.reset_counts()
     got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows)
+    assert K.COUNTS["stage_a"].launches == 1 and K.COUNTS["stage_a"].plain_calls == 0
     _close(got, K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows))
+    if signal == "randn":
+        return
+    r, ncols = got[0].shape[1:]
+    x = xr.cpu().double().numpy() + (0 if xi is None else 1j * xi.cpu().double().numpy())
+    k1c = np.arange(r)[:, None] * np.arange(ncols)[None, :] % n
+    ref = np.fft.fft(x, axis=1)[:, :r, :ncols] * np.exp(-2j * np.pi * k1c / n)
+    err = max(np.abs(got[0].cpu().numpy() - ref.real).max(), np.abs(got[1].cpu().numpy() - ref.imag).max())
+    assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * np.abs(ref).max()
 
 
 @pytest.mark.parametrize(
@@ -135,11 +176,13 @@ def test_stage_a_dot_kernel(dev, variant, b, n1, n2):
     _close(got, A.stage_a_dot_plain(x, tables, variant))
 
 
-@pytest.mark.parametrize("n", [4096, 16384, 32768, 65536])  # n2 = 64, 128, 256, 256
-@pytest.mark.parametrize("b", [1, 3])
-def test_fused_fft_lm_kernel(dev, n, b):
+@pytest.mark.parametrize("n", [2048, 4096, 16384, 32768, 65536])  # n2 = 64, 64, 128, 256, 256
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_fused_fft_lm_kernel(dev, n, b, signal):
+    """Against the plain version (1e-5) and numpy in float64 (5 log2(n) eps)."""
     t = P.on_device(E.lm_tables, n, -1, device=dev)
-    x = torch.randn(b, n, device=dev, generator=torch.Generator(device=dev).manual_seed(n + b))
+    x = _signal(signal, b, n, torch.Generator(device=dev).manual_seed(n + b), dev)
     E.reset_counts()
     got = E.fused_fft_lm(x, t)
     assert E.COUNTS["fused_fft_lm"].launches == 1 and E.COUNTS["fused_fft_lm"].plain_calls == 0

@@ -157,3 +157,30 @@ def test_whole_geometry_fits_and_covers(n1, b):
 def test_whole_kernel_rejects_bad_n1(n1):
     with pytest.raises(ValueError, match=r"n1 = n/128"):
         K._whole_args("whole_transform", torch.empty(1, 128 * n1), None, {"n1": n1, "n2": 128})
+
+
+@pytest.mark.parametrize("n1", [8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("n2", [1024, 8192, 65536])
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_stage_a_geometry_fits_and_covers(n1, n2, b):
+    """K3's launch rule: one block per row and tile of ``width`` columns,
+    within the H100's 1,024 threads and 232,448 bytes of shared memory, 8
+    complex values per thread, so a block holds every row of its columns;
+    the tiles cover the kept columns exactly once and their loads stay
+    inside the row.  n2 from 2^17 / 128 (n1 = 128, or 256 by the
+    calibration's digit) to 2^24 / 256."""
+    for ncols in (n2, 512, 4):  # every column, one plan tile, the narrowest
+        width, threads, smem = K.stage_a_geometry(b, n1, n2, ncols)
+        assert width & (width - 1) == 0 and n2 % width == 0
+        assert threads <= 1024 and threads * 8 == n1 * width
+        assert 8 * (n1 * width + n1) <= smem <= 232_448
+        tiles = -(-ncols // width)
+        assert tiles * width <= n2
+        cols = [c for g in range(tiles) for c in range(g * width, (g + 1) * width) if c < ncols]
+        assert cols == list(range(ncols))
+
+
+@pytest.mark.parametrize("n1", [4, 12, 96, 1024])
+def test_stage_a_geometry_rejects_bad_n1(n1):
+    with pytest.raises(ValueError, match="n1 must be a power of two"):
+        K.stage_a_geometry(1, n1, 8192, 8192)
