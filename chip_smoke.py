@@ -11,32 +11,40 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    its path gives it (gate: max|kernel - plain| <= 1e-5 max|plain|, and
    bit-equal for S4 and S5, whose steps are rounded one at a time): K1, K2
    and K3 of the transform path (K3 also at each ct that the levers
-   harness sets at 2^18); K3-legacy, S2 and S3 of the stage-A
+   harness sets at 2^18, and on the staged real-output inverse's complex
+   input, sign +1, on the first ceil((n2/2 + 1) / ct) column tiles, at
+   2^18 … 2^24 for ct = 512, 1,024, 2,048); K3-legacy, S2 and S3 of the stage-A
    ablation harnesses, with S3's error against float64 (gate for f32 and
    bf16_x6: 5*log2(n1)*eps; bf16_x1 printed);
 3. the main path through the public API on ``device="cuda"``: the sine ->
    fft -> psd -> dominant frequency -> ifft demo, fft/ifft from n = 1024 to
    2^22, fft_batch and ifft_batch, each checked against numpy in float64 with
    the 5*log2(N)*eps gate and against torch.fft; the launch counts show each
-   kernel ran;
+   kernel ran.  Then this slice's path, real input and output, with the
+   counts set to 0 before it: rfft against numpy's, irfft_device and irfft
+   against numpy's irfft (float64) and torch.fft.irfft from n = 256 to 2^24,
+   irfft_device at (16, 65,536) and (64, 4,096); its counts show K2, K1 and
+   K3 ran where the dispatch sends them;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
    the one PyTorch call that computes the same function (K1 and K2 on real
    forward and on complex inverse input, beside torch.fft.fft and
    torch.fft.ifft; K3 at 2^20 and 2^22 on real input with the real path's
-   rows and on complex input with the inverse plan, the ifft path); each
-   main-path call against torch.fft;
+   rows and on complex input with the inverse plan, the ifft path, and on
+   the irfft path's column tiles); each main-path call against torch.fft,
+   and irfft_device beside ifft_device and torch.fft.irfft;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
-   the launch counts show K3-legacy, S2 and S3 ran, no row holds an error
-   other than the unported irfft rows, and every timed levers row agrees
-   with its reference row within 5*log2(2^22)*eps;
+   the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
+   and every timed levers row (the L4 irfft rows too) agrees with its
+   reference row within 5*log2(2^22)*eps;
 6. the third path, calibration: ``calibrate_latency``, ``calibrate_matmul``,
    ``ablate_whole_packed``, ``ablate_engines`` and ``calibrate_chip`` in
    their quick setting; the launch counts show S1, S4 and S5 (and K1, K2,
-   K3) ran, every timed row is a positive number, the only rows without a
-   time are the retired and unported ones, and every parity row is within
+   K3) ran, every timed row is a positive number (the irfft fold gate's
+   too), the only rows without a time are the retired ones and the
+   unported overlap-add block, and every parity row is within
    5*log2(n)*eps.
 
 Phase 2 also holds S1 (the left-matmul four-step), S4 (the operand probe)
@@ -67,6 +75,12 @@ CALIBRATION_KERNELS = ("fused_fft_lm", "operand_probe", "copy_min")
 # The transform-path kernels the calibration scripts also drive.
 CALIBRATION_PATH_KERNELS = (*CALIBRATION_KERNELS, *MAIN_PATH_KERNELS)
 LM_CASES = ((1, 4096), (1, 16384), (1, 65536), (16, 4096), (16, 65536), (64, 4096), (1, 32768))
+# The real-output path: B = 1 sizes, batches, the staged sizes where K3 runs
+# on half the column tiles, and the shapes timed in phase 4.
+IRFFT_SIZES = (256, 1024, 4096, 16384, 65536, 1 << 17, 1 << 20, 1 << 22, 1 << 24)
+IRFFT_BATCHES = ((16, 65536), (64, 4096))
+IRFFT_STAGED = (1 << 18, 1 << 20, 1 << 22, 1 << 24)
+IRFFT_TIMED = ((1, 32768), (1, 65536), (1, 1 << 20), (1, 1 << 22), (16, 65536))
 
 
 T0 = time.perf_counter()
@@ -115,13 +129,16 @@ def whole_bound(n: int, complex_: bool):
     return bound(flop, "fp32", 4 * ((2 if complex_ else 1) * n + 2 * n + 2 * (n1 + 128) + 1 + 2 * n))
 
 
-def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int):
-    """K3, B = 1: a radix-2 FFT's 5 n1 log2 n1 FLOP per column and 6 per
-    stored output for the factored twiddle (rebuilt, 6 more); x (both parts
-    for complex input), the n1-point root row, the twiddle's rows (two
-    (rows, n2/ct), twi (rows, ct)) read once, the output written once."""
-    flop = 5 * n1 * (n1.bit_length() - 1) * n2 + 12 * rows * n2
-    nbytes = 4 * ((2 if complex_ else 1) * n1 * n2 + 2 * n1 + 2 * rows * (n2 // ct + ct) + 2 * rows * n2)
+def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int, ncols: int | None = None):
+    """K3, B = 1, on the first ``ncols`` (default n2) columns: a radix-2
+    FFT's 5 n1 log2 n1 FLOP per column and 6 per stored output for the
+    factored twiddle (rebuilt, 6 more); those columns of x (both parts for
+    complex input), the n1-point root row, the twiddle's rows (two
+    (rows, ncols/ct), twi (rows, ct)) read once, the output written once."""
+    ncols = n2 if ncols is None else ncols
+    flop = 5 * n1 * (n1.bit_length() - 1) * ncols + 12 * rows * ncols
+    nbytes = 4 * ((2 if complex_ else 1) * n1 * ncols + 2 * n1 + 2 * rows * (ncols // ct + ct)
+                  + 2 * rows * ncols)
     return bound(flop, "fp32", nbytes)
 
 
@@ -177,9 +194,9 @@ def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 3):
+def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4):
     """Device time per call (ms) summed over the CUDA kernels torch.profiler
-    records for ``iters`` warm calls, and the top kernels by time.  A profile
+    records for ``iters`` warm calls, and the ``top`` kernels by time.  A profile
     that comes back with no device event is taken again, up to ``attempts``
     times; None where none of them records device time."""
     import torch
@@ -202,8 +219,8 @@ def device_ms(fn, iters: int = 20, attempts: int = 3):
             break
     if not by_name:
         return None, []
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return sum(by_name.values()), [(k[:60], v) for k, v in top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return sum(by_name.values()), [(k[:60], v) for k, v in ranked]
 
 
 def main() -> None:
@@ -314,6 +331,21 @@ def main() -> None:
             want = K.stage_a_plain(a, b_, n1, n2, plan, ct, col_tiles=tiles, rows=r)
             compare("stage_a", f"{case} ct={ct}", got, want)
         del xr, xi
+        torch.cuda.synchronize()
+
+    # K3 as the staged real-output inverse runs it: complex input, sign +1,
+    # all rows, the first ceil((n2/2 + 1) / ct) column tiles; ct = 512 is the
+    # path's (the plan's default tile), 1,024 and 2,048 the L4 lever's.
+    for n in IRFFT_STAGED:
+        for ct in (512, 1024, 2048):
+            plan = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
+            n1, n2 = plan["n1"], plan["n2"]
+            tiles = -(-(n2 // 2 + 1) // ct)
+            xr, xi = randn(1, n1, n2), randn(1, n1, n2)
+            got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles)
+            want = K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles)
+            compare("stage_a", f"n={n} inv col_tiles={tiles}/{n2 // ct} ct={ct}", got, want)
+            del xr, xi, got, want
         torch.cuda.synchronize()
 
     # K3-legacy: every (n, n1) of the ablate_large sweep (materialized
@@ -481,6 +513,60 @@ def main() -> None:
         if count < 1:
             fail(f"{name} was launched no time on the main path")
 
+    # Real input: rfft against numpy's (the forward path above).
+    for n in IRFFT_SIZES:
+        x = rng.standard_normal(n).astype(np.float32)
+        re, im = gt.rfft(x, device="cuda")
+        ref = np.fft.rfft(x.astype(np.float64))
+        check(f"rfft n={n} vs numpy f64 (rel)", n,
+              max(float(np.abs(re - ref.real).max()), float(np.abs(im - ref.imag).max()))
+              / float(np.abs(ref).max()), gate(n))
+
+    # This slice's path, real output, counted on its own.  The input is an
+    # rfft spectrum rounded to fp32; the references take that same input.
+    K.reset_counts()
+    irfft_per_size = {}
+
+    def one_sided(b, n):
+        x = rng.standard_normal((b, n))
+        sp = np.fft.rfft(x, axis=-1)
+        sr, si = sp.real.astype(np.float32), sp.imag.astype(np.float32)
+        ref = np.fft.irfft(sr.astype(np.float64) + 1j * si.astype(np.float64), n=n, axis=-1)
+        sr_t, si_t = torch.from_numpy(sr).to(dev), torch.from_numpy(si).to(dev)
+        vref = torch.fft.irfft(torch.complex(sr_t, si_t), n=n, dim=-1).cpu().numpy()
+        return sr, si, sr_t, si_t, ref, vref
+
+    for n in IRFFT_SIZES:
+        sr, si, sr_t, si_t, ref, vref = one_sided(1, n)
+        peak = float(np.abs(ref).max())
+        before = launches()
+        y = gt.irfft_device(sr_t[0], si_t[0]).cpu().numpy()
+        yh = gt.irfft(sr[0], si[0], device="cuda")
+        after = launches()
+        irfft_per_size[n] = {k: after[k] - before[k] for k in MAIN_PATH_KERNELS}
+        check(f"irfft_device n={n} vs numpy f64 (rel)", n, float(np.abs(y - ref[0]).max()) / peak, gate(n))
+        check(f"irfft_device n={n} vs torch.fft.irfft (rel)", n, float(np.abs(y - vref[0]).max()) / peak, gate(n))
+        check(f"irfft n={n} vs numpy f64 (rel)", n, float(np.abs(yh - ref[0]).max()) / peak, gate(n))
+        check(f"irfft n={n} vs torch.fft.irfft (rel)", n, float(np.abs(yh - vref[0]).max()) / peak, gate(n))
+        del sr_t, si_t
+    for b, n in IRFFT_BATCHES:
+        sr, si, sr_t, si_t, ref, vref = one_sided(b, n)
+        peak = float(np.abs(ref).max())
+        y = gt.irfft_device(sr_t, si_t).cpu().numpy()
+        check(f"irfft_device B={b} n={n} vs numpy f64 (rel)", n, float(np.abs(y - ref).max()) / peak, gate(n))
+        check(f"irfft_device B={b} n={n} vs torch.fft.irfft (rel)", n,
+              float(np.abs(y - vref).max()) / peak, gate(n))
+    irfft_launches = {k: v for k, v in launches().items() if k in MAIN_PATH_KERNELS}
+    print(f"  launches on the irfft path: {irfft_launches}")
+    print(f"  irfft launches per size (irfft_device + irfft): {irfft_per_size}")
+    report["irfft_launches"] = irfft_launches
+    report["irfft_launches_per_size"] = {str(k): v for k, v in irfft_per_size.items()}
+    need = [("whole_transform_packed", 1024), ("whole_transform", 4096), ("whole_transform", 16384),
+            *(("stage_a", n) for n in (1 << 17, 1 << 20, 1 << 22, 1 << 24))]
+    for name, n in need:
+        if irfft_per_size[n][name] < 1:
+            fail(f"{name} was not launched by the irfft path at n={n}")
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -557,6 +643,18 @@ def main() -> None:
                   lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct, rows=rows),
                   dense_stage_a_bound(n1, n2, rows, 2 * rows * n2))
         del x
+    # K3 on the irfft path's column tiles (complex, sign +1, ct = 512), and
+    # at ct = 2,048 beside it (3 of 4 and 9 of 16 tiles at 2^20 and 2^22).
+    for n, ct in (*((n, 512) for n in IRFFT_STAGED), (1 << 20, 2048), (1 << 22, 2048)):
+        plan = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
+        n1, n2 = plan["n1"], plan["n2"]
+        tiles = -(-(n2 // 2 + 1) // ct)
+        xr, xi = randn(1, n1, n2), randn(1, n1, n2)
+        time_pair(f"stage_a n={n} inv col_tiles={tiles}/{n2 // ct} ct={ct}", "stage_a",
+                  lambda: K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles),
+                  lambda: K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles),
+                  stage_a_bound(n1, n2, n1, True, ct, ncols=tiles * ct))
+        del xr, xi
     s3_cat = torch.cat([s3_tables["fr"], s3_tables["fi"]])
     for v in A.VARIANTS:
         lib = (lambda: torch.matmul(s3_cat, s3_x[0])) if v == "f32_highest" else None
@@ -578,7 +676,7 @@ def main() -> None:
     time_pair("copy_min (8, 128)", "copy_min", lambda: Pr.copy_min(probe_x), lambda: Pr.copy_min_plain(probe_x),
               probe_bound(0), lambda: probe_x * Pr.SCALE)
 
-    for b, n in ((1, 1024), (1, 4096), (1, 16384), (1, 65536), (1, 1 << 20), (1, 1 << 22),
+    for b, n in ((1, 1024), (1, 4096), (1, 16384), (1, 32768), (1, 65536), (1, 1 << 20), (1, 1 << 22),
                  (16, 65536), (64, 4096)):
         x = randn(b, n)
         yr, yi = gt.fft_device(x)
@@ -598,6 +696,20 @@ def main() -> None:
         print(f"  ifft_device B={b:<3d} n={n:<8d} events: port {inv:.4f} ms torch.fft {vinv:.4f} ms | "
               f"device: port {fmt(idev)}")
         print(f"    fft top kernels: {[(k, round(v, 4)) for k, v in ftop]}")
+        if (b, n) in IRFFT_TIMED:
+            hr, hi = (t.contiguous() for t in gt.rfft_device(x))
+            zh = torch.complex(hr, hi)
+            irf = cuda_ms(lambda: gt.irfft_device(hr, hi))
+            virf = cuda_ms(lambda: torch.fft.irfft(zh, n=n))
+            irdev, irtop = device_ms(lambda: gt.irfft_device(hr, hi), top=8)
+            virdev, _ = device_ms(lambda: torch.fft.irfft(zh, n=n))
+            report["times"].append(dict(what=f"irfft_device B={b} n={n}", ms=irf, torch_fft_irfft_ms=virf,
+                                        device_ms=irdev, torch_fft_irfft_device_ms=virdev,
+                                        ifft_device_ms=inv, ifft_device_device_ms=idev, top_kernels=irtop))
+            print(f"  irfft_device B={b:<3d} n={n:<8d} events: port {irf:.4f} ms torch.fft.irfft {virf:.4f} ms"
+                  f" (ifft_device {inv:.4f}) | device: port {fmt(irdev)} torch.fft.irfft {fmt(virdev)}"
+                  f" (ifft_device {fmt(idev)})")
+            print(f"    irfft top kernels: {[(k, round(v, 4)) for k, v in irtop]}")
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
@@ -629,7 +741,7 @@ def main() -> None:
     for r in x6_res["rows"]:
         if r["variant"] != "bf16_x1" and not r["rel_err"] <= s3_gate:
             fail(f"ablate_mosaic_x6 ct={r['ct']} {r['variant']}: rel_err {r['rel_err']:.3e} over {s3_gate:.3e}")
-    print("  harnesses: every row measured and within parity; no error rows but the unported irfft rows")
+    print("  harnesses: every row measured and within parity; no error rows")
 
     # ── Phase 6: the third path, the calibration scripts ────────────────────
     stamp("phase 6")
@@ -656,8 +768,10 @@ def main() -> None:
            "ablate_whole_packed": ablate_whole_packed.parity_failures(wp_res)}
     if any(off.values()):
         fail(f"calibration rows over 5*log2(n)*eps: {off}")
-    if any(chip_res[k] != {"error": calibrate_chip.NOT_PORTED} for k in ("oa_block", "irfft_fold")):
-        fail("calibrate_chip: an unported section holds something else than 'not ported'")
+    if chip_res["oa_block"] != {"error": calibrate_chip.NOT_PORTED}:
+        fail("calibrate_chip: the unported oa_block section holds something else than 'not ported'")
+    if not chip_res["irfft_fold"]:
+        fail("calibrate_chip: the irfft fold gate measured nothing")
     times = [r["per_call_us"] for r in lat_res["rows"].values()]
     times += [r["unchained_us"][q] for r in lat_res["rows"].values() for q in ("median", "min")]
     times += [r["per_step_us"] for r in lat_res["launch_chain"].values()]
@@ -669,13 +783,14 @@ def main() -> None:
     times += [r[k] for r in chip_res["wide_split"] for k in ("balanced_us", "wide_us")]
     times += [r["us"] for r in chip_res["stage_a_digit"]]
     times += [r[k] for r in chip_res["half_spectrum"] for k in ("full_us", "half_us")]
+    times += [r[k] for r in chip_res["irfft_fold"] for k in ("full_us", "fold_us")]
     if not all(np.isfinite(t) and t > 0 for t in times):
         fail(f"a calibration time is not a positive number: {times}")
     for name, row in lat_res["roofline"].items():
         if row["n_kernels"] < 1 or not row["sol_us"] > 0:
             fail(f"calibrate_latency roofline row {name} is empty: {row}")
     print(f"  calibration: {len(times)} timed values, all positive; parity within 5*log2(n)*eps; "
-          f"no error rows but the retired and unported ones")
+          f"no error rows but the retired ones and the unported overlap-add block")
 
     sources = {
         "whole_transform_packed": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:383"),
@@ -689,13 +804,15 @@ def main() -> None:
         "operand_probe": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/ablate_whole_packed.py:66"),
         "copy_min": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/calibrate_latency.py:79"),
     }
-    all_launches = {**main_launches, **second_launches,
-                    **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
+    # The main path's launches: fft/ifft and the real-output path together.
+    all_launches = {**{k: main_launches[k] + irfft_launches[k] for k in MAIN_PATH_KERNELS},
+                    **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
     for name, (src, rep) in sources.items():
         t = kernel_ms[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=all_launches[name],
+            irfft_path_launches=irfft_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             plain_device_ms=t["plain_device_ms"], library_device_ms=t["library_device_ms"],

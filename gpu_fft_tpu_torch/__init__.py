@@ -6,7 +6,8 @@ Same split-complex fp32 API and conventions as the JAX package
 ``[real | imag]`` scaled by 1/N, batches padded to their longest signal.
 The host API takes numpy and returns numpy and runs on ``device`` (default
 ``"cuda"``, or ``GPU_FFT_TPU_TORCH_DEVICE``); ``*_device`` functions take and
-return tensors.  This package never imports jax.
+return tensors.  ``rfft`` / ``irfft`` give and take the one-sided n/2 + 1
+bins.  This package never imports jax.
 """
 
 from .backends import Backend, available_backends, default_backend
@@ -20,7 +21,11 @@ from .ops.transform import (
     ifft_batch,
     ifft_device,
     ifft_with,
+    irfft,
+    irfft_device,
     next_power_of_two,
+    rfft,
+    rfft_device,
 )
 from .utils.signal import (
     calculate_frequencies,
@@ -50,10 +55,14 @@ __all__ = [
     "ifft_batch",
     "ifft_device",
     "ifft_with",
+    "irfft",
+    "irfft_device",
     "next_power_of_two",
     "one_sided_bins",
     "power_spectrum_device",
     "psd",
     "psd_device",
+    "rfft",
+    "rfft_device",
     "rfftfreq",
 ]

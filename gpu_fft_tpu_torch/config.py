@@ -37,6 +37,16 @@ if PRECISION != "full":
 
 DEVICE_ENV_VAR = "GPU_FFT_TPU_TORCH_DEVICE"
 
+# Default backend override, the JAX package's variable (read by
+# backends.default_backend, which maps the JAX package's names).
+BACKEND_ENV_VAR = "GPU_FFT_TPU_BACKEND"
+
+
+def env_backend_name() -> str | None:
+    """The backend name requested through ``GPU_FFT_TPU_BACKEND``, or None."""
+    v = os.environ.get(BACKEND_ENV_VAR)
+    return v.strip().lower() if v else None
+
 
 def apply_precision() -> None:
     """Pin fp32 matmuls to full IEEE precision (TF32 off) for this process."""

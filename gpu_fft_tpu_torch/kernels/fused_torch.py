@@ -4,7 +4,8 @@ The JAX package writes these engines as jnp einsums and leaves them to XLA
 (``gpu_fft_tpu/kernels/fused_jnp.py``); no Pallas kernel stands behind them,
 so here they are torch.matmul / torch.einsum contractions against the plan's
 tables.  Every function takes split-complex fp32 tensors and returns the
-spectrum in natural order, on the input's device.
+spectrum, or for the real-output inverses the real signal, in natural
+order, on the input's device.
 """
 
 from __future__ import annotations
@@ -18,9 +19,15 @@ __all__ = [
     "fused_fft",
     "fused_fft_folded",
     "fused_fft_half",
+    "fused_irfft",
+    "irfft_direct_half",
+    "irfft_direct_half_k128",
+    "irfft_fold_columns",
     "stage_a_torch",
     "stage_b",
     "stage_b_half",
+    "stage_b_irfft",
+    "stage_b_irfft_from_half",
 ]
 
 
@@ -178,6 +185,132 @@ def stage_b_half(yr, yi, n1: int, n2: int, t: dict):
     out_r = f_r.permute(0, 3, 2, 1).reshape(b, n)
     out_i = f_i.permute(0, 3, 2, 1).reshape(b, n)
     return out_r, out_i
+
+
+# ── Real output: the Hermitian-fold inverses ─────────────────────────────────
+
+
+def fused_irfft(xr, xi, plan: dict):
+    """Real-output inverse of a full (B, n) Hermitian spectrum, folded.
+
+    With the spectrum as an (n2, n1) grid (flat k = k1 + n1*k2), column
+    n1 - k1 is the conjugate k2-reversal of column k1, so
+
+        x[m1*n2 + m2] = Re(sum_{k1 <= n1/2} c_k1 w_n1^(m1 k1) w_n^(m2 k1) G[k1, m2]),
+        G[k1, m2] = sum_k2 X[k1 + n1*k2] w_n2^(m2 k2),
+
+    with c and the scale in the tables (``plan.get_irfft_plan``): stage 1
+    contracts only the h1 = n1/2 + 1 kept columns, stage 2 is real, and its
+    output order is the natural one.  Only the kept columns of ``xr, xi``
+    are read.  Correct only for a Hermitian input.  Returns (B, n) real.
+    """
+    b, n = xr.shape
+    n1, n2, h1 = plan["n1"], plan["n2"], plan["h1"]
+    assert n == n1 * n2, (n, n1, n2)
+    gr = xr.reshape(b, n2, n1)[:, :, :h1]  # [b, k2, k1]
+    gi = xi.reshape(b, n2, n1)[:, :, :h1]
+    return _irfft_fold_core(gr, gi, plan)
+
+
+def _irfft_fold_core(gr, gi, plan: dict):
+    """The fold's contractions on the (B, n2, h1) grid of kept columns."""
+    b = gr.shape[0]
+    n1, n2 = plan["n1"], plan["n2"]
+    # Stage 1: contract k2 -> m2 over the kept k1 columns.
+    gr_m, gi_m = _ceinsum("bck,cm->bkm", gr, gi, plan, "g2")  # (b, h1, n2)
+    twr, twi = plan["twr"], plan["twi"]  # (h1, n2) = [k1, m2]
+    zr = gr_m * twr - gi_m * twi
+    zi = gr_m * twi + gi_m * twr
+    # Stage 2: contract k1 in [0, n1/2), real part only, natural order out.
+    half = n1 // 2
+    out = torch.einsum("bkm,kM->bMm", zr[:, :half], plan["w1r"]) - torch.einsum(
+        "bkm,kM->bMm", zi[:, :half], plan["w1i"]
+    )
+    # The Nyquist column k1 = n1/2: its stage-2 factor is scale * (-1)^m1.
+    out = out + plan["alt"][None, :, None] * zr[:, half, :][:, None, :]
+    return out.reshape(b, n1 * n2)
+
+
+def irfft_direct_half(xr, xi, plan: dict):
+    """Direct real-output inverse from the one-sided (B, h) spectrum: two
+    real products against the folded tables (``plan.get_irfft_direct_plan``;
+    their zero sin rows ignore DC/Nyquist imaginary parts)."""
+    return xr @ plan["cr"] + xi @ plan["ci"]
+
+
+def irfft_direct_half_k128(xr, xi, plan: dict):
+    """:func:`irfft_direct_half` contracting K = n/2 and adding the Nyquist
+    row as a broadcast (``plan.get_irfft_direct_k128_plan``)."""
+    return xr[:, :-1] @ plan["cr"] + xi[:, :-1] @ plan["ci"] + xr[:, -1:] * plan["alt"]
+
+
+def stage_b_irfft(yr, yi, n1: int, t: dict):
+    """Real-output stage B of the staged inverse from the FULL (B, n1, n2)
+    stage-A output: each k1 row is Hermitian over n2
+    (``plan.get_stage_b_irfft_plan``), so the fused fold runs per row with
+    the fold digit Q = 128 on the row's minor digit.  Returns (B, n) real."""
+    q, p = t["n1"], t["n2"]
+    b = yr.shape[0]
+    gr = yr.reshape(b, n1, p, q)[..., : t["h1"]]  # [b, K, p, q]
+    gi = yi.reshape(b, n1, p, q)[..., : t["h1"]]
+    return stage_b_irfft_from_half(gr, gi, t)
+
+
+def irfft_fold_columns(zr, zi, t: dict):
+    """The fold's (B, n1, P, h) input from HALF the stage-A columns.
+
+    ``zr, zi``: (B, n1, W), the first W >= n2/2 + 1 post-twiddle stage-A
+    columns.  The rest are conjugate mirrors, Z[k1, n2 - c] = conj(Z[k1, c]),
+    so the p >= P/2 blocks of g[p, q] = Z[p*Q + q], q <= Q/2, are flips of
+    the computed range:
+
+    * q in [1, Q/2]: g[p, q] = conj(Z[(P-1-p)*Q + (Q-q)]), a flip over
+      (p, q) of the computed blocks' upper-q half;
+    * q = 0: g[p, 0] = conj(Z[(P-p)*Q]), a flip of the block starts
+      p'' = 1 .. P/2, the last of which is column n2/2 itself.
+
+    Each flip and concatenation is a copy on the card.
+    """
+    b, n1 = zr.shape[0], zr.shape[1]
+    q, p, h = t["n1"], t["n2"], t["h1"]
+    ph = p // 2
+    assert zr.shape[2] >= ph * q + 1, (zr.shape, p, q)
+    blk_r = zr[:, :, : ph * q].reshape(b, n1, ph, q)
+    blk_i = zi[:, :, : ph * q].reshape(b, n1, ph, q)
+    # p >= P/2, q in [1, Q/2]: flip over (p', q') of the q' in (Q/2, Q) half.
+    hi_r = torch.flip(blk_r[..., q - h + 1 :], (2, 3))
+    hi_i = -torch.flip(blk_i[..., q - h + 1 :], (2, 3))
+    # p >= P/2, q = 0: block starts p'' = 1 .. P/2, flipped.
+    q0_r = torch.cat([blk_r[:, :, 1:, 0], zr[:, :, ph * q : ph * q + 1]], dim=2)
+    q0_i = torch.cat([blk_i[:, :, 1:, 0], zi[:, :, ph * q : ph * q + 1]], dim=2)
+    q0_r = torch.flip(q0_r, (2,))[..., None]
+    q0_i = -torch.flip(q0_i, (2,))[..., None]
+    gr = torch.cat([blk_r[..., :h], torch.cat([q0_r, hi_r], dim=3)], dim=2)
+    gi = torch.cat([blk_i[..., :h], torch.cat([q0_i, hi_i], dim=3)], dim=2)
+    return gr, gi
+
+
+def stage_b_irfft_from_half(gr, gi, t: dict):
+    """The per-row fold on a (B, n1, P, h) input (:func:`stage_b_irfft`,
+    :func:`irfft_fold_columns`).  Returns the (B, n) real signal, natural
+    order."""
+    b, n1 = gr.shape[0], gr.shape[1]
+    q, p = t["n1"], t["n2"]
+    # Stage 1: contract the major row digit p -> m over the kept half.
+    gr_m, gi_m = _ceinsum("bKpq,pm->bKqm", gr, gi, t, "g2")  # (b, n1, h, P)
+    twr, twi = t["twr"], t["twi"]  # (h, P) = [q, m]
+    zr = gr_m * twr - gi_m * twi
+    zi = gr_m * twi + gi_m * twr
+    # Stage 2: contract q in [0, Q/2), real part only; [b, M, m, K] is the
+    # global natural order k = K + n1 * (M * P + m).
+    half = q // 2
+    out = torch.einsum("bKqm,qM->bMmK", zr[:, :, :half], t["w1r"]) - torch.einsum(
+        "bKqm,qM->bMmK", zi[:, :, :half], t["w1i"]
+    )
+    # Nyquist (q = Q/2): the real factor scale * (-1)^M times the (b, m, K) slice.
+    nyq = zr[:, :, half, :].permute(0, 2, 1)
+    out = out + t["alt"][None, :, None, None] * nyq[:, None]
+    return out.reshape(b, n1 * p * q)
 
 
 def stage_a_torch(x3r, x3i, plan: dict):

@@ -7,11 +7,14 @@
   2N laid out ``[real | imag]`` with 1/N normalization.
 * ``fft_batch`` / ``ifft_batch``: every signal padded to the longest one's
   power of two, all in one device pass.
+* ``rfft`` / ``irfft`` (and ``*_device``): the one-sided n/2 + 1 bins of a
+  real signal and back, ``numpy.fft.rfft`` / ``irfft`` conventions on the
+  padded length.
 
 The host API takes lists / numpy arrays and returns numpy arrays; ``device``
 picks where it runs (default ``"cuda"`` or ``GPU_FFT_TPU_TORCH_DEVICE``).
-``fft_device`` / ``ifft_device`` take tensors and return tensors on the same
-device.
+``fft_device`` / ``ifft_device`` / ``rfft_device`` / ``irfft_device`` take
+tensors and return tensors on the same device.
 """
 
 from __future__ import annotations
@@ -19,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..backends import backend_module, resolve_backend
-from ..config import MAX_N, resolve_device
+from ..backends import Backend, backend_module, resolve_backend
+from ..config import MAX_N, apply_precision, resolve_device
 
 __all__ = [
     "fft",
@@ -31,6 +34,10 @@ __all__ = [
     "ifft_with",
     "fft_device",
     "ifft_device",
+    "rfft",
+    "irfft",
+    "rfft_device",
+    "irfft_device",
     "next_power_of_two",
 ]
 
@@ -224,3 +231,82 @@ def ifft_device(xr, xi, backend=None, device=None):
     _check_device_n(xr.shape[-1], "ifft_device")
     yr, yi = backend_module(resolve_backend(backend)).inverse(xr, xi)
     return (yr[0], yi[0]) if squeeze else (yr, yi)
+
+
+# ── One-sided real-input API (numpy.fft.rfft conventions) ────────────────────
+
+
+def _one_sided_n(h: int, name: str) -> int:
+    """n from h = n/2 + 1 bins of a power-of-two n."""
+    n = 2 * (h - 1)
+    if h < 2 or n & (n - 1):
+        raise ValueError(f"{name}: expected n//2 + 1 bins of a power-of-two n, got {h} bins")
+    _check_n(n)
+    return n
+
+
+def rfft(input, backend=None, device=None):
+    """One-sided forward FFT of a real signal: :func:`fft` (zero-padded to
+    the next power of two), then its n//2 + 1 non-negative-frequency bins."""
+    re, im = fft(input, backend=backend, device=device)
+    h = re.shape[-1] // 2 + 1
+    return re[..., :h].copy(), im[..., :h].copy()
+
+
+def irfft(input_real, input_imag, backend=None, device=None):
+    """Inverse of :func:`rfft`: the Hermitian spectrum X[n - k] = conj(X[k])
+    rebuilt from the n//2 + 1 bins (DC and Nyquist taken as real) and
+    inverted by :func:`ifft`; returns the length-n real signal."""
+    xr = np.asarray(input_real, dtype=np.float32)
+    xi = np.asarray(input_imag, dtype=np.float32)
+    if xr.shape != xi.shape or xr.ndim != 1:
+        raise ValueError(
+            f"irfft: real and imag must be equal-length 1-D arrays, got {xr.shape} vs {xi.shape}"
+        )
+    h = xr.shape[0]
+    n = _one_sided_n(h, "irfft")
+    full_r = np.concatenate([xr, xr[1:-1][::-1]])
+    full_i = np.concatenate([xi, -xi[1:-1][::-1]])
+    full_i[0] = 0.0
+    full_i[h - 1] = 0.0
+    return ifft(full_r, full_i, backend=backend, device=device)[:n]
+
+
+def rfft_device(x, backend=None, device=None):
+    """One-sided forward FFT of (n,) or (B, n) real rows (power-of-two n),
+    staying on the tensor's device: the n//2 + 1 bins of :func:`fft_device`."""
+    yr, yi = fft_device(x, backend=backend, device=device)
+    h = yr.shape[-1] // 2 + 1
+    return yr[..., :h], yi[..., :h]
+
+
+def irfft_device(xr, xi, backend=None, device=None):
+    """Inverse of :func:`rfft_device`: (h,) or (B, h) split-complex bins,
+    h = n//2 + 1 of a power-of-two n, to the length-n real rows, on the
+    tensors' device.  DC and Nyquist imaginary parts are ignored.
+
+    ``TORCH`` runs the real-output inverse straight from the one-sided
+    bins (``kernels/large.py:inverse_real_half``); ``TORCH_FFT`` rebuilds
+    the Hermitian spectrum and keeps the real part of :func:`ifft_device`.
+    """
+    xr = _as_tensor(xr, device)
+    xi = _as_tensor(xi, xr.device if device is None else device)
+    if xr.shape != xi.shape:
+        raise ValueError(f"irfft_device: shapes differ: {tuple(xr.shape)} vs {tuple(xi.shape)}")
+    h = xr.shape[-1]
+    n = _one_sided_n(h, "irfft_device")
+    if resolve_backend(backend) is Backend.TORCH:
+        from ..kernels.large import inverse_real_half
+
+        apply_precision()
+        squeeze = xr.dim() == 1
+        rr, ri = (xr[None], xi[None]) if squeeze else (xr, xi)
+        yr = inverse_real_half(rr, ri, n, scale=1.0 / n)
+        return yr[0] if squeeze else yr
+    xi = xi.clone()
+    xi[..., 0] = 0.0
+    xi[..., h - 1] = 0.0
+    full_r = torch.cat([xr, torch.flip(xr[..., 1:-1], (-1,))], dim=-1)
+    full_i = torch.cat([xi, -torch.flip(xi[..., 1:-1], (-1,))], dim=-1)
+    yr, _ = ifft_device(full_r, full_i, backend=backend)
+    return yr

@@ -27,7 +27,11 @@ __all__ = [
     "clear_device_cache",
     "from_jax_plan",
     "get_fused_plan",
+    "get_irfft_direct_k128_plan",
+    "get_irfft_direct_plan",
+    "get_irfft_plan",
     "get_stage_a_plan",
+    "get_stage_b_irfft_plan",
     "get_whole_packed_plan",
     "get_whole_plan",
     "on_device",
@@ -54,6 +58,19 @@ def half_spectrum_applies(n: int) -> bool:
     """Real input computes only the k1 <= n1/2 spectrum half and mirrors the
     rest (Hermitian symmetry, either sign)."""
     return n >= get_tuning().half_spectrum_min
+
+
+def irfft_half_applies(n: int) -> bool:
+    """Real-output inverses fold the conjugate half of the input spectrum
+    before the matmuls: the k1 > n1/2 grid columns are conjugate
+    k2-reversals of the kept ones, so out = Re(sum over k1 <= n1/2)."""
+    return n >= get_tuning().irfft_half_min
+
+
+def irfft_half_staged_applies(n: int) -> bool:
+    """Staged real-output inverses run stage A on the first column tiles
+    only (the rest are conjugate mirrors) and fold stage B per row."""
+    return n >= get_tuning().irfft_half_staged_min
 
 
 def whole_kernel_applies(b: int, n: int) -> bool:
@@ -136,6 +153,93 @@ def get_fused_plan(n: int, sign: int, wide: bool = False, scale: float | None = 
         "twr": twr, "twi": twi,
     }
     return FusedPlan(n=n, sign=sign, kind="fourstep", n1=n1, n2=n2, tables=tables)
+
+
+# ── Real-output inverse plans (Hermitian fold) ───────────────────────────────
+
+
+@functools.lru_cache(maxsize=None)
+def get_irfft_plan(n: int, scale: float | None = None, split: tuple[int, int] | None = None) -> dict:
+    """Tables for the real-output Hermitian-fold inverse at fused sizes
+    (``kernels/fused_torch.py:fused_irfft``), all sign +1:
+
+    * ``g2*``: the (n2, n2) DFT contracting k2 -> m2 (Karatsuba keys too);
+    * ``twr/twi``: (h1, n2) twiddle w_n^(k1 m2), h1 = n1/2 + 1;
+    * ``w1r/w1i``: (n1/2, n1) last stage w_n1^(m1 k1) with the fold weights
+      c_0 = 1, c_k1 = 2 and ``scale`` folded in;
+    * ``alt``: (n1,) scale * (-1)^m1, the Nyquist column's real factor.
+
+    ``split`` overrides the balanced (n1, n2); n1 is the FOLD digit (the
+    minor digit of the flat index).  The staged stage-B fold passes
+    (128, n2/128) (:func:`get_stage_b_irfft_plan`).
+    """
+    if n & (n - 1) or n < 16:
+        raise ValueError(f"irfft plans require power-of-two n >= 16, got {n}")
+    if n > FUSED_MAX:
+        raise ValueError(f"n={n} exceeds FUSED_MAX={FUSED_MAX}")
+    if split is None:
+        n1, n2 = balanced_split(n)
+    else:
+        n1, n2 = split
+        if n1 * n2 != n or n1 < 4 or n1 & (n1 - 1) or n2 & (n2 - 1):
+            raise ValueError(f"bad irfft split {split} for n={n}")
+    h1 = n1 // 2 + 1
+    k = 1.0 if scale is None else float(scale)
+    g2r, g2i, g2s, g2d = dft_matrix_ext(n2, +1)
+    twr, twi = twiddle_table(h1, n2, n, +1)
+    half = n1 // 2
+    red = np.mod(np.outer(np.arange(half, dtype=np.int64), np.arange(n1, dtype=np.int64)), n1)
+    ang = (2.0 * np.pi / n1) * red.astype(np.float64)
+    c = np.full((half, 1), 2.0 * k)
+    c[0] = k
+    w1r = (np.cos(ang) * c).astype(np.float32)
+    w1i = (np.sin(ang) * c).astype(np.float32)
+    alt = (k * (-1.0) ** np.arange(n1, dtype=np.float64)).astype(np.float32)
+    return {
+        "n1": n1, "n2": n2, "h1": h1,
+        "g2r": g2r, "g2i": g2i, "g2s": g2s, "g2d": g2d,
+        "twr": twr, "twi": twi, "w1r": w1r, "w1i": w1i, "alt": alt,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def get_irfft_direct_plan(n: int, scale: float | None = None) -> dict:
+    """Tables for the direct real-output inverse from the one-sided
+    h = n/2 + 1 bins (n <= DIRECT_MAX): x = xr @ cr + xi @ ci with
+    cr[k, m] = s c_k cos(2 pi k m / n), ci[k, m] = -s c_k sin(2 pi k m / n),
+    c_0 = c_{n/2} = 1, else 2.  The k = 0 and n/2 sin rows are exactly zero
+    (angles reduced mod n in int64), so DC/Nyquist imaginary parts are
+    ignored with no masking pass."""
+    if n & (n - 1) or n < 2:
+        raise ValueError(f"direct irfft plans require power-of-two n >= 2, got {n}")
+    if n > DIRECT_MAX:
+        raise ValueError(f"n={n} exceeds DIRECT_MAX={DIRECT_MAX}; use the fold path")
+    h = n // 2 + 1
+    s = 1.0 if scale is None else float(scale)
+    red = np.mod(np.outer(np.arange(h, dtype=np.int64), np.arange(n, dtype=np.int64)), n)
+    ang = (2.0 * np.pi / n) * red.astype(np.float64)
+    c = np.full((h, 1), 2.0 * s)
+    c[0] = s
+    c[-1] = s
+    cr = (np.cos(ang) * c).astype(np.float32)
+    ci = (-np.sin(ang) * c).astype(np.float32)
+    return {"n": n, "h": h, "cr": cr, "ci": ci}
+
+
+@functools.lru_cache(maxsize=None)
+def get_irfft_direct_k128_plan(n: int, scale: float | None = None) -> dict:
+    """:func:`get_irfft_direct_plan` split into the first h - 1 = n/2 rows
+    (``cr``, ``ci``) and the Nyquist row ``alt`` = s (-1)^m, added as a
+    broadcast: x = xr[:, :-1] @ cr + xi[:, :-1] @ ci + xr[:, -1:] * alt."""
+    base = get_irfft_direct_plan(n, scale)
+    h = base["h"]
+    return {
+        "n": n,
+        "h": h,
+        "cr": np.ascontiguousarray(base["cr"][: h - 1]),
+        "ci": np.ascontiguousarray(base["ci"][: h - 1]),
+        "alt": np.ascontiguousarray(base["cr"][h - 1 : h]),
+    }
 
 
 # ── Whole-transform plans (kernels K1 and K2) ────────────────────────────────
@@ -278,6 +382,25 @@ def get_stage_a_plan(n: int, sign: int, ct: int | None = None) -> dict[str, Any]
             "twr": btwr, "twi": btwi,
         }
     return plan
+
+
+def get_stage_b_irfft_plan(n: int, scale: float | None = None) -> dict | None:
+    """Per-row Hermitian-fold tables for the staged real-output inverse.
+
+    After stage A + twiddle of a Hermitian spectrum's inverse, each k1 row
+    of the (B, n1, n2) intermediate is itself Hermitian over n2
+    (Z[k1, n2 - c] = conj(Z[k1, c])): the stage-A twiddle
+    w_n^(k1 (n2 - c)) = w_n1^k1 conj(w_n^(k1 c)) cancels the phase that
+    S[k1, n2 - c] = conj(w_n1^k1 S[k1, c]) carries.  So stage B is the fused
+    fold per row, :func:`get_irfft_plan` at n2 with split (128, n2/128), the
+    fold digit on the row's minor digit.  None where stage B is not
+    plannable (forced-small configurations).
+    """
+    n1 = _stage_a_n1(n)
+    n2 = n // n1
+    if not stage_b_plannable(n2) or n2 < 16:
+        return None
+    return get_irfft_plan(n2, scale=scale, split=(128, n2 // 128))
 
 
 # ── Plans across packages and devices ────────────────────────────────────────

@@ -15,10 +15,13 @@ judged by the bench).
                          plan caches cleared and restored, for ``stage_a_n1``
   half-spectrum gate     ``fused_fft`` against ``fused_fft_half`` on the
                          balanced plan, B = 1, for ``half_spectrum_min``
+  irfft fold gate        the full inverse (``transform_any``, sign +1,
+                         1/n; K1 at 2^14) against the Hermitian fold
+                         (``fused_irfft``), B = 1, for ``irfft_half_min``
 
-The overlap-add block floor (``ops/filter``, ROADMAP item 9) and the irfft
-fold gate (``irfft_device``, ROADMAP item 2) need modules that are not
-ported; their sections are recorded as ``"not ported"``.
+The overlap-add block floor needs ``ops/filter`` (ROADMAP item 8), which is
+not ported; its section is recorded as ``"not ported"``.  The staged gate
+``irfft_half_staged_min`` keeps the table's value, as in the JAX script.
 
 Usage: python -m gpu_fft_tpu_torch.scripts.calibrate_chip [--quick]
 Writes ``chiprun_out/calibrate_chip_results.json``.
@@ -38,10 +41,12 @@ NOT_PORTED = "not ported"
 NEVER = 1 << 62  # a gate that never opens
 
 
-def tuning_entry(base, wide_batch_min: int, stage_a_n1: int, half_spectrum_min: int) -> str:
+def tuning_entry(base, wide_batch_min: int, stage_a_n1: int, half_spectrum_min: int,
+                 irfft_half_min: int) -> str:
     """``base`` (a ``ChipTuning``) with the measured fields, as Python source."""
     t = dataclasses.replace(base, wide_batch_min=wide_batch_min, stage_a_n1=stage_a_n1,
-                            half_spectrum_min=half_spectrum_min, calibrated=True,
+                            half_spectrum_min=half_spectrum_min, irfft_half_min=irfft_half_min,
+                            calibrated=True,
                             note="measured by gpu_fft_tpu_torch/scripts/calibrate_chip.py")
     fields = "\n".join(f"    {f.name}={getattr(t, f.name)!r}," for f in dataclasses.fields(t))
     return f"ChipTuning(\n{fields}\n)"
@@ -50,9 +55,9 @@ def tuning_entry(base, wide_batch_min: int, stage_a_n1: int, half_spectrum_min: 
 def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> dict:
     from .. import plan as plan_mod
     from ..config import apply_precision
-    from ..kernels.fused_torch import fused_fft, fused_fft_folded, fused_fft_half
+    from ..kernels.fused_torch import fused_fft, fused_fft_folded, fused_fft_half, fused_irfft
     from ..kernels.large import transform_any
-    from ..plan import get_fused_plan, on_device
+    from ..plan import get_fused_plan, get_irfft_plan, on_device
     from ..tuning import get_tuning
     from ..utils import profiling
 
@@ -62,7 +67,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
     timing = dict(k1=3, k2=23, reps=3, min_span_s=0.01) if quick else dict(k1=20, k2=220, reps=5)
     results: dict = {"device": torch.cuda.get_device_name(dev), "quick": quick,
                      "wide_split": [], "stage_a_digit": [], "half_spectrum": [],
-                     "oa_block": {"error": NOT_PORTED}, "irfft_fold": {"error": NOT_PORTED}}
+                     "oa_block": {"error": NOT_PORTED}, "irfft_fold": []}
 
     def us(step, x0):
         return profiling.chained_step_stats(step, x0, **timing).median_s * 1e6
@@ -70,8 +75,8 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
     def rand(b, n):
         return torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)).to(dev)
 
-    def carry(yr, x):
-        return yr * 1e-6 + x * 0.9
+    def carry(yr, x, k=1e-6):
+        return yr * k + x * 0.9
 
     # ── wide_batch_min: balanced against the n2 = 128 split ─────────────────
     print("[calibrate] wide-split crossover (balanced vs n2=128):", flush=True)
@@ -123,8 +128,22 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
         if t_half < t_full:
             half_min = min(half_min, n)
 
-    print("[calibrate] overlap-add block floor and irfft fold gate: not ported (ops/filter, irfft)")
-    entry = tuning_entry(get_tuning(), wide_batch_min, best_digit, half_min)
+    # ── irfft_half_min: where the real-output fold beats the full inverse ──
+    print("[calibrate] irfft fold gate (real output, B=1):", flush=True)
+    irfft_min = NEVER
+    for n in ((1 << 14, 1 << 15) if quick else (1 << 13, 1 << 14, 1 << 15, 1 << 16)):
+        plan = on_device(get_irfft_plan, n, 1.0 / n, None, device=dev)
+        x = rand(1, n)
+        t_full = us(lambda v, n=n: carry(transform_any(v, v, n, +1, scale=1.0 / n)[0], v, 1e-3), x)
+        t_fold = us(lambda v, p=plan: carry(fused_irfft(v, v, p), v, 1e-3), x)
+        results["irfft_fold"].append({"n": n, "full_us": t_full, "fold_us": t_fold})
+        print(f"  n={n:6d}: full {t_full:7.2f} us  fold {t_fold:7.2f} us  -> "
+              f"{'fold' if t_fold < t_full else 'full'}", flush=True)
+        if t_fold < t_full:
+            irfft_min = min(irfft_min, n)
+
+    print("[calibrate] overlap-add block floor: not ported (ops/filter)")
+    entry = tuning_entry(get_tuning(), wide_batch_min, best_digit, half_min, irfft_min)
     results["tuning_entry"] = entry
     print("[calibrate] a ChipTuning entry from these measurements (tuning.py is not edited):")
     print(entry)

@@ -31,6 +31,12 @@ class ChipTuning:
       n <= folded_n_max or b >= folded_batch_min.
     * ``stage_a_n1``: the staged column digit.
     * ``half_spectrum_min``: real input computes only k1 <= n1/2 and mirrors.
+    * ``irfft_half_min``: a real-output inverse folds the conjugate half of
+      its input before the matmuls (fused sizes);
+      ``irfft_half_staged_min``: from this staged n, stage A runs on half
+      the column tiles and stage B folds per row.
+    * ``irfft_direct_k128``: the direct half inverse at n >= 256 contracts
+      K = n/2 and adds the Nyquist row as a broadcast.
     * ``whole_*``: the (B, n) band that runs the whole transform as one kernel;
       ``whole_packed_n_max`` picks the packed-table variant inside it.
     * ``stage_a_wide_ct*``: the wider stage-A column tile at large n2.
@@ -44,6 +50,9 @@ class ChipTuning:
     folded_batch_min: int
     stage_a_n1: int
     half_spectrum_min: int
+    irfft_half_min: int
+    irfft_half_staged_min: int
+    irfft_direct_k128: bool
     whole_n_min: int
     whole_n_max: int
     whole_batch_max: int
@@ -63,6 +72,9 @@ _H100 = ChipTuning(
     folded_batch_min=2,
     stage_a_n1=128,
     half_spectrum_min=1 << 15,
+    irfft_half_min=1 << 15,
+    irfft_half_staged_min=1 << 18,
+    irfft_direct_k128=True,
     whole_n_min=1 << 10,
     whole_n_max=1 << 14,
     whole_batch_max=1,

@@ -9,10 +9,11 @@ time on a :class:`ChipSpec`,
     sol = max(t_bytes, t_matmul, t_elementwise[, t_latency]),
 
 and names the wall that sets it (``bound``).  The stages mirror the port's
-dispatch (``kernels/large.py:transform_any``), so the cost is that of the
-plan that runs.  Only the kinds of a ported caller are costed (``fft``,
-``ifft``, ``roundtrip``); the JAX package's other kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports their module.
+dispatch (``kernels/large.py:transform_any``, ``inverse_real``), so the
+cost is that of the plan that runs.  Only the kinds of a ported caller are
+costed (``fft``, ``ifft``, ``roundtrip``, ``irfft``); the JAX package's
+other kinds raise ``NotImplementedError`` naming the ROADMAP item that
+ports their module.
 
 * ``CHIPS`` holds ``h100`` and ``cpu-approx`` (order-of-magnitude figures so
   that the accounting stays defined in the CPU tests).
@@ -62,6 +63,7 @@ __all__ = [
     "compiled_stats",
     "detect_chip",
     "eff_passes",
+    "irfft_stages",
     "roofline_row",
     "transform_cost",
     "transform_stages",
@@ -89,24 +91,23 @@ EFF_PASSES = {
 }
 _EFF_DEFAULT = EFF_PASSES["h100"]
 
-_BENCH = "ROADMAP item 1 (the H100 bench's config kinds)"
+_BENCH = "ROADMAP item 0 (the H100 bench's config kinds)"
 #: The JAX package's transform_cost kinds that the port does not cost yet,
 #: with the ROADMAP queue item that ports what they need.
 NOT_PORTED_KINDS = {
     **{k: _BENCH for k in ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch",
                            "ifft_sequential", "roundtrip_batch", "roundtrip_sequential")},
-    "irfft": "ROADMAP item 2 (the irfft gates and plans)",
-    "grad_fft": "ROADMAP item 3 (autodiff)",
-    "welch": "ROADMAP item 6 (ops/spectral)",
-    "stft_roundtrip": "ROADMAP items 2 and 7 (irfft_direct_k128, ops/stft)",
-    "fft_exact": "ROADMAP item 8 (ops/exact.mixed_split)",
-    "dct_roundtrip": "ROADMAP items 2 and 9 (the irfft dispatch, ops/dct)",
-    "resample": "ROADMAP items 2 and 9 (the irfft dispatch, ops/dsp)",
-    "hilbert": "ROADMAP item 9 (ops/dsp)",
-    "oaconvolve": "ROADMAP item 9 (ops/filter)",
-    "fftfilt": "ROADMAP item 9 (ops/filter)",
-    "conv2d": "ROADMAP items 9 and 10 (ops/filter, ops/fft2d)",
-    "fft2": "ROADMAP item 10 (ops/fft2d)",
+    "grad_fft": "ROADMAP item 4 (autodiff)",
+    "welch": "ROADMAP item 5 (ops/spectral)",
+    "stft_roundtrip": "ROADMAP item 6 (ops/stft)",
+    "fft_exact": "ROADMAP item 7 (ops/exact.mixed_split)",
+    "dct_roundtrip": "ROADMAP item 8 (ops/dct)",
+    "resample": "ROADMAP item 8 (ops/dsp)",
+    "hilbert": "ROADMAP item 8 (ops/dsp)",
+    "oaconvolve": "ROADMAP item 8 (ops/filter)",
+    "fftfilt": "ROADMAP item 8 (ops/filter)",
+    "conv2d": "ROADMAP items 8 and 9 (ops/filter, ops/fft2d)",
+    "fft2": "ROADMAP item 9 (ops/fft2d)",
 }
 
 #: The ``__global__`` functions of ``csrc/``: a profiled kernel whose name
@@ -253,11 +254,54 @@ def transform_stages(b: int, n: int, real_input: bool):
     return stages + s2, elem + e2
 
 
+def irfft_stages(b: int, n: int):
+    """Stage list of the real-OUTPUT inverse (``kernels/large.py:
+    inverse_real``): the fused Hermitian fold at irfft_half_min <= n <=
+    FUSED_MAX, stage A on the first ceil((n2/2 + 1) / ct) column tiles plus
+    the per-row stage-B fold at n >= irfft_half_staged_min, else the full
+    complex inverse.  Returns (stages, elem_flops, read_fraction): the fold
+    reads only its kept fraction of the input spectrum, and the byte charge
+    follows it.
+    """
+    if 16 <= n <= FUSED_MAX and _plan.irfft_half_applies(n):
+        n1, n2 = _plan.balanced_split(n)
+        h1 = n1 // 2 + 1
+        stages = [
+            # Stage 1: Karatsuba complex contraction of k2 over h1 columns.
+            (3 * 2.0 * b * h1 * n2 * n2, n2),
+            # Stage 2: two real contractions over n1/2, natural order out.
+            (2 * 2.0 * b * n * (n1 // 2), n1 // 2),
+        ]
+        elem = 6.0 * b * h1 * n2 + 2.0 * b * n  # twiddle + Nyquist broadcast
+        return stages, elem, h1 / n1
+    if n > FUSED_MAX and _plan.irfft_half_staged_applies(n):
+        n1 = _plan._stage_a_n1(n)
+        n2 = n // n1
+        ct = _plan.stage_a_col_tile(n1, n2)
+        w = -(-(n2 // 2 + 1) // ct) * ct  # stage-A columns computed
+        p, q = n2 // 128, 128
+        h = q // 2 + 1
+        stages = [
+            # Half-column complex stage A (Karatsuba).
+            (3 * 2.0 * b * n1 * n1 * w, n1),
+            # Per-row stage-B fold: complex stage 1 over h of the q minor columns.
+            (3 * 2.0 * b * n1 * h * p * p, p),
+            # Real stage 2 contracting q/2.
+            (2 * 2.0 * b * n * (q // 2), q // 2),
+        ]
+        # Stage-A twiddle, the fold input's flips, the row twiddle.
+        elem = 6.0 * b * n1 * w + 2.0 * b * n + 6.0 * b * n1 * h * p
+        return stages, elem, w / n2
+    stages, elem = transform_stages(b, n, real_input=False)
+    return stages, elem, 1.0
+
+
 def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     """FLOPs, least bytes and per-stage classes of one configuration.
 
-    ``kind``: fft (real in, split-complex out), ifft (complex in and out) or
-    roundtrip (fft + ifft).  The kinds of :data:`NOT_PORTED_KINDS` raise
+    ``kind``: fft (real in, split-complex out), ifft (complex in and out),
+    roundtrip (fft + ifft) or irfft (Hermitian spectrum in, real out,
+    :func:`irfft_stages`).  The kinds of :data:`NOT_PORTED_KINDS` raise
     ``NotImplementedError``; any other raises ``ValueError``.
     """
     f32 = 4
@@ -275,6 +319,10 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
         s2, e2 = transform_stages(b, n, False)
         stages, elem = s1 + s2, e1 + e2 + 2.0 * b * n
         bytes_ = b * n * f32 * (1 + 2)
+    elif kind == "irfft":
+        # The 1/n scale lives in the tables at the fold sizes: no extra pass.
+        stages, elem, read_frac = irfft_stages(b, n)
+        bytes_ = b * n * f32 * (2.0 * read_frac + 1)
     else:
         raise ValueError(f"unknown config kind {kind!r}")
     return {

@@ -276,10 +276,11 @@ def test_engine_errors_allow_only_the_retired_rows():
 
 
 def test_tuning_entry_is_a_chip_tuning():
-    text = calibrate_chip.tuning_entry(get_tuning(), 16, 256, calibrate_chip.NEVER)
+    text = calibrate_chip.tuning_entry(get_tuning(), 16, 256, calibrate_chip.NEVER, 1 << 16)
     t = eval(text, {"ChipTuning": ChipTuning})
     assert t == dataclasses.replace(get_tuning(), wide_batch_min=16, stage_a_n1=256,
-                                    half_spectrum_min=1 << 62, calibrated=True, note=t.note)
+                                    half_spectrum_min=1 << 62, irfft_half_min=1 << 16,
+                                    calibrated=True, note=t.note)
 
 
 # ── The scripts, rehearsed on the CPU ────────────────────────────────────────
@@ -352,7 +353,11 @@ def test_calibrate_chip_rehearsal(rehearsal, tmp_path):
     orig = tplan._stage_a_n1
     res = calibrate_chip.main(quick=True, out_dir=str(tmp_path), device="cpu")
     assert tplan._stage_a_n1 is orig  # the patched digit is restored
-    assert res["oa_block"] == res["irfft_fold"] == {"error": calibrate_chip.NOT_PORTED}
+    assert res["oa_block"] == {"error": calibrate_chip.NOT_PORTED}
+    assert [r["n"] for r in res["irfft_fold"]] == [1 << 14, 1 << 15]
+    assert all(r["full_us"] > 0 and r["fold_us"] > 0 for r in res["irfft_fold"])
     assert [r["n1"] for r in res["stage_a_digit"]] == [128, 256]
     assert len(res["wide_split"]) == 9 and len(res["half_spectrum"]) == 2
     assert "ChipTuning(" in res["tuning_entry"]
+    # Equal (fake) times: the fold never wins, so its gate stays closed.
+    assert f"irfft_half_min={calibrate_chip.NEVER}," in res["tuning_entry"]

@@ -133,6 +133,70 @@ def test_stage_a_kernel(dev, n, ct, digit, kind, signal):
     assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("n", [1 << 18, 1 << 20, 1 << 22, 1 << 24])
+@pytest.mark.parametrize("ct", [512, 1024, 2048])
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_stage_a_kernel_irfft_col_tiles(dev, n, ct, signal):
+    """K3 as the staged real-output inverse runs it: complex input, sign +1,
+    all rows, the first ceil((n2/2 + 1) / ct) column tiles (ct = 512 the
+    path's; n1 = 256 at 2^24).  Against the plain version (1e-5) and, for
+    the DC and impulse inputs, numpy in float64 (5 log2(n) eps)."""
+    plan = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
+    n1, n2 = plan["n1"], plan["n2"]
+    tiles = -(-(n2 // 2 + 1) // ct)  # all of them at 2^18 for ct >= 1,024
+    assert tiles * ct > n2 // 2
+    g = torch.Generator(device=dev).manual_seed(2)
+    xr = _signal(signal, 1, n, g, dev).reshape(1, n1, n2)
+    xi = 0.5 * _signal(signal, 1, n, g, dev).reshape(1, n1, n2)
+    K.reset_counts()
+    got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles)
+    assert K.COUNTS["stage_a"].launches == 1 and got[0].shape == (1, n1, tiles * ct)
+    _close(got, K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles))
+    if signal == "randn":
+        return
+    ncols = tiles * ct
+    x = xr[:, :, :ncols].cpu().double().numpy() + 1j * xi[:, :, :ncols].cpu().double().numpy()
+    k1c = np.arange(n1)[:, None] * np.arange(ncols)[None, :] % n
+    ref = np.fft.ifft(x, axis=1) * n1 * np.exp(2j * np.pi * k1c / n)
+    err = max(np.abs(got[0].cpu().numpy() - ref.real).max(), np.abs(got[1].cpu().numpy() - ref.imag).max())
+    assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * np.abs(ref).max()
+
+
+# (b, n) of the real-output path and the kernel it launches there.
+IRFFT_CASES = [(1, 256, None), (1, 1024, "whole_transform_packed"), (1, 4096, "whole_transform"),
+               (1, 16384, "whole_transform"), (1, 65536, None), (1, 1 << 17, "stage_a"),
+               (1, 1 << 18, "stage_a"), (1, 1 << 20, "stage_a"), (1, 1 << 22, "stage_a"),
+               (16, 65536, None), (64, 4096, None)]
+
+
+@pytest.mark.parametrize("b,n,kernel", IRFFT_CASES)
+def test_irfft_on_card(dev, b, n, kernel):
+    """rfft_device against numpy's rfft, irfft_device against numpy's irfft
+    (float64) and torch.fft.irfft, within 5 log2(n) eps, and the kernel the
+    dispatch sends the inverse to (or none)."""
+    rng = np.random.default_rng(n + b)
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    gate = 5 * np.log2(n) * np.finfo(np.float32).eps
+    fr, fi = gt.rfft_device(torch.from_numpy(x).to(dev))
+    ref = np.fft.rfft(x.astype(np.float64), axis=-1)
+    err = max(np.abs(fr.cpu().numpy() - ref.real).max(), np.abs(fi.cpu().numpy() - ref.imag).max())
+    assert err <= gate * np.abs(ref).max()
+    sr, si = ref.real.astype(np.float32), ref.imag.astype(np.float32)
+    sr_t, si_t = torch.from_numpy(sr).to(dev), torch.from_numpy(si).to(dev)
+    K.reset_counts()
+    y = gt.irfft_device(sr_t, si_t)
+    ran = {k for k, c in K.COUNTS.items() if c.launches}
+    assert ran == ({kernel} if kernel else set()) and all(c.plain_calls == 0 for c in K.COUNTS.values())
+    want = np.fft.irfft(sr.astype(np.float64) + 1j * si.astype(np.float64), n=n, axis=-1)
+    peak = np.abs(want).max()
+    assert np.abs(y.cpu().numpy() - want).max() <= gate * peak
+    vref = torch.fft.irfft(torch.complex(sr_t, si_t), n=n, dim=-1)
+    assert float((y - vref).abs().max()) <= gate * peak
+    if b == 1:
+        yh = gt.irfft(sr[0], si[0], device="cuda")
+        assert np.abs(yh - want[0]).max() <= gate * peak
+
+
 @pytest.mark.parametrize(
     "n,n1,complex_,tiles,rows",
     [(1 << 17, 16, False, None, None), (1 << 17, 16, True, None, 16),

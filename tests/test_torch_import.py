@@ -30,7 +30,9 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.kernels.probes, gpu_fft_tpu_torch.utils.roofline, "
         "gpu_fft_tpu_torch.scripts.calibrate_latency, gpu_fft_tpu_torch.scripts.calibrate_matmul, "
         "gpu_fft_tpu_torch.scripts.calibrate_chip, gpu_fft_tpu_torch.scripts.ablate_whole_packed, "
-        "gpu_fft_tpu_torch.scripts.ablate_engines\n"
+        "gpu_fft_tpu_torch.scripts.ablate_engines, gpu_fft_tpu_torch.config, "
+        "gpu_fft_tpu_torch.backends, gpu_fft_tpu_torch.tuning, gpu_fft_tpu_torch.plan, "
+        "gpu_fft_tpu_torch.kernels.fused_torch, gpu_fft_tpu_torch.ops.transform\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"

@@ -23,7 +23,7 @@ from gpu_fft_tpu_torch.utils import profiling as tprof
 from gpu_fft_tpu_torch.utils import roofline as roof
 
 ROOT = Path(__file__).resolve().parent.parent
-PORTED_KINDS = ("fft", "ifft", "roundtrip")
+PORTED_KINDS = ("fft", "ifft", "roundtrip", "irfft")
 GRID = [(1, 1 << k) for k in range(8, 23)] + [(2, 16384), (16, 4096), (16, 65536)]
 H100 = roof.CHIPS["h100"]
 
@@ -49,6 +49,21 @@ def test_unported_kinds_raise_not_implemented(kind):
 @pytest.mark.parametrize("kind", sorted(roof.NOT_PORTED_KINDS))
 def test_unported_kinds_are_the_jax_packages(kind):
     assert jroof.transform_cost(16, 65536, kind)["flops"] > 0
+
+
+@pytest.mark.parametrize("b,n", [(1, 16), (1, 1 << 15), (3, 1 << 16), (1, 1 << 17), (2, 1 << 18),
+                                 (1, 1 << 20), (1, 1 << 24)])
+def test_irfft_stages_match_the_jax_package(b, n):
+    """The irfft stage list on both sides of both gates, up to 2^24 (which
+    GRID does not reach): the staged fold counts the stage-A columns of the
+    plan's default tile, ceil((n2/2 + 1) / ct) * ct."""
+    got, want = roof.irfft_stages(b, n), jroof.irfft_stages(b, n)
+    assert got[0] == want[0] and got[1] == pytest.approx(want[1], rel=1e-12) and got[2] == want[2]
+    if n >= 1 << 18:
+        n1 = tplan._stage_a_n1(n)
+        n2 = n // n1
+        ct = tplan.stage_a_col_tile(n1, n2)
+        assert got[2] == -(-(n2 // 2 + 1) // ct) * ct / n2
 
 
 def test_unknown_kind_raises():

@@ -298,14 +298,17 @@ def test_clear_device_cache_drops_uploaded_plans():
 
 
 def test_lever_errors_allow_only_the_unported_irfft_rows():
+    """The L4 irfft rows are ported now: no row may hold an error, and a
+    "not ported" row is one too."""
     rows = {
         "L0_shipped": {"us": 1.0},
-        "L4_irfft_n131072_ct512": {"error": t_levers.NOT_PORTED},
+        "L4_irfft_n131072_ct512": {"error": "not ported"},
         "L4_fft_n131072_ct512": {"error": "RuntimeError: boom"},
         "L4_irfft_n262144_ct512": {"error": "TypeError: x"},
+        "L4_irfft_n262144_ct1024": {"us": 1.0, "parity": 0.0},
     }
     assert sorted(t_levers.unexpected_errors({"rows": rows})) == [
-        "L4_fft_n131072_ct512", "L4_irfft_n262144_ct512",
+        "L4_fft_n131072_ct512", "L4_irfft_n131072_ct512", "L4_irfft_n262144_ct512",
     ]
 
 
@@ -316,7 +319,7 @@ def test_lever_parity_failures_flag_rows_over_the_gate_or_without_parity():
         "L4_fft_n262144_ct1024": {"us": 1.0, "parity": limit / 2},
         "L4_fft_n262144_ct2048": {"us": 1.0, "parity": limit * 2},
         "L4_fft_n131072_ct512": {"us": 1.0},
-        "L4_irfft_n131072_ct512": {"error": t_levers.NOT_PORTED},
+        "L4_irfft_n131072_ct512": {"error": "RuntimeError: boom"},
     }
     assert sorted(t_levers.parity_failures({"rows": rows})) == [
         "L4_fft_n131072_ct512", "L4_fft_n262144_ct2048",
