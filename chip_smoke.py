@@ -32,8 +32,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    forward and on complex inverse input, beside torch.fft.fft and
    torch.fft.ifft; K3 at 2^20 and 2^22 on real input with the real path's
    rows and on complex input with the inverse plan, the ifft path, and on
-   the irfft path's column tiles); each main-path call against torch.fft,
-   and irfft_device beside ifft_device and torch.fft.irfft;
+   the irfft path's column tiles; S3 f32 beside torch.matmul on the
+   stacked LHS, S3 bf16_x1 beside torch.mm of the bf16 operands into fp32,
+   or the refusal's text where torch has no out_dtype); each main-path call
+   against torch.fft, and irfft_device beside ifft_device and
+   torch.fft.irfft;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -655,13 +658,24 @@ def main() -> None:
                   lambda: K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles),
                   stage_a_bound(n1, n2, n1, True, ct, ncols=tiles * ct))
         del xr, xi
+    # S3's one-call yardsticks: f32, torch.matmul on the stacked LHS; x1,
+    # torch.mm of the bf16 operands into fp32 (x rounded outside the timed
+    # region); x6 has none.
     s3_cat = torch.cat([s3_tables["fr"], s3_tables["fi"]])
+    s3_cat_bf, s3_x_bf = s3_cat.to(torch.bfloat16), s3_x[0].to(torch.bfloat16)
+    s3_library = {"f32_highest": lambda: torch.matmul(s3_cat, s3_x[0]),
+                  "bf16_x1": lambda: torch.mm(s3_cat_bf, s3_x_bf, out_dtype=torch.float32)}
+    report["s3_library_refused"] = {}
+    try:
+        s3_library["bf16_x1"]()
+    except (TypeError, RuntimeError) as e:  # a torch without mm's out_dtype
+        report["s3_library_refused"]["bf16_x1"] = f"none: {type(e).__name__}: {e}"
+        del s3_library["bf16_x1"]
     for v in A.VARIANTS:
-        lib = (lambda: torch.matmul(s3_cat, s3_x[0])) if v == "f32_highest" else None
         time_pair(f"stage_a_dot_{v} (1, {n1_s3}, {n2_s3})", f"stage_a_dot_{v}",
                   lambda v=v: A.stage_a_dot(s3_x, s3_tables, v),
                   lambda v=v: A.stage_a_dot_plain(s3_x, s3_tables, v),
-                  dot_bound(n1_s3, n2_s3, v), lib)
+                  dot_bound(n1_s3, n2_s3, v), s3_library.get(v))
 
     for b, n in ((1, 65536), (16, 65536)):
         t = P.on_device(E.lm_tables, n, -1, device=dev)
@@ -818,6 +832,9 @@ def main() -> None:
             plain_device_ms=t["plain_device_ms"], library_device_ms=t["library_device_ms"],
             timed=t["what"],
         ))
+        refused = report["s3_library_refused"].get(name.removeprefix("stage_a_dot_"))
+        if refused:
+            kernels[-1]["library_refused"] = refused
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -193,6 +193,6 @@ extern "C" int gft_stage_a_full(const float* xr, const float* xi, const float* f
                                 const float* f1i, const float* twr, const float* twi, float* yr,
                                 float* yi, int batch, int n1, int n2, int rows, int ncols,
                                 void* stream) {
-  return gft::launch_stage_a_tile<gft::TW_FULL>(xr, xi, f1r, f1i, twr, twi, yr, yi, batch, n1, n2,
-                                                rows, ncols, stream);
+  return gft::launch_stage_a_tile(xr, xi, f1r, f1i, twr, twi, yr, yi, batch, n1, n2, rows,
+                                 ncols, stream);
 }

@@ -1,15 +1,17 @@
-// The tiled column-DFT product that serves K3-legacy (stage A on a plan with
-// a materialized twiddle, stage_a.cu) and the f32 variant of the stage-A dot
-// ablation (S3 f32_highest, stage_a_dot.cu).  K3 itself, on the production
-// plan's factored twiddle, is a radix FFT (stage_a.cu, radix.cuh).
+// The tiled column-DFT product of K3-legacy: stage A on a plan with a
+// materialized twiddle (stage_a.cu, gft_stage_a_full), replacing the Pallas
+// kernel gpu_fft_tpu/kernels/fused.py:153 / :162 (stage_a on such a plan).
+// K3 itself, on the production plan's factored twiddle, is a radix FFT
+// (stage_a.cu, radix.cuh); S3's f32 dot moved to dense_f32.cuh.
 //
 // Over a (B, n1, n2) view of x it computes, for k1 < rows and c < ncols,
 //   P[b, k1, c] = sum_a F1[k1, a] x[b, a, c]
-// and writes Y = P * W[k1, c], where the twiddle W comes from one of two
-// sources (the TW template parameter):
-//   TW_NONE      W = 1: the bare product (S3's f32 variant);
-//   TW_FULL      W = tw[k1 * n2 + c], a materialized (n1, n2) table read with
-//                coalesced float4 loads in the epilogue (K3-legacy).
+// and writes Y = P * W[k1, c], W = tw[k1 * n2 + c] a materialized (n1, n2)
+// table read with coalesced float4 loads in the epilogue.
+//
+// What bounds it on an H100: at 2^20, n1 = 128, all rows, 543 MFLOP -> 8.1 us
+// at 67 TFLOP/s of fp32 FMA, against 21 MB (x, twiddle, output) -> 6.3 us at
+// 3.35 TB/s: the FMA pipes.
 //
 // Design: each block computes a TM x TN output tile, staging TK-deep slices
 // of F1 (transposed, padded against bank conflicts) and of x (float4,
@@ -18,15 +20,13 @@
 // tile is masked; that is its own instantiation (DEPTH_MASK), so the main
 // path's n1 of 128 or 256 runs the unmasked loop.
 // fp32 FMA on CUDA cores, 4-product complex arithmetic.  Offsets are 64-bit:
-// B * n passes 2^31 at B = 128, n = 2^24.
+// B * n passes 2^31 at B = 128, n = 2^24.  The register-tiled, cp.async-ringed
+// core of dense_f32.cuh is its successor; K3-legacy moves onto it next.
 #pragma once
 
 #include "common.cuh"
 
 namespace gft {
-
-constexpr int TW_NONE = 0;
-constexpr int TW_FULL = 2;
 
 namespace stage_a_tile {
 constexpr int TM = 32;   // output rows k1 per block
@@ -35,8 +35,8 @@ constexpr int TK = 32;   // contraction depth per shared-memory stage
 constexpr int THREADS = 256;
 }  // namespace stage_a_tile
 
-// twr / twi: the (n1, n2) twiddle (TW_FULL only).
-template <bool COMPLEX, int TW, bool DEPTH_MASK>
+// twr / twi: the (n1, n2) twiddle.
+template <bool COMPLEX, bool DEPTH_MASK>
 __global__ void __launch_bounds__(stage_a_tile::THREADS)
 stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     const float* __restrict__ f1r, const float* __restrict__ f1i,
@@ -132,23 +132,16 @@ stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     for (int h = 0; h < 2; ++h) {
       const int cb = col0 + h * 64 + tx * 4;
       if (cb >= ncols) continue;
-      float4 full_r, full_i;  // TW_FULL: W for the four columns cb..cb+3
-      if constexpr (TW == TW_FULL) {
-        full_r = ldg4(twr + (size_t)k1 * n2 + cb);
-        full_i = ldg4(twi + (size_t)k1 * n2 + cb);
-      }
+      // W for the four columns cb..cb+3.
+      const float4 full_r = ldg4(twr + (size_t)k1 * n2 + cb);
+      const float4 full_i = ldg4(twi + (size_t)k1 * n2 + cb);
       float outr[4], outi[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const float pr = ar[i][h * 4 + q], pi = ai[i][h * 4 + q];
-        if constexpr (TW == TW_NONE) {
-          outr[q] = pr;
-          outi[q] = pi;
-        } else {
-          const float wr = f4(full_r, q), wi = f4(full_i, q);
-          outr[q] = pr * wr - pi * wi;
-          outi[q] = pr * wi + pi * wr;
-        }
+        const float wr = f4(full_r, q), wi = f4(full_i, q);
+        outr[q] = pr * wr - pi * wi;
+        outi[q] = pr * wi + pi * wr;
       }
       const size_t o = ((size_t)b * rows + k1) * ncols + cb;
       *reinterpret_cast<float4*>(yr + o) = make_float4(outr[0], outr[1], outr[2], outr[3]);
@@ -158,8 +151,7 @@ stage_a_tile_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 // Launch over (B, n1, n2) -> (B, rows, ncols); returns cudaGetLastError().
-template <int TW>
-int launch_stage_a_tile(const float* xr, const float* xi, const float* f1r, const float* f1i,
+inline int launch_stage_a_tile(const float* xr, const float* xi, const float* f1r, const float* f1i,
                         const float* twr, const float* twi, float* yr, float* yi, int batch,
                         int n1, int n2, int rows, int ncols, void* stream) {
   using namespace stage_a_tile;
@@ -170,10 +162,8 @@ int launch_stage_a_tile(const float* xr, const float* xi, const float* f1r, cons
   if (col_blocks * batch > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(col_blocks * batch), (rows + TM - 1) / TM);
   const bool mask = n1 % TK != 0;
-  const auto kernel = xi ? (mask ? stage_a_tile_kernel<true, TW, true>
-                                 : stage_a_tile_kernel<true, TW, false>)
-                         : (mask ? stage_a_tile_kernel<false, TW, true>
-                                 : stage_a_tile_kernel<false, TW, false>);
+  const auto kernel = xi ? (mask ? stage_a_tile_kernel<true, true> : stage_a_tile_kernel<true, false>)
+                         : (mask ? stage_a_tile_kernel<false, true> : stage_a_tile_kernel<false, false>);
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       xr, xi, f1r, f1i, twr, twi, yr, yi, n1, n2, rows, ncols, (int)col_blocks);
   return (int)cudaGetLastError();

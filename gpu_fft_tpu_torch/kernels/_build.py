@@ -45,10 +45,10 @@ _SIGNATURES = {
     "gft_stage_a_full": [_P] * 8 + [_I] * 5 + [_P],
     # x, f1r, f1i, twr, twi, yr, yi, n1, n2, stream
     "gft_stage_a_manual": [_P] * 7 + [_I] * 2 + [_P],
-    # x, fr, fi, yr, yi, batch, n1, n2, stream
-    "gft_stage_a_dot_f32": [_P] * 5 + [_I] * 3 + [_P],
-    # x, far, fai, yr, yi, batch, n1, n2, parts, stream
-    "gft_stage_a_dot_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # x, f_t, yr, yi, batch, n1, n2, stream
+    "gft_stage_a_dot_f32": [_P] * 4 + [_I] * 3 + [_P],
+    # x, f_img, yr, yi, batch, n1, n2, parts, wgs, grid, stream
+    "gft_stage_a_dot_bf16": [_P] * 4 + [_I] * 6 + [_P],
     # x, f1r, f1i, twr, twi, f2r, f2s, f2d, yr, yi,
     # batch, n1, n2, cluster, threads, smem_bytes, stream
     "gft_fused_lm": [_P] * 10 + [_I] * 6 + [_P],

@@ -22,7 +22,7 @@ import torch
 
 from ..plan import balanced_split
 from . import _build
-from .fused import LaunchCount, _check, _on_cpu, _ptr, _stream, lm_geometry
+from .fused import LaunchCount, _check, _on_cpu, _ptr, _stream, lm_geometry, sm_count
 from .tables import dft_matrix_ext, twiddle_table
 
 __all__ = [
@@ -91,7 +91,7 @@ def fused_fft_lm(x, t: dict):
     n1, n2 = t["n1"], t["n2"]
     if n != n1 * n2:
         raise ValueError(f"fused_fft_lm: x is (B, {n}), tables are n1={n1} x n2={n2}")
-    geometry = lm_geometry(b, n1, n2)
+    geometry = lm_geometry(b, n1, n2, sm_count(x.device))
     names = ("f1r", "f1i", "twr", "twi", "f2r", "f2s", "f2d")
     shapes = {"x": (b, n), "f1r": (n1, n1), "f1i": (n1, n1), "twr": (n1, n2), "twi": (n1, n2),
               "f2r": (n2, n2), "f2s": (n2, n2), "f2d": (n2, n2)}

@@ -34,8 +34,10 @@ from .fused_torch import stage_a_torch
 
 __all__ = [
     "COUNTS",
+    "DEFAULT_SMS",
     "lm_geometry",
     "reset_counts",
+    "sm_count",
     "stage_a",
     "stage_a_geometry",
     "stage_a_plain",
@@ -158,7 +160,30 @@ def whole_transform_packed_plain(xr, xi, plan: dict):
 _B1_CLUSTER = {8: 1, 16: 1, 32: 4, 64: 8, 128: 16, 256: 16, 512: 16}
 #: The same for S1, by n = n1 * n2 (``time_whole``'s S1 sweep).
 _LM_B1_CLUSTER = {512: 1, 1024: 1, 2048: 1, 4096: 4, 8192: 8, 16384: 16, 32768: 16, 65536: 16}
-_SMS = 132  # SMs of an H100 SXM
+#: SMs of an H100 SXM: the count a launch rule assumes for a call with no
+#: device (the CPU tests); on a card the wrappers pass :func:`sm_count`.
+DEFAULT_SMS = 132
+
+
+#: SM count by CUDA device index, read once per device.
+_SM_COUNTS: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (132 on an H100 SXM, 114 on
+    the PCIe card); :data:`DEFAULT_SMS` for a CPU tensor's device or None.
+    A CUDA tensor's device costs one dict lookup after the first call."""
+    if device is None:
+        return DEFAULT_SMS
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device.type != "cuda":
+        return DEFAULT_SMS
+    index = torch.cuda.current_device() if device.index is None else device.index
+    sms = _SM_COUNTS.get(index)
+    if sms is None:
+        sms = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
 
 
 def _pow2_in(v: int, lo: int, hi: int) -> bool:
@@ -179,32 +204,32 @@ def whole_smem_bytes(n1: int, cluster: int, n2: int = _N2) -> int:
     return 8 * (max(n2 // cluster * (n1 + 1), rows * _stage2_ld(rows, n2)) + n1 + n2)
 
 
-def _cluster_geometry(b: int, n1: int, n2: int, b1_cluster: int,
+def _cluster_geometry(b: int, n1: int, n2: int, b1_cluster: int, sms: int,
                       max_threads: int = _MAX_THREADS) -> tuple[int, int, int]:
     """(cluster, threads, smem_bytes): ``b1_cluster`` at B = 1, halved while
-    the grid holds more blocks than the card has SMs, down to the least
+    the grid holds more blocks than the card's ``sms`` SMs, down to the least
     cluster whose blocks fit ``max_threads``."""
     least = max(1, n1 * n2 // (_VALUES * max_threads))
     cluster = b1_cluster
-    while cluster > least and b * cluster > _SMS:
+    while cluster > least and b * cluster > sms:
         cluster //= 2
     return cluster, n1 * n2 // (_VALUES * cluster), whole_smem_bytes(n1, cluster, n2)
 
 
-def whole_geometry(b: int, n1: int) -> tuple[int, int, int]:
+def whole_geometry(b: int, n1: int, sms: int = DEFAULT_SMS) -> tuple[int, int, int]:
     """(cluster, threads, smem_bytes) of the whole kernel for B = ``b`` rows
     of n = 128 * n1 points: one cluster of ``cluster`` blocks per row, each of
     ``threads`` = n / (8 * cluster) threads.  At B = 1 the cluster is the
     swept fastest; a larger batch halves it while the grid holds more blocks
-    than the card has SMs, down to the least cluster whose blocks fit 1,024
-    threads (the fastest of the sweep at B = 16 and 64, n = 4,096 and
-    16,384, too)."""
+    than the card has SMs (``sms``), down to the least cluster whose blocks
+    fit 1,024 threads (the fastest of the sweep at B = 16 and 64, n = 4,096
+    and 16,384, too)."""
     if n1 not in _B1_CLUSTER:
         raise ValueError(f"whole kernel: n1 must be a power of two in [8, 512], got {n1}")
-    return _cluster_geometry(b, n1, _N2, _B1_CLUSTER[n1])
+    return _cluster_geometry(b, n1, _N2, _B1_CLUSTER[n1], sms)
 
 
-def lm_geometry(b: int, n1: int, n2: int) -> tuple[int, int, int]:
+def lm_geometry(b: int, n1: int, n2: int, sms: int = DEFAULT_SMS) -> tuple[int, int, int]:
     """(cluster, threads, smem_bytes) of S1, the whole kernel at n2 = 64, 128
     or 256 and n1 <= n2 a power of two >= 8, for B = ``b`` rows: the rule of
     :func:`whole_geometry` with S1's own cluster at B = 1, halved only while
@@ -215,7 +240,7 @@ def lm_geometry(b: int, n1: int, n2: int) -> tuple[int, int, int]:
             f"fused_fft_lm kernel: n2 must be 64, 128 or 256 and n1 <= n2 a power of two >= 8 "
             f"(n1={n1}, n2={n2})"
         )
-    return _cluster_geometry(b, n1, n2, _LM_B1_CLUSTER[n1 * n2], max_threads=512)
+    return _cluster_geometry(b, n1, n2, _LM_B1_CLUSTER[n1 * n2], sms, max_threads=512)
 
 
 def whole_slices(n1: int, cluster: int, n2: int = _N2) -> list[tuple[range, range]]:
@@ -257,7 +282,7 @@ def whole_transform(xr, xi, plan: dict):
     lib = _build.library()
     err = lib.gft_whole_split(
         _ptr(xr), _ptr(xi), *(_ptr(plan[k]) for k in names),
-        _ptr(yr), _ptr(yi), b, n1, *whole_geometry(b, n1), _stream(xr.device),
+        _ptr(yr), _ptr(yi), b, n1, *whole_geometry(b, n1, sm_count(xr.device)), _stream(xr.device),
     )
     _build.check(err, "whole_transform")
     count.launches += 1
@@ -280,7 +305,7 @@ def whole_transform_packed(xr, xi, plan: dict):
     lib = _build.library()
     err = lib.gft_whole_packed(
         _ptr(xr), _ptr(xi), _ptr(plan["packed"]), _ptr(yr), _ptr(yi), b, n1,
-        *whole_geometry(b, n1), _stream(xr.device),
+        *whole_geometry(b, n1, sm_count(xr.device)), _stream(xr.device),
     )
     _build.check(err, "whole_transform_packed")
     count.launches += 1

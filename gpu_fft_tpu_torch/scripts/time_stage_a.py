@@ -16,6 +16,8 @@ arguments) also times it at every column-tile width W in {16, 32, 64, 128}
 that fits 1,024 threads (n1 W / 8), each launch checked against the plain
 version (max|d| <= 1e-5 max|plain|), beside the width ``stage_a_geometry``
 picks; the rows go into the same JSON line under ``sweep``.
+
+``time_dot.py`` beside it times S3 with the same helpers.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ import sys
 from pathlib import Path
 
 
-def kernel_ms(fn, calls: int = 50, profiles: int = 5) -> float:
+def kernel_ms(fn, match: str = "", calls: int = 50, profiles: int = 5) -> float:
     """Median over ``profiles`` of the per-call device time (ms) of the CUDA
-    kernels whose name holds ``stage_a``."""
+    kernels whose name holds ``match`` (every kernel for "")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -43,11 +45,31 @@ def kernel_ms(fn, calls: int = 50, profiles: int = 5) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages() if "stage_a" in e.key)
+        us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
         if us <= 0:
-            raise RuntimeError("the profiler recorded no stage_a kernel")
+            raise RuntimeError(f"the profiler recorded no kernel matching {match!r}")
         samples.append(us / calls / 1000.0)
     return statistics.median(samples)
+
+
+def open_tree(root: str) -> None:
+    """Import ``gpu_fft_tpu_torch`` from the checkout at ``root`` from now on."""
+    sys.path.insert(0, str(Path(root).resolve()))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def append_record(name: str, rec: dict) -> None:
+    """Append ``rec`` as one JSON line to ``chiprun_out/<name>``."""
+    out = Path("chiprun_out") / name
+    out.parent.mkdir(exist_ok=True)
+    with out.open("a") as f:
+        f.write(json.dumps(rec) + "\n")
 
 
 def sweep_widths(lib, K, plan, xr, xi, rows: int) -> list[dict]:
@@ -79,7 +101,7 @@ def sweep_widths(lib, K, plan, xr, xi, rows: int) -> list[dict]:
         err = max(float((g - w).abs().max()) for g, w in zip((yr, yi), want))
         row = {"n": n1 * n2, "kind": "real" if xi is None else "complex", "rows": rows, "width": width,
                "threads": threads, "shipped": width == shipped, "max_abs_err": err,
-               "ok": err <= 1e-5 * scale, "ms": kernel_ms(launch)}
+               "ok": err <= 1e-5 * scale, "ms": kernel_ms(launch, "stage_a")}
         print(json.dumps(row), flush=True)
         out.append(row)
     return out
@@ -91,7 +113,7 @@ def main() -> None:
     ap.add_argument("--label", required=True, help="name of the checkout in the output")
     ap.add_argument("--sweep", action="store_true", help="also time every column-tile width")
     args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.tree).resolve()))
+    open_tree(args.tree)
     import torch
 
     from gpu_fft_tpu_torch import plan as P
@@ -104,10 +126,7 @@ def main() -> None:
     apply_precision()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60,
-                          check=True).stdout.strip().splitlines()[0]
-    rec = {"label": args.label, "tree": args.tree, "card": card,
+    rec = {"label": args.label, "tree": args.tree, "card": card_line(),
            "module": K.__file__, "ms": {}, "sweep": []}
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
@@ -116,14 +135,11 @@ def main() -> None:
         xr = torch.randn(1, n1, n2, generator=gen, device=dev)
         xi = torch.randn(1, n1, n2, generator=gen, device=dev)
         rec["ms"][f"n={n} real rows={rows}"] = kernel_ms(
-            lambda: K.stage_a(xr, None, n1, n2, plan, ct, rows=rows))
-        rec["ms"][f"n={n} complex"] = kernel_ms(lambda: K.stage_a(xr, xi, n1, n2, plan, ct))
+            lambda: K.stage_a(xr, None, n1, n2, plan, ct, rows=rows), "stage_a")
+        rec["ms"][f"n={n} complex"] = kernel_ms(lambda: K.stage_a(xr, xi, n1, n2, plan, ct), "stage_a")
         for xi_, r in ((None, rows), (xi, n1)) if args.sweep else ():
             rec["sweep"] += sweep_widths(_build.library(), K, plan, xr, xi_, r)
-    out = Path("chiprun_out") / "time_stage_a.jsonl"
-    out.parent.mkdir(exist_ok=True)
-    with out.open("a") as f:
-        f.write(json.dumps(rec) + "\n")
+    append_record("time_stage_a.jsonl", rec)
     print(json.dumps(rec))
 
 

@@ -262,7 +262,7 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
                     return getattr(K, name)(xr, xi, plan)
 
                 def prev(xr=xr, xp=xp, plan=plan, yr=yr, yi=yi, packed=packed, n1=n1):
-                    geo = K.whole_geometry(1, n1)
+                    geo = K.whole_geometry(1, n1, K.sm_count(dev))
                     if packed:
                         err = old.gft_whole_packed(xr.data_ptr(), xp, plan["packed"].data_ptr(),
                                                    yr.data_ptr(), yi.data_ptr(), 1, n1, *geo, stream())
@@ -286,7 +286,7 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
                 t, g = ab_times({"new": new, "baseline": prev},
                                 {"new": "whole_kernel", "baseline": "whole_kernel"}, calls, profiles)
                 row = {"kernel": name, "n": n, "kind": "complex inv 1/n" if complex_ else "real fwd",
-                       "geometry": K.whole_geometry(1, n1), "device_ms": t, "graph_ms": g,
+                       "geometry": K.whole_geometry(1, n1, K.sm_count(dev)), "device_ms": t, "graph_ms": g,
                        "torch_fft_device_ms": device_ms(lib_call, None, calls, profiles),
                        "torch_fft_graph_ms": graph_ms(lib_call, calls, 2 * profiles),
                        "max_abs_err": errs, "ok": max(errs.values()) <= TOL * scale}
@@ -318,7 +318,8 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
             dt, gt = ab_times({"new": new, "baseline": prev},
                               {"new": "whole_kernel", "baseline": "fused_lm_kernel"}, calls, profiles)
             row = {"b": b, "n": n, "n1": t["n1"], "n2": t["n2"],
-                   "geometry": K.lm_geometry(b, t["n1"], t["n2"]), "device_ms": dt, "graph_ms": gt,
+                   "geometry": K.lm_geometry(b, t["n1"], t["n2"], K.sm_count(dev)),
+                   "device_ms": dt, "graph_ms": gt,
                    "torch_fft_device_ms": device_ms(lambda x=x: torch.fft.fft(x), None, calls, profiles),
                    "torch_fft_graph_ms": graph_ms(lambda x=x: torch.fft.fft(x), calls, 2 * profiles),
                    "max_abs_err": errs, "ok": max(errs.values()) <= TOL * scale}

@@ -114,8 +114,9 @@ NOT_PORTED_KINDS = {
 #: holds one of these is one of the port's own.
 OWN_KERNELS = (
     "copy_min_kernel",
+    "dense_f32_kernel",
     "operand_probe_kernel",
-    "stage_a_dot_bf16_kernel",
+    "stage_a_dot_wgmma_kernel",
     "stage_a_manual_kernel",
     "stage_a_radix_kernel",
     "stage_a_tile_kernel",

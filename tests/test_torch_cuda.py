@@ -226,9 +226,23 @@ def test_stage_a_manual_kernel(dev, n, n1):
     _close(got, A.stage_a_manual_plain(x, plan))
 
 
-@pytest.mark.parametrize("variant", A.VARIANTS)
-@pytest.mark.parametrize("b,n1,n2", [(1, 128, 8192), (1, 32, 256), (2, 64, 512)])
+_DOT_SHAPES = [(1, 128, 8192), (1, 32, 256), (2, 64, 512), (1, 256, 8192), (3, 128, 1024),
+               (1, 64, 64), (2, 96, 192), (1, 384, 128)]
+
+
+@pytest.mark.parametrize(
+    "variant,b,n1,n2",
+    [(v, *s) for s in _DOT_SHAPES for v in A.VARIANTS]
+    + [("bf16_x1", 1, 640, 128), ("bf16_x1", 1, 1472, 64), ("f32_highest", 1, 1472, 64)],
+)
 def test_stage_a_dot_kernel(dev, variant, b, n1, n2):
+    """Against the plain version (1e-5) and numpy in float64: f32 and
+    bf16_x6 within 5 log2(n1) eps, bf16_x1 between 1e-4 and 1e-2 (about
+    three digits), as the CPU ladder test holds the plain versions.  The
+    shapes reach every launch shape the rule picks: the harness's, n1 = 256
+    (x6's F parts on 64 rows a block), a batch of 3, the narrowest tile
+    (n2 = 64), a last depth chunk of 32 (n1 = 96), x6's largest n1 (384),
+    x1 on 128 rows a block (n1 = 640) and x1's largest n1 (1,472)."""
     g = torch.Generator(device=dev).manual_seed(n1 + n2)
     fr = torch.randn(n1, n1, device=dev, generator=g) / n1
     fi = torch.randn(n1, n1, device=dev, generator=g) / n1
@@ -238,6 +252,25 @@ def test_stage_a_dot_kernel(dev, variant, b, n1, n2):
     got = A.stage_a_dot(x, tables, variant)
     assert A.COUNTS[f"stage_a_dot_{variant}"].launches == 1
     _close(got, A.stage_a_dot_plain(x, tables, variant))
+    xd = x.cpu().double().numpy()
+    ref = [np.einsum("mk,bkn->bmn", f.cpu().double().numpy(), xd) for f in (fr, fi)]
+    peak = max(np.abs(r).max() for r in ref)
+    err = max(np.abs(g_.cpu().numpy() - r).max() for g_, r in zip(got, ref)) / peak
+    if variant == "bf16_x1":
+        assert 1e-4 < err < 1e-2, err
+    else:
+        assert err <= 5 * np.log2(n1) * np.finfo(np.float32).eps, err
+
+
+@pytest.mark.parametrize("variant", A.VARIANTS)
+def test_stage_a_dot_refuses_before_the_launch(dev, variant):
+    """A shape outside the kernels' contract raises ValueError and launches
+    nothing (n2 = 96 is not a multiple of 64)."""
+    tables = A.dot_tables(torch.ones(32, 32, device=dev), torch.ones(32, 32, device=dev))
+    A.reset_counts()
+    with pytest.raises(ValueError, match="multiple of 64"):
+        A.stage_a_dot(torch.ones(1, 32, 96, device=dev), tables, variant)
+    assert A.COUNTS[f"stage_a_dot_{variant}"].launches == 0
 
 
 @pytest.mark.parametrize("n", [2048, 4096, 16384, 32768, 65536])  # n2 = 64, 64, 128, 256, 256
