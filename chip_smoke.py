@@ -13,9 +13,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    and K3 of the transform path (K3 also at each ct that the levers
    harness sets at 2^18, and on the staged real-output inverse's complex
    input, sign +1, on the first ceil((n2/2 + 1) / ct) column tiles, at
-   2^18 … 2^24 for ct = 512, 1,024, 2,048); K3-legacy, S2 and S3 of the stage-A
-   ablation harnesses, with S3's error against float64 (gate for f32 and
-   bf16_x6: 5*log2(n1)*eps; bf16_x1 printed);
+   2^18 … 2^24 for ct = 512, 1,024, 2,048); K3-legacy (K3's radix kernel
+   reading a materialized twiddle) at every ablate_large shape and in its
+   complex, rows and col_tiles forms, S2 at n1 = 32, 128 and 256, and S3 of
+   the stage-A ablation harnesses, with S3's error against float64 (gate
+   for f32 and bf16_x6: 5*log2(n1)*eps; bf16_x1 printed);
 3. the main path through the public API on ``device="cuda"``: the sine ->
    fft -> psd -> dominant frequency -> ifft demo, fft/ifft from n = 1024 to
    2^22, fft_batch and ifft_batch, each checked against numpy in float64 with
@@ -32,7 +34,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    forward and on complex inverse input, beside torch.fft.fft and
    torch.fft.ifft; K3 at 2^20 and 2^22 on real input with the real path's
    rows and on complex input with the inverse plan, the ifft path, and on
-   the irfft path's column tiles; S3 f32 beside torch.matmul on the
+   the irfft path's column tiles; K3-legacy at 2^20 on real and complex
+   input, all rows, and at the real path's rows, against the radix bound
+   and, beside it, the JAX bodies' dense (Karatsuba) count, its device
+   time also with L2 flushed before each call (the time its shares of
+   those bounds read: at 2^20 its inputs fit in L2); S2 at 2^20;
+   S3 f32 beside torch.matmul on the
    stacked LHS, S3 bf16_x1 beside torch.mm of the bf16 operands into fp32,
    or the refusal's text where torch has no out_dtype); each main-path call
    against torch.fft, and irfft_device beside ifft_device and
@@ -132,25 +139,34 @@ def whole_bound(n: int, complex_: bool):
     return bound(flop, "fp32", 4 * ((2 if complex_ else 1) * n + 2 * n + 2 * (n1 + 128) + 1 + 2 * n))
 
 
-def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int, ncols: int | None = None):
-    """K3, B = 1, on the first ``ncols`` (default n2) columns: a radix-2
-    FFT's 5 n1 log2 n1 FLOP per column and 6 per stored output for the
-    factored twiddle (rebuilt, 6 more); those columns of x (both parts for
-    complex input), the n1-point root row, the twiddle's rows (two
-    (rows, ncols/ct), twi (rows, ct)) read once, the output written once."""
+def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | None, ncols: int | None = None):
+    """K3 and K3-legacy (the same radix kernel), B = 1, on the first
+    ``ncols`` (default n2) columns: a radix-2 FFT's 5 n1 log2 n1 FLOP per
+    column and 6 per stored output for the twiddle (K3's factored one is
+    rebuilt: 6 more); those columns of x (both parts for complex input), the
+    n1-point root row and the twiddle's rows read once (K3: two (rows,
+    ncols/ct) and twi (rows, ct); K3-legacy, ``ct`` None: the materialized
+    (rows, ncols)), the output written once."""
     ncols = n2 if ncols is None else ncols
-    flop = 5 * n1 * (n1.bit_length() - 1) * ncols + 12 * rows * ncols
-    nbytes = 4 * ((2 if complex_ else 1) * n1 * ncols + 2 * n1 + 2 * rows * (ncols // ct + ct)
-                  + 2 * rows * ncols)
+    flop = 5 * n1 * (n1.bit_length() - 1) * ncols + (6 if ct is None else 12) * rows * ncols
+    twiddle = rows * ncols if ct is None else rows * (ncols // ct + ct)
+    nbytes = 4 * ((2 if complex_ else 1) * n1 * ncols + 2 * n1 + 2 * twiddle + 2 * rows * ncols)
     return bound(flop, "fp32", nbytes)
 
 
-def dense_stage_a_bound(n1: int, n2: int, rows: int, twiddle_floats: int):
-    """K3-legacy / S2 (real input), B = 1: rows x n1 x n2 real products,
-    6 FLOP per output for the twiddle; x, F1's rows and the twiddle read
+def dense_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool = False):
+    """K3-legacy and S2 as the JAX bodies compute them (``fused.py:153``,
+    ``:162``), B = 1, all columns: real input rows x n1 x n2 products by Fr
+    and by Fi; complex input the Karatsuba three (Fr (xr + xi), Fd xr,
+    Fs xi) with their adds; 6 FLOP per output for the twiddle.  x, F1's rows
+    (two tables, three for Karatsuba) and the materialized twiddle read
     once, the output written once."""
-    flop = 4 * rows * n1 * n2 + 6 * rows * n2
-    return bound(flop, "fp32", 4 * (n1 * n2 + 2 * rows * n1 + twiddle_floats + 2 * rows * n2))
+    products = 3 if complex_ else 2
+    flop = 2 * products * rows * n1 * n2 + 6 * rows * n2
+    if complex_:
+        flop += n1 * n2 + 2 * rows * n2
+    nbytes = 4 * ((2 if complex_ else 1) * n1 * n2 + products * rows * n1 + 4 * rows * n2)
+    return bound(flop, "fp32", nbytes)
 
 
 def dot_bound(n1: int, n2: int, variant: str):
@@ -197,11 +213,12 @@ def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4):
+def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str = ""):
     """Device time per call (ms) summed over the CUDA kernels torch.profiler
-    records for ``iters`` warm calls, and the ``top`` kernels by time.  A profile
-    that comes back with no device event is taken again, up to ``attempts``
-    times; None where none of them records device time."""
+    records for ``iters`` warm calls whose name holds ``match``, and the
+    ``top`` kernels by time.  A profile that comes back with no such kernel
+    is taken again, up to ``attempts`` times; None where none of them
+    records one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,7 +233,7 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4):
             torch.cuda.synchronize()
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0.0)
-            if us > 0:
+            if us > 0 and match in e.key:
                 by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1000.0
         if by_name:
             break
@@ -370,12 +387,15 @@ def main() -> None:
         del xr, xi, got, want
         torch.cuda.synchronize()
 
-    # S2 at 2^20 on the legacy plan of the shipped digit (n1 = 128).
-    s2_plan = P.on_device(ablate_large.make_plan, 1 << 20, 128, -1, device=dev)
-    x = randn(128, s2_plan["n2"])
-    compare("stage_a_manual", "n=2^20 n1=128 real", A.stage_a_manual(x, s2_plan),
-            A.stage_a_manual_plain(x, s2_plan))
-    torch.cuda.synchronize()
+    # S2 on the legacy plans of the levers harness (2^20, n1 = 128), the
+    # widest n1 it takes (256) and the narrowest (32, at 2^17).
+    for n, n1 in ((1 << 17, 32), (1 << 20, 128), (1 << 20, 256)):
+        s2_plan = A.manual_tables(P.on_device(ablate_large.make_plan, n, n1, -1, device=dev))
+        x = randn(n1, s2_plan["n2"])
+        compare("stage_a_manual", f"n={n} n1={n1} real {A.manual_geometry(n1, s2_plan['n2'])}",
+                A.stage_a_manual(x, s2_plan), A.stage_a_manual_plain(x, s2_plan))
+        del x, s2_plan
+        torch.cuda.synchronize()
 
     # S3 at (128, 8192), the ablate_mosaic_x6 shape; also against float64.
     s3_rng = np.random.default_rng(7)
@@ -578,23 +598,39 @@ def main() -> None:
     def fmt(ms):
         return "not measured" if ms is None else f"{ms:.4f} ms"
 
-    def time_pair(label, name, kern_fn, plain_fn, bnd, lib_fn=None):
+    flush_buf = torch.ones(64 << 20, device=dev)  # 256 MiB, five times the H100's L2
+
+    def time_pair(label, name, kern_fn, plain_fn, bnd, lib_fn=None, dense=None, cold=None):
         """Kernel, plain version and (where one exists) the library call:
-        event and profiler times, and the kernel's share of its bound."""
+        event and profiler times, and the kernel's share of its bound (and
+        of ``dense``, the dense products' bound, where given).  With
+        ``cold`` (a part of the kernel's profiled name) the kernel's device
+        time is also taken with L2 flushed before each call (a read of
+        ``flush_buf``), and the shares read that time."""
         k_ms, p_ms = cuda_ms(kern_fn), cuda_ms(plain_fn)
         (k_dev, _), (p_dev, _) = device_ms(kern_fn), device_ms(plain_fn)
         lib_ms, lib_dev = (cuda_ms(lib_fn), device_ms(lib_fn)[0]) if lib_fn else (None, None)
-        share = None if k_dev is None else bnd[0] / k_dev
+        cold_dev = device_ms(lambda: (flush_buf.sum(), kern_fn()), match=cold)[0] if cold else None
+        shared = cold_dev if cold else k_dev
+        share = None if shared is None else bnd[0] / shared
         rec = dict(what=label, kernel=name, ms=k_ms, plain_ms=p_ms, device_ms=k_dev,
                    plain_device_ms=p_dev, bound_ms=bnd[0], bound_by=bnd[1], share_of_bound=share,
                    library_ms=lib_ms, library_device_ms=lib_dev)
+        if cold:
+            rec.update(cold_device_ms=cold_dev)
+        if dense:
+            rec.update(dense_bound_ms=dense[0], dense_bound_by=dense[1],
+                       share_of_dense_bound=None if shared is None else dense[0] / shared)
         report["times"].append(rec)
         print(f"  {label:44s} events: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms"
               + (f" library {lib_ms:.4f} ms" if lib_fn else "")
               + f" | device: kernel {fmt(k_dev)} plain {fmt(p_dev)}"
               + (f" library {fmt(lib_dev)}" if lib_fn else "")
+              + (f" kernel, L2 flushed, {fmt(cold_dev)}" if cold else "")
               + f" | bound {bnd[0] * 1e3:.2f} us ({bnd[1]})"
-              + ("" if share is None else f", {share * 100:.1f}% of bound"))
+              + ("" if share is None else f", {share * 100:.1f}% of bound")
+              + ("" if not dense else f"; dense bound {dense[0] * 1e3:.2f} us ({dense[1]})"
+                 + ("" if shared is None else f", {dense[0] / shared * 100:.1f}%")))
         kernel_ms.setdefault(name, rec)
         return rec
 
@@ -628,23 +664,33 @@ def main() -> None:
                   lambda: K.stage_a_plain(x, xi, n1, n2, inv, ct),
                   stage_a_bound(n1, n2, n1, True, ct))
         del xi
-        # K3-legacy at the same shape and rows: the materialized twiddle's
-        # extra read against the factored one.
-        legacy = P.on_device(ablate_large.make_plan, n, n1, -1, device=dev)
+        # K3-legacy at the same shapes, the radix bound with the materialized
+        # twiddle's bytes (the dense products' bound beside it: the JAX
+        # bodies' count, Karatsuba for complex input), and S2.
+        legacy = A.manual_tables(P.on_device(ablate_large.make_plan, n, n1, -1, device=dev))
         lct = P.stage_a_col_tile(n1, n2)
         if n == 1 << 20:  # all rows: the shape S2 computes
             time_pair(f"stage_a_legacy n={n} real all rows", "stage_a_legacy",
                       lambda: K.stage_a(x, None, n1, n2, legacy, lct),
                       lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct),
-                      dense_stage_a_bound(n1, n2, n1, 2 * n1 * n2))
+                      stage_a_bound(n1, n2, n1, False, None), dense=dense_stage_a_bound(n1, n2, n1),
+                      cold="stage_a_radix")
+            xi = randn(1, n1, n2)
+            time_pair(f"stage_a_legacy n={n} complex all rows", "stage_a_legacy",
+                      lambda: K.stage_a(x, xi, n1, n2, legacy, lct),
+                      lambda: K.stage_a_plain(x, xi, n1, n2, legacy, lct),
+                      stage_a_bound(n1, n2, n1, True, None), dense=dense_stage_a_bound(n1, n2, n1, True),
+                      cold="stage_a_radix")
+            del xi
             x2 = x[0]
             time_pair(f"stage_a_manual n={n} real", "stage_a_manual",
                       lambda: A.stage_a_manual(x2, legacy), lambda: A.stage_a_manual_plain(x2, legacy),
-                      dense_stage_a_bound(n1, n2, n1, 2 * n1 * n2))
+                      dense_stage_a_bound(n1, n2, n1))
         time_pair(f"stage_a_legacy n={n} real rows={rows}", "stage_a_legacy",
                   lambda: K.stage_a(x, None, n1, n2, legacy, lct, rows=rows),
                   lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct, rows=rows),
-                  dense_stage_a_bound(n1, n2, rows, 2 * rows * n2))
+                  stage_a_bound(n1, n2, rows, False, None), dense=dense_stage_a_bound(n1, n2, rows),
+                  cold="stage_a_radix")
         del x
     # K3 on the irfft path's column tiles (complex, sign +1, ct = 512), and
     # at ct = 2,048 beside it (3 of 4 and 9 of 16 tiles at 2^20 and 2^22).
@@ -811,7 +857,7 @@ def main() -> None:
         "whole_transform": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:424"),
         "stage_a": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:188"),
         "stage_a_legacy": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:153"),
-        "stage_a_manual": ("gpu_fft_tpu_torch/csrc/stage_a_manual.cu", "scripts/ablate_2e20_levers.py:188"),
+        "stage_a_manual": ("gpu_fft_tpu_torch/csrc/dense_f32.cuh", "scripts/ablate_2e20_levers.py:188"),
         **{f"stage_a_dot_{v}": ("gpu_fft_tpu_torch/csrc/stage_a_dot.cu", "scripts/ablate_mosaic_x6.py:105")
            for v in A.VARIANTS},
         "fused_fft_lm": ("gpu_fft_tpu_torch/csrc/fused_lm.cu", "scripts/ablate_engines.py:111"),
@@ -829,6 +875,7 @@ def main() -> None:
             irfft_path_launches=irfft_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
+            **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},
             plain_device_ms=t["plain_device_ms"], library_device_ms=t["library_device_ms"],
             timed=t["what"],
         ))

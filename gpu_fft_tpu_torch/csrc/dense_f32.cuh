@@ -1,31 +1,48 @@
 // A register-tiled fp32 product on the CUDA cores, for the stage-A dots.
 //
-// Serves S3's f32 variant (stage_a_dot.cu, replacing the Pallas body
-// kern_f32 of scripts/ablate_mosaic_x6.py:build): over x (B, K, N) it
-// computes, for each batch b and stacked row m < M,
-//   P[b, m, n] = sum_k A[m, k] x[b, k, n],
-// with A given pre-transposed as at (K, M), and hands every 4 consecutive
-// columns of P to an epilogue functor (Epi::store(b, m, n, float4)).  S3's
-// epilogue splits the stacked rows [Fr; Fi] into Yr and Yi; K3-legacy's
-// materialized twiddle is meant to hang on the same hook.
+// Computes P[b, m, n] = sum_k A[m, k] x[b, k, n] for each stacked row m < M,
+// with A given pre-transposed as at (K, M), and hands the results to an
+// epilogue functor in pairs of rows PAIR apart:
+//   Epi::store(b, m, n, float4 lo, float4 hi[, const float4 (&w)[STAGED]])
+// gets columns n .. n + 3 of row m (lo) and of row m + PAIR (hi), for every
+// m with m % BM < PAIR.  An epilogue may read an operand of its own, tiled
+// like a row pair's outputs: Epi::STAGED planes, plane p at row r of block
+// row group m0 / BM and column c being epi.staged_src(p, m0)[r * epi.ld + c].
+// The kernel copies a block tile's PAIR x BN of each plane into shared
+// memory under the tile's first slices and hands store the float4 of each
+// plane at (m, n) as w.  Two stage-A kernels run on it:
+// - S3's f32 variant (stage_a_dot.cu, replacing the Pallas body kern_f32
+//   of scripts/ablate_mosaic_x6.py:build), whose epilogue splits the
+//   stacked rows [Fr; Fi] into Yr and Yi;
+// - S2 (stage_a_manual.cu, replacing scripts/ablate_2e20_levers.py:
+//   stage_a_manual), whose table interleaves Fr and Fi by 32 rows, so that
+//   a pair is the real and imaginary part of one output row and its
+//   epilogue multiplies by the materialized twiddle, staged as two planes
+//   (twr, twi).
 //
 // What bounds it on an H100: at (1, 128, 8192) the two dots are 537 MFLOP,
 // 8.0 us at 67 TFLOP/s of fp32 FMA, against 12.7 MB moved (3.8 us at
-// 3.35 TB/s): the FMA pipes are the wall, so the design keeps them fed.
+// 3.35 TB/s; S2 adds 8.4 MB of twiddle): the FMA pipes are the wall, so the
+// design keeps them fed.
 //
 // Design:
-// - a 64 x 64 block tile of 64 threads (BM x BN in the template; 64 x 64
-//   beat 128 x 128, 128 x 64 and 64 x 128 at (1, 128, 8192) on an H100,
-//   scripts/time_dot.py --sweep), each thread 8 x 8 outputs (64
-//   accumulators) as two 4-row by two 4-column quarters BM/2 and BN/2
-//   apart, so every operand is read with LDS.128 from a [k][m] or [k][n]
-//   layout: 4 shared loads per 64 FFMA;
+// - a 64-row block tile (BM) of BN / 8 x 8 threads, each thread 8 x 8
+//   outputs (64 accumulators) as two 4-row by two 4-column quarters BM/2
+//   and BN/2 apart, so every operand is read with LDS.128 from a [k][m] or
+//   [k][n] layout: 4 shared loads per 64 FFMA (64 x 64 beat 128 x 128,
+//   128 x 64 and 64 x 128 for S3 at (1, 128, 8192) on an H100,
+//   scripts/time_dot.py --sweep);
+// - one block tile a block, one wave (a block that walked several column
+//   tiles with its A rows resident lost to it for S2 at 2^20 on an H100:
+//   PERF.md, section 6);
 // - the depth loop runs on a STAGES-deep ring of cp.async 16-byte copies
 //   (A's slice comes straight from the pre-transposed table, x's from its
 //   rows, no transposing store), one barrier per BK-deep slice, so slice
-//   k + STAGES - 1 is in flight while slice k computes;
+//   k + STAGES - 1 is in flight while slice k computes; the epilogue's
+//   staged planes are copied with the first slice's copy group in the loop,
+//   so their loads are under the FMAs, not after them;
 // - K % BK == 0, M % BM == 0 and N % BN == 0 are the caller's contract (the
-//   launch rule checks them), so no load or store is masked.
+//   launch rules check them), so no load or store is masked.
 #pragma once
 
 #include "common.cuh"
@@ -33,8 +50,10 @@
 namespace gft {
 namespace dense_f32 {
 
-constexpr int BK = 8;      // depth of a ring slot
-constexpr int STAGES = 4;  // ring slots
+constexpr int BK = 8;          // depth of a ring slot
+constexpr int STAGES = 4;      // ring slots
+constexpr int BM = 64;         // rows of a block tile
+constexpr int PAIR = BM / 2;   // distance of the two rows the epilogue gets
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -50,9 +69,10 @@ __device__ __forceinline__ void cp_async_wait() {
 
 }  // namespace dense_f32
 
-// grid: (N / BN, M / BM, B); BM * BN / 64 threads.
-template <int BM, int BN, class Epi>
-__global__ void __launch_bounds__(BM * BN / 64)
+// grid: (N / BN, M / BM, B); BM * BN / 64 threads; dynamic shared memory:
+// the epilogue's staged planes, Epi::STAGED x PAIR x BN floats.
+template <int BN, class Epi>
+__global__ void __launch_bounds__(dense_f32::BM * BN / 64)
 dense_f32_kernel(const float* __restrict__ x, const float* __restrict__ at, Epi epi, int m_rows,
                  int k_depth, int n_cols) {
   using namespace dense_f32;
@@ -62,6 +82,7 @@ dense_f32_kernel(const float* __restrict__ x, const float* __restrict__ at, Epi 
   constexpr int B_CHUNKS = BK * BN / 4;
   __shared__ __align__(16) float sa[STAGES][BK][BM];
   __shared__ __align__(16) float sb[STAGES][BK][BN];
+  extern __shared__ __align__(16) float sw[];  // [Epi::STAGED][PAIR][BN]
 
   const int t = threadIdx.x;
   const int tx = t % TX, ty = t / TX;
@@ -105,6 +126,21 @@ dense_f32_kernel(const float* __restrict__ x, const float* __restrict__ at, Epi 
   for (int s = 0; s < slices; ++s) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of slice s have landed
     __syncthreads();              // ... everyone's; and slice s - 1's slot is free
+    if constexpr (Epi::STAGED > 0) {
+      if (s == 0) {  // the tile's staged planes, in this iteration's copy group
+        static_assert(PAIR * BN / 4 % THREADS == 0, "whole 16-byte copies a thread");
+#pragma unroll
+        for (int p = 0; p < Epi::STAGED; ++p) {
+          const float* src = epi.staged_src(p, m0);
+#pragma unroll
+          for (int i = 0; i < PAIR * BN / 4 / THREADS; ++i) {
+            const int q = t + i * THREADS;
+            const int r = q / (BN / 4), c4 = (q % (BN / 4)) * 4;
+            cp_async16(sw + (p * PAIR + r) * BN + c4, src + (size_t)r * epi.ld + n0 + c4);
+          }
+        }
+      }
+    }
     const int next = s + STAGES - 1;
     if (next < slices) issue(next, next % STAGES);
     cp_async_commit();
@@ -112,7 +148,7 @@ dense_f32_kernel(const float* __restrict__ x, const float* __restrict__ at, Epi 
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
       const float4 a0 = lds4(&sa[slot][k][ty * 4]);
-      const float4 a1 = lds4(&sa[slot][k][BM / 2 + ty * 4]);
+      const float4 a1 = lds4(&sa[slot][k][PAIR + ty * 4]);
       const float4 b0 = lds4(&sb[slot][k][tx * 4]);
       const float4 b1 = lds4(&sb[slot][k][BN / 2 + tx * 4]);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
@@ -124,31 +160,63 @@ dense_f32_kernel(const float* __restrict__ x, const float* __restrict__ at, Epi 
     }
   }
   cp_async_wait<0>();
+  if constexpr (Epi::STAGED > 0) __syncthreads();  // everyone's planes have landed
 
+  // Rows m0 + ty * 4 + i and that + PAIR in pairs, columns n0 + c.
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i / 4) * (BM / 2) + ty * 4 + i % 4;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * (BN / 2) + tx * 4;
-      epi.store(b, m, n,
-                make_float4(acc[i][h * 4], acc[i][h * 4 + 1], acc[i][h * 4 + 2], acc[i][h * 4 + 3]));
+      const int r = ty * 4 + i, c = h * (BN / 2) + tx * 4;
+      const float* lo = &acc[i][h * 4];
+      const float* hi = &acc[i + 4][h * 4];
+      const float4 vlo = make_float4(lo[0], lo[1], lo[2], lo[3]);
+      const float4 vhi = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      if constexpr (Epi::STAGED == 0) {
+        epi.store(b, m0 + r, n0 + c, vlo, vhi);
+      } else {
+        float4 w[Epi::STAGED];
+#pragma unroll
+        for (int p = 0; p < Epi::STAGED; ++p) w[p] = lds4(sw + (p * PAIR + r) * BN + c);
+        epi.store(b, m0 + r, n0 + c, vlo, vhi, w);
+      }
     }
   }
 }
 
-// Launch over x (B, K, N) and at (K, M) in 64 x 64 tiles; returns
-// cudaGetLastError().
-template <class Epi>
+// Launch over x (B, K, N) and at (K, M) in BM x BN tiles, a tile a block.
+// A staged epilogue's planes take dynamic shared memory beyond the default
+// 48 KB a block at BN = 128; the attribute is set once per device and
+// instantiation, so a launch captured into a CUDA graph makes no such call.
+// Returns cudaGetLastError() or the refusal.
+template <int BN, class Epi>
 int launch_dense_f32(const float* x, const float* at, Epi epi, int batch, int m_rows, int k_depth,
                      int n_cols, void* stream) {
-  constexpr int TILE = 64;
-  if (batch < 1 || batch > 65535 || k_depth < dense_f32::BK || k_depth % dense_f32::BK ||
-      m_rows % TILE || n_cols % TILE || m_rows / TILE > 65535)
+  using namespace dense_f32;
+  constexpr int MAX_DEVICES = 64;
+  constexpr int SMEM = Epi::STAGED * PAIR * BN * (int)sizeof(float);
+  static bool smem_set[MAX_DEVICES];
+  if (batch < 1 || batch > 65535 || k_depth < BK || k_depth % BK || m_rows % BM || n_cols % BN ||
+      m_rows / BM > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_cols / TILE, m_rows / TILE, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dense_f32_kernel<TILE, TILE, Epi><<<grid, TILE * TILE / 64, 0, s>>>(x, at, epi, m_rows, k_depth, n_cols);
+  if constexpr (SMEM > 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (!smem_set[dev]) {
+      e = cudaFuncSetAttribute(dense_f32_kernel<BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+      if (e != cudaSuccess) {
+        cudaGetLastError();  // leave no error behind for the next launch to report
+        return (int)e;
+      }
+      smem_set[dev] = true;
+    }
+  }
+  const dim3 grid(n_cols / BN, m_rows / BM, batch);
+  dense_f32_kernel<BN, Epi><<<grid, BM * BN / 64, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      x, at, epi, m_rows, k_depth, n_cols);
   return (int)cudaGetLastError();
 }
 

@@ -1,21 +1,21 @@
 // Stage A of the staged large-n transform: column DFT + twiddle.
 //
 // Replaces the Pallas kernel gpu_fft_tpu/kernels/fused.py:188 stage_a in both
-// of its plan layouts:
+// of its plan layouts, with one radix kernel and two twiddle sources:
 //   * K3, the factored twiddle (bodies :109 _stage_a_real_kernel / :128
 //     _stage_a_complex_kernel, and _tw_block):
 //       Y[b, k1, c] = (sum_a w_n1^(a k1) x[b, a, c]) * two[k1, c / ct] * twi[k1, c % ct]
 //     for k1 < rows and c < ncols, where two (n1, n2/ct) and twi (n1, ct) are
-//     the plan's factored twiddle and ct its column tile.  Here: a radix FFT
-//     per column, stage_a_radix_kernel below;
-//   * K3-legacy, a materialized (n1, n2) twiddle (:153 / :162), kept on the
-//     tiled product of stage_a_tile.cuh (gft_stage_a_full).
+//     the plan's factored twiddle and ct its column tile (Factored below);
+//   * K3-legacy, a materialized (n1, n2) twiddle (:153 / :162): the same sum
+//     times tw[k1 * n2 + c] (Table below, gft_stage_a_full).
 //
-// What bounds K3 on an H100: the bytes.  A radix FFT of a column of n1 = 128
+// What bounds it on an H100: the bytes.  A radix FFT of a column of n1 = 128
 // costs 5 log2 n1 = 35 FLOP a point.  At 2^20, real input, rows = 72, that
 // is 40 MFLOP (0.6 us on the fp32 CUDA cores) against x (4.2 MB), Y (4.7 MB)
 // and the twi rows (1.2 MB), 3.0 us at 3.35 TB/s: 4 FLOP a byte, where the
-// cores would bound it only above ~20.  The TPU kernel wrote the column DFT
+// cores would bound it only above ~20.  The materialized table adds 8 bytes
+// an output (8.4 MB at 2^20, all rows).  The TPU kernel wrote the column DFT
 // as a dense (rows, n1) x (n1, ct) product, which the MXU makes nearly free;
 // on CUDA cores that is 306 MFLOP at 2^20, with x read once per row tile.
 //
@@ -25,32 +25,62 @@
 // per pass, the (n1, W) tile in shared memory between passes (radix.cuh).
 // The first pass reads x straight from global memory at row stride n2, a
 // warp's lanes on neighbouring columns (coalesced); each thread loads the
-// two twiddle factors of the 8 outputs it will write and multiplies them
-// (under x's loads for real input, in the last pass for complex); the last
-// pass multiplies by that twiddle and stores Y[b, k1, c] for k1 < rows only,
-// coalesced along c.  x is read once, Y written once, and no value touches
-// global memory in between.  The wrapper (kernels/fused.py:
-// stage_a_geometry) picks W, the block size n1 W / 8 and the dynamic shared
-// memory.  A refused launch is returned as an error; nothing falls back.
+// twiddle of the 8 outputs it will write (under x's loads for real input, in
+// the last pass for complex), with the same lanes on neighbouring columns,
+// so the table's rows are read coalesced too; the last pass multiplies by
+// that twiddle and stores Y[b, k1, c] for k1 < rows only, coalesced along c.
+// x is read once, Y written once, and no value touches global memory in
+// between.  The wrapper (kernels/fused.py: stage_a_geometry) picks W, the
+// block size n1 W / 8 and the dynamic shared memory, for either source.  A
+// refused launch is returned as an error; nothing falls back.
 #include "radix.cuh"
-#include "stage_a_tile.cuh"
 
 namespace gft {
 namespace {
 
-// The plan as the kernel reads it: the root table (row 1 of F1), the
-// factored twiddle, and the extent of the output.
+// The root table (row 1 of F1) and the extent of the output.
 struct StageA {
-  const float *w1r, *w1i, *two_r, *two_i, *twi_r, *twi_i;
-  int n_outer, ct, rows, ncols;
+  const float *w1r, *w1i;
+  int rows, ncols;
+};
+
+// K3's twiddle: two[k1, c / ct] * twi[k1, c % ct], rebuilt per output.  A
+// column's (c / ct, c % ct) is taken once for all the rows a thread loads
+// (per output, the division cost K3 3-8%).
+struct Factored {
+  const float *two_r, *two_i, *twi_r, *twi_i;
+  int n_outer, ct;
+  struct Col {
+    int co, ci;
+  };
+  __device__ __forceinline__ Col column(int c) const {
+    const int co = c / ct;
+    return {co, c - co * ct};
+  }
+  __device__ __forceinline__ float2 at(int k1, Col c) const {
+    const size_t o = (size_t)k1 * n_outer + c.co, i = (size_t)k1 * ct + c.ci;
+    return cmul(make_float2(__ldg(two_r + o), __ldg(two_i + o)),
+                make_float2(__ldg(twi_r + i), __ldg(twi_i + i)));
+  }
+};
+
+// K3-legacy's twiddle: the materialized (n1, n2) table.
+struct Table {
+  const float *twr, *twi;
+  int n2;
+  __device__ __forceinline__ int column(int c) const { return c; }
+  __device__ __forceinline__ float2 at(int k1, int c) const {
+    const size_t o = (size_t)k1 * n2 + c;
+    return make_float2(__ldg(twr + o), __ldg(twi + o));
+  }
 };
 
 // The twiddle of the outputs of a radix-R pass from 2^lNs over 2^lW columns
-// (stockham_pass's mapping; slot e = u R + r): two[k1, c / ct] * twi[k1, c % ct]
-// for output k1 of column c = col0 + m, and 0 where the output is not stored.
-template <int R>
-__device__ __forceinline__ void factored_tw(float2* tw, int T, int lNs, int lW, int col0,
-                                            const StageA& p) {
+// (stockham_pass's mapping; slot e = u R + r): tw.at(k1, c) for output k1 of
+// column c = col0 + m, and 0 where the output is not stored.
+template <int R, class Tw>
+__device__ __forceinline__ void load_twiddle(float2* out, int T, int lNs, int lW, int col0,
+                                             const StageA& p, const Tw& tw) {
   constexpr int LR = ilog2(R);
   const int ns = 1 << lNs;
 #pragma unroll
@@ -58,27 +88,24 @@ __device__ __forceinline__ void factored_tw(float2* tw, int T, int lNs, int lW, 
     const int q = threadIdx.x + u * T;
     const int m = q & ((1 << lW) - 1), j = q >> lW, k = j & (ns - 1);
     const int d = ((j - k) << LR) + k;
-    const int c = col0 + m, co = c / p.ct, ci = c - co * p.ct;
+    const int c = col0 + m;
+    const auto col = tw.column(c);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int k1 = d + r * ns;
       float2 w = make_float2(0.f, 0.f);
-      if (k1 < p.rows && c < p.ncols) {
-        const size_t o = (size_t)k1 * p.n_outer + co, i = (size_t)k1 * p.ct + ci;
-        w = cmul(make_float2(__ldg(p.two_r + o), __ldg(p.two_i + o)),
-                 make_float2(__ldg(p.twi_r + i), __ldg(p.twi_i + i)));
-      }
-      tw[u * R + r] = w;
+      if (k1 < p.rows && c < p.ncols) w = tw.at(k1, col);
+      out[u * R + r] = w;
     }
   }
 }
 
 // Block (b, g): the length-n1 DFTs of columns [g W, (g+1) W) of row b's
 // (n1, n2) view, W = 2^lW, with n1 W / 8 threads.
-template <bool COMPLEX>
+template <bool COMPLEX, class Tw>
 __global__ void __launch_bounds__(1024) stage_a_radix_kernel(const float* __restrict__ xr,
                                                              const float* __restrict__ xi, StageA p,
-                                                             float* __restrict__ yr,
+                                                             Tw src, float* __restrict__ yr,
                                                              float* __restrict__ yi, int n1, int n2,
                                                              int lW, int col_blocks) {
   const int T = blockDim.x;
@@ -98,9 +125,9 @@ __global__ void __launch_bounds__(1024) stage_a_radix_kernel(const float* __rest
   const int lRl = ln1 % 3 == 0 ? 3 : ln1 % 3, lNsl = ln1 - lRl;
   float2 tw[E];
   auto twiddle = [&] {
-    if (lRl == 3) factored_tw<8>(tw, T, lNsl, lW, col0, p);
-    else if (lRl == 2) factored_tw<4>(tw, T, lNsl, lW, col0, p);
-    else factored_tw<2>(tw, T, lNsl, lW, col0, p);
+    if (lRl == 3) load_twiddle<8>(tw, T, lNsl, lW, col0, p, src);
+    else if (lRl == 2) load_twiddle<4>(tw, T, lNsl, lW, col0, p, src);
+    else load_twiddle<2>(tw, T, lNsl, lW, col0, p, src);
   };
   // The twiddle is loaded between a pass's reads and its butterflies: for
   // real input in the first pass, under x's loads; for complex input in the
@@ -147,52 +174,64 @@ __global__ void __launch_bounds__(1024) stage_a_radix_kernel(const float* __rest
   else stockham_pass<2>(T, ln1, lNsl, lW, w1, s, from_tile, last_sync, to_y);
 }
 
-template <bool COMPLEX>
-cudaError_t launch_radix(const float* xr, const float* xi, const StageA& p, float* yr, float* yi,
-                         int n1, int n2, int width, int col_blocks, unsigned blocks, int threads,
-                         int smem, cudaStream_t stream) {
+template <bool COMPLEX, class Tw>
+cudaError_t launch_one(const float* xr, const float* xi, const StageA& p, const Tw& tw, float* yr,
+                       float* yi, int n1, int n2, int width, int col_blocks, unsigned blocks,
+                       int threads, int smem, cudaStream_t stream) {
   static bool done[MAX_DEVICES];
-  const cudaError_t e = configure(stage_a_radix_kernel<COMPLEX>, false, done);
+  const cudaError_t e = configure(stage_a_radix_kernel<COMPLEX, Tw>, false, done);
   if (e != cudaSuccess) return e;
-  stage_a_radix_kernel<COMPLEX><<<blocks, threads, smem, stream>>>(xr, xi, p, yr, yi, n1, n2,
-                                                                  ilog2(width), col_blocks);
+  stage_a_radix_kernel<COMPLEX, Tw><<<blocks, threads, smem, stream>>>(xr, xi, p, tw, yr, yi, n1, n2,
+                                                                      ilog2(width), col_blocks);
   return cudaSuccess;
 }
 
-}  // namespace
-}  // namespace gft
-
-// K3.  n1: a power of two in [8, 512]; width: a power of two dividing n2,
+// n1: a power of two in [8, 512]; width: a power of two dividing n2,
 // threads = n1 * width / 8 <= 1024, smem >= (n1 * width + n1) * 8 bytes;
-// ct a multiple of 4 dividing n2; ncols a multiple of 4 in [4, n2].
-extern "C" int gft_stage_a(const float* xr, const float* xi, const float* f1r, const float* f1i,
-                           const float* two_r, const float* two_i, const float* twi_r,
-                           const float* twi_i, float* yr, float* yi, int batch, int n1, int n2,
-                           int ct, int rows, int ncols, int width, int threads, int smem,
-                           void* stream) {
-  using gft::pow2;
+// rows in [1, n1], ncols a multiple of 4 in [4, n2].  F1 is (n1, n1): its
+// row 1 starts at n1.  Returns the launch's error, then cudaGetLastError().
+template <class Tw>
+int launch_radix(const float* xr, const float* xi, const float* f1r, const float* f1i, const Tw& tw,
+                 float* yr, float* yi, int batch, int n1, int n2, int rows, int ncols, int width,
+                 int threads, int smem, void* stream) {
   if (!pow2(n1) || n1 < 8 || n1 > 512 || !pow2(width) || n2 % width || batch < 1 ||
-      (long long)n1 * width != (long long)threads * gft::E || threads > 1024 ||
-      (long long)smem < ((long long)n1 * width + n1) * (long long)sizeof(float2) || ct < 4 ||
-      ct % 4 || n2 % ct || rows < 1 || rows > n1 || ncols < 4 || ncols % 4 || ncols > n2)
+      (long long)n1 * width != (long long)threads * E || threads > 1024 ||
+      (long long)smem < ((long long)n1 * width + n1) * (long long)sizeof(float2) || rows < 1 ||
+      rows > n1 || ncols < 4 || ncols % 4 || ncols > n2)
     return (int)cudaErrorInvalidValue;
   const long long col_blocks = (ncols + width - 1) / width;
   if (col_blocks * batch > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // F1 is (n1, n1): row 1 starts at n1.
-  const gft::StageA p{f1r + n1, f1i + n1, two_r, two_i, twi_r, twi_i, n2 / ct, ct, rows, ncols};
-  const auto launch = xi ? gft::launch_radix<true> : gft::launch_radix<false>;
-  const cudaError_t e = launch(xr, xi, p, yr, yi, n1, n2, width, (int)col_blocks,
+  const StageA p{f1r + n1, f1i + n1, rows, ncols};
+  const auto launch = xi ? launch_one<true, Tw> : launch_one<false, Tw>;
+  const cudaError_t e = launch(xr, xi, p, tw, yr, yi, n1, n2, width, (int)col_blocks,
                                (unsigned)(col_blocks * batch), threads, smem,
                                static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }
 
-// K3-legacy: the tiled product with the materialized twiddle.
+}  // namespace
+}  // namespace gft
+
+// K3, the factored twiddle: ct a multiple of 4 dividing n2; the rest as
+// launch_radix takes it.
+extern "C" int gft_stage_a(const float* xr, const float* xi, const float* f1r, const float* f1i,
+                           const float* two_r, const float* two_i, const float* twi_r,
+                           const float* twi_i, float* yr, float* yi, int batch, int n1, int n2,
+                           int ct, int rows, int ncols, int width, int threads, int smem,
+                           void* stream) {
+  if (ct < 4 || ct % 4 || n2 % ct) return (int)cudaErrorInvalidValue;
+  const gft::Factored tw{two_r, two_i, twi_r, twi_i, n2 / ct, ct};
+  return gft::launch_radix(xr, xi, f1r, f1i, tw, yr, yi, batch, n1, n2, rows, ncols, width, threads,
+                           smem, stream);
+}
+
+// K3-legacy, the materialized (n1, n2) twiddle twr / twi.
 extern "C" int gft_stage_a_full(const float* xr, const float* xi, const float* f1r,
                                 const float* f1i, const float* twr, const float* twi, float* yr,
                                 float* yi, int batch, int n1, int n2, int rows, int ncols,
-                                void* stream) {
-  return gft::launch_stage_a_tile(xr, xi, f1r, f1i, twr, twi, yr, yi, batch, n1, n2, rows,
-                                 ncols, stream);
+                                int width, int threads, int smem, void* stream) {
+  const gft::Table tw{twr, twi, n2};
+  return gft::launch_radix(xr, xi, f1r, f1i, tw, yr, yi, batch, n1, n2, rows, ncols, width, threads,
+                           smem, stream);
 }

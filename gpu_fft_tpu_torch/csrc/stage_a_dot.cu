@@ -21,8 +21,8 @@
 // 3.35 TB/s, so memory is the wall, as it is for bf16_x1 (3.8 us).
 //
 // f32: dense_f32.cuh (64 x 64 block tiles, 8 x 8 outputs a thread, a
-// cp.async ring over the depth) on the pre-transposed stacked table, its
-// epilogue splitting the stacked rows into Yr and Yi.
+// cp.async ring over the depth, one wave) on the pre-transposed stacked
+// table, its epilogue splitting the stacked rows into Yr and Yi.
 //
 // bf16: wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulate), both
 // operands read from shared memory in the K-major 128-byte-swizzled layout.
@@ -57,15 +57,20 @@ namespace {
 
 // ── f32 ─────────────────────────────────────────────────────────────────────
 
-// Stacked rows [Fr; Fi] of the product -> Yr, Yi.
+// Stacked rows [Fr; Fi] of the product -> Yr, Yi; rows m and m + PAIR.
 struct SplitRows {
+  static constexpr int STAGED = 0;
   float* yr;
   float* yi;
   int n1, n2;
-  __device__ __forceinline__ void store(int b, int m, int n, float4 v) const {
+  __device__ __forceinline__ void put(int b, int m, int n, float4 v) const {
     float* y = m < n1 ? yr : yi;
     const int r = m < n1 ? m : m - n1;
     *reinterpret_cast<float4*>(y + ((size_t)b * n1 + r) * n2 + n) = v;
+  }
+  __device__ __forceinline__ void store(int b, int m, int n, float4 lo, float4 hi) const {
+    put(b, m, n, lo);
+    put(b, m + gft::dense_f32::PAIR, n, hi);
   }
 };
 
@@ -376,7 +381,7 @@ int launch_wgmma(const float* x, const unsigned char* fimg, float* yr, float* yi
 // at: the (n1, 2 n1) stacked table [Fr; Fi] transposed.
 extern "C" int gft_stage_a_dot_f32(const float* x, const float* at, float* yr, float* yi,
                                    int batch, int n1, int n2, void* stream) {
-  return gft::launch_dense_f32(x, at, SplitRows{yr, yi, n1, n2}, batch, 2 * n1, n1, n2, stream);
+  return gft::launch_dense_f32<64>(x, at, SplitRows{yr, yi, n1, n2}, batch, 2 * n1, n1, n2, stream);
 }
 
 // fimg: the swizzled image of the stacked bf16 parts (dot_tables "f_img");

@@ -41,10 +41,11 @@ _SIGNATURES = {
     # xr, xi, f1r, f1i, two_r, two_i, twi_r, twi_i, yr, yi,
     # batch, n1, n2, ct, rows, ncols, width, threads, smem_bytes, stream
     "gft_stage_a": [_P] * 10 + [_I] * 9 + [_P],
-    # xr, xi, f1r, f1i, twr, twi, yr, yi, batch, n1, n2, rows, ncols, stream
-    "gft_stage_a_full": [_P] * 8 + [_I] * 5 + [_P],
-    # x, f1r, f1i, twr, twi, yr, yi, n1, n2, stream
-    "gft_stage_a_manual": [_P] * 7 + [_I] * 2 + [_P],
+    # xr, xi, f1r, f1i, twr, twi, yr, yi,
+    # batch, n1, n2, rows, ncols, width, threads, smem_bytes, stream
+    "gft_stage_a_full": [_P] * 8 + [_I] * 8 + [_P],
+    # x, f_stack, twr, twi, yr, yi, n1, n2, bn, stream
+    "gft_stage_a_manual": [_P] * 6 + [_I] * 3 + [_P],
     # x, f_t, yr, yi, batch, n1, n2, stream
     "gft_stage_a_dot_f32": [_P] * 4 + [_I] * 3 + [_P],
     # x, f_img, yr, yi, batch, n1, n2, parts, wgs, grid, stream

@@ -4,8 +4,10 @@ Two Pallas kernels of the JAX package's ablation harnesses are CUDA kernels
 here:
 
 * ``stage_a_manual`` (S2, ``scripts/ablate_2e20_levers.py:stage_a_manual``):
-  stage A at B = 1 on real input with a materialized twiddle, F1 resident and
-  the column tiles pipelined by hand (``csrc/stage_a_manual.cu``);
+  stage A at B = 1 on real input with a materialized twiddle: the dense
+  core of ``csrc/dense_f32.cuh`` on the stacked table of
+  :func:`manual_tables`, the twiddle in its epilogue
+  (``csrc/stage_a_manual.cu``; column tile from :func:`manual_geometry`);
 * ``stage_a_dot`` (S3, ``scripts/ablate_mosaic_x6.py:build``): the two
   stage-A dots Yr = Fr x, Yi = Fi x in three precisions, ``f32_highest``
   (a register-tiled product on the CUDA cores, ``csrc/dense_f32.cuh``),
@@ -35,6 +37,10 @@ __all__ = [
     "dot_launch_shapes",
     "dot_smem_bytes",
     "dot_tables",
+    "manual_geometry",
+    "manual_launch",
+    "manual_launch_shapes",
+    "manual_tables",
     "reset_counts",
     "split3_bf16",
     "stage_a_dot",
@@ -55,7 +61,49 @@ def reset_counts() -> None:
         c.plain_calls = 0
 
 
-# ── S2: stage A with F1 resident and a hand-pipelined column loop ───────────
+# ── S2: stage A on a materialized twiddle, one dense product ────────────────
+
+
+_PAIR = 32  # output rows a 64-row block of the stacked table holds
+
+
+def manual_tables(tables: dict) -> dict:
+    """``tables`` (a legacy stage-A plan: ``f1r``/``f1i`` (n1, n1), a
+    materialized (n1, n2) ``twr``/``twi``) with S2's stacked table added,
+    built once per plan as :func:`dot_tables` builds ``f_t``: ``f_stack``
+    (n1, 2 n1) fp32, for every 32 output rows k1 their Fr rows then their
+    Fi rows as one 64-row block, transposed so that a block's 64 rows are a
+    run of 16-byte copies.  The kernel's pairs of rows 32 apart are then Re
+    and Im of one output row.  n1 must be a multiple of 32."""
+    fr, fi = tables["f1r"], tables["f1i"]
+    n1 = fr.shape[0]
+    if n1 % _PAIR:
+        raise ValueError(f"stage_a_manual: n1={n1} is not a multiple of {_PAIR}")
+    blocks = torch.stack([fr.reshape(n1 // _PAIR, _PAIR, n1), fi.reshape(n1 // _PAIR, _PAIR, n1)], dim=1)
+    return {**tables, "f_stack": blocks.reshape(2 * n1, n1).to(torch.float32).t().contiguous()}
+
+
+def manual_launch_shapes(n1: int, n2: int) -> list[int]:
+    """Every column tile ``bn`` S2's kernel takes for x (n1, n2), the launch
+    rule's pick first: 64, then 128 where it divides n2 (a block of ``bn``
+    threads a 64-row block and a tile, one wave).  Raises ValueError for a
+    shape the kernel cannot take: n1 a multiple of 32 in [32, 256], n2 of
+    64."""
+    if n1 % 32 or not 32 <= n1 <= 256 or n2 < 64 or n2 % 64:
+        raise ValueError(
+            f"stage_a_manual kernel needs n1 in [32, 256] a multiple of 32 and n2 a multiple "
+            f"of 64 (n1={n1}, n2={n2})"
+        )
+    return [bn for bn in (64, 128) if n2 % bn == 0]
+
+
+def manual_geometry(n1: int, n2: int) -> int:
+    """S2's column tile: the first of :func:`manual_launch_shapes`, 64.  The
+    faster of the two in ``scripts/time_stage_a.py --legacy --sweep`` at
+    2^20 with n1 = 128 and 256 on an H100 80GB HBM3 at 700 W (PERF.md,
+    section 6): 512 blocks of 64 threads spread more evenly over 132 SMs
+    than 256 of 128."""
+    return manual_launch_shapes(n1, n2)[0]
 
 
 def stage_a_manual_plain(x, tables: dict):
@@ -71,29 +119,32 @@ def stage_a_manual(x, tables: dict):
     closure of ``scripts/ablate_2e20_levers.py``).
 
     ``tables``: a legacy stage-A plan on ``x``'s device, with ``f1r``/``f1i``
-    (n1, n1) and a materialized (n1, n2) ``twr``/``twi``.  Returns
-    split-complex (n1, n2).
+    (n1, n1) and a materialized (n1, n2) ``twr``/``twi``, and for a CUDA
+    ``x`` the stacked table of :func:`manual_tables`.  Returns split-complex
+    (n1, n2).
     """
-    count = COUNTS["stage_a_manual"]
     if _on_cpu(x, "stage_a_manual"):
-        count.plain_calls += 1
+        COUNTS["stage_a_manual"].plain_calls += 1
         return stage_a_manual_plain(x, tables)
+    return manual_launch(x, tables, manual_geometry(*x.shape))
+
+
+def manual_launch(x, tables: dict, bn: int):
+    """Launch S2's kernel on a CUDA ``x`` with the column tile ``bn``, one
+    of :func:`manual_launch_shapes` (a sweep times each)."""
     n1, n2 = x.shape
-    if n1 % 32 or not 32 <= n1 <= 256 or n2 % 64:
-        raise ValueError(
-            f"stage_a_manual kernel needs n1 in [32, 256] a multiple of 32 and n2 a multiple "
-            f"of 64 (n1={n1}, n2={n2})"
-        )
-    names = ("f1r", "f1i", "twr", "twi")
-    shapes = {"x": (n1, n2), "f1r": (n1, n1), "f1i": (n1, n1), "twr": (n1, n2), "twi": (n1, n2)}
+    if "f_stack" not in tables:
+        raise ValueError("stage_a_manual: the tables lack f_stack; build them with manual_tables")
+    names = ("f_stack", "twr", "twi")
+    shapes = {"x": (n1, n2), "f_stack": (n1, 2 * n1), "twr": (n1, n2), "twi": (n1, n2)}
     _check("stage_a_manual", x.device, {"x": x, **{k: tables[k] for k in names}}, shapes)
     yr = torch.empty_like(x)
     yi = torch.empty_like(x)
     err = _build.library().gft_stage_a_manual(
-        _ptr(x), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi), n1, n2, _stream(x.device)
+        _ptr(x), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi), n1, n2, bn, _stream(x.device),
     )
     _build.check(err, "stage_a_manual")
-    count.launches += 1
+    COUNTS["stage_a_manual"].launches += 1
     return yr, yi
 
 

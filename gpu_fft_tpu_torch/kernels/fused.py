@@ -11,8 +11,8 @@ Three Pallas kernels of the JAX package sit on the transform path
   transform, with the plan's factored twiddle: a radix FFT per column of the
   (n1, n2) view (``csrc/stage_a.cu``; launch shape from
   :func:`stage_a_geometry`); given a legacy plan with a materialized (n1, n2)
-  twiddle it launches K3-legacy, a tiled product reading that table
-  (``csrc/stage_a_tile.cuh``, counted as ``stage_a_legacy``).
+  twiddle it launches K3-legacy, the same radix kernel reading that table
+  (counted as ``stage_a_legacy``).
 
 :func:`lm_geometry` gives the launch shape of the same whole kernel at
 n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
@@ -40,6 +40,7 @@ __all__ = [
     "sm_count",
     "stage_a",
     "stage_a_geometry",
+    "stage_a_launch_shape",
     "stage_a_plain",
     "whole_geometry",
     "whole_slices",
@@ -373,6 +374,22 @@ def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
     )
 
 
+def stage_a_launch_shape(b: int, n1: int, n2: int, tables, col_tile: int, col_tiles=None,
+                         rows=None) -> tuple[int, int, tuple[int, int, int]]:
+    """(output rows, output columns, :func:`stage_a_geometry`) of the stage-A
+    kernel over a (``b``, n1, n2) view, for either plan layout: the radix
+    kernel takes the same launch shape whichever table it reads.  Raises
+    ValueError for a shape the kernel cannot take (n1 not a power of two in
+    [8, 512], n2, the kept columns or a factored ct not multiples of 4)."""
+    r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
+    if n2 % 4 or ncols % 4 or ("two_r" in tables and col_tile % 4):
+        raise ValueError(
+            f"stage_a kernel needs n2, the kept columns and ct to be multiples of 4 "
+            f"(n2={n2}, columns={ncols}, ct={col_tile})"
+        )
+    return r, ncols, stage_a_geometry(b, n1, n2, ncols)
+
+
 def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, rows=None):
     """Column DFT + twiddle over a (B, n1, n2) view (JAX: ``stage_a``).
 
@@ -380,21 +397,17 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
     twiddle, K3), or a legacy plan with a materialized (n1, n2) ``twr``/``twi``
     pair (K3-legacy).  ``col_tiles`` keeps only the first column tiles and
     ``rows`` only the first k1 rows.  Returns split-complex
-    (B, rows or n1, col_tiles * col_tile or n2).
+    (B, rows or n1, col_tiles * col_tile or n2).  Off the CPU, a shape the
+    kernel cannot take raises ValueError before the device is looked at.
     """
     factored = "two_r" in tables
     count = COUNTS["stage_a" if factored else "stage_a_legacy"]
-    if _on_cpu(xr, "stage_a"):
+    if xr.device.type == "cpu":
         count.plain_calls += 1
         return stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles, rows)
-    r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
-    if n2 % 4 or ncols % 4 or (factored and col_tile % 4):
-        raise ValueError(
-            f"stage_a kernel needs n2, the kept columns and ct to be multiples of 4 "
-            f"(n2={n2}, columns={ncols}, ct={col_tile})"
-        )
     b = xr.shape[0]
-    geometry = stage_a_geometry(b, n1, n2, ncols) if factored else ()
+    r, ncols, geometry = stage_a_launch_shape(b, n1, n2, tables, col_tile, col_tiles, rows)
+    _on_cpu(xr, "stage_a")  # raises for any device but CUDA
     shapes = {"xr": (b, n1, n2), "xi": (b, n1, n2), "f1r": (n1, n1), "f1i": (n1, n1)}
     if factored:
         names = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
@@ -411,7 +424,7 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
     if factored:
         err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, r, ncols, *geometry, _stream(xr.device))
     else:
-        err = lib.gft_stage_a_full(*ptrs, b, n1, n2, r, ncols, _stream(xr.device))
+        err = lib.gft_stage_a_full(*ptrs, b, n1, n2, r, ncols, *geometry, _stream(xr.device))
     _build.check(err, "stage_a")
     count.launches += 1
     return yr, yi

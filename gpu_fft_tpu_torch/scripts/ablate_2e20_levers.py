@@ -16,9 +16,10 @@ patching a plan builder and clearing the plan caches (the builder's own and
       ``kernels.large.get_stage_a_plan``.  The JAX script's replacement
       takes (n, sign) only, while its ``_staged`` now passes ``ct=``; the
       port's replacement takes ``ct`` and passes it on.
-  L3  stage A alone: S2 ``stage_a_manual`` (F1 resident, column tiles
-      pipelined by hand with cp.async, materialized twiddle) against the
-      shipped K3 (factored twiddle) at the same shape.
+  L3  stage A alone: S2 ``stage_a_manual`` (materialized twiddle; on the
+      TPU F1 resident with the column tiles pipelined by hand, here one
+      dense product of ``csrc/dense_f32.cuh``) against the shipped K3
+      (factored twiddle) at the same shape.
   L4  the ct rule across staged sizes (2^17 … 2^22), forward rows and
       ``irfft_device`` rows, each held against the ct = 512 row of its n
       and kind.  The staged real-output inverse (from 2^18) reads
@@ -57,7 +58,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     import gpu_fft_tpu_torch.kernels.large as large_mod
     import gpu_fft_tpu_torch.plan as plan_mod
     from gpu_fft_tpu_torch.config import apply_precision
-    from gpu_fft_tpu_torch.kernels.ablation import stage_a_manual
+    from gpu_fft_tpu_torch.kernels.ablation import manual_tables, stage_a_manual
     from gpu_fft_tpu_torch.kernels.fused import stage_a as stage_a_grid
     from gpu_fft_tpu_torch.kernels.tables import dft_matrix_ext, twiddle_table
     from gpu_fft_tpu_torch.ops.transform import irfft_device
@@ -162,10 +163,10 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
         plan = plan_mod.on_device(plan_mod.get_stage_a_plan, N, -1, None, device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         twr, twi = twiddle_table(n1, n2, N, -1)
-        legacy = {
+        legacy = manual_tables({
             "f1r": plan["f1r"], "f1i": plan["f1i"],
             "twr": torch.from_numpy(twr).to(dev), "twi": torch.from_numpy(twi).to(dev),
-        }
+        })
 
         def stage_a_manual_step(x):
             yr, _ = stage_a_manual(x.reshape(n1, n2), legacy)

@@ -4,9 +4,10 @@ Counterpart of ``scripts/ablate_large.py``.  Two questions, measured
 interleaved on the card:
 
 1. Does the stage-A kernel (here K3-legacy, the port's ``stage_a`` on a plan
-   with a materialized (n1, n2) twiddle) beat the plain torch form of the
-   same stage (``stage_a_torch``)?  The JAX engines ``pallas`` and ``jnp``
-   are ``kernel`` and ``torch`` here.
+   with a materialized (n1, n2) twiddle: the radix engine of the main
+   path's K3, reading that table) beat the plain torch form of the same
+   stage (``stage_a_torch``)?  The JAX engines ``pallas`` and ``jnp`` are
+   ``kernel`` and ``torch`` here.
 2. Which stage-A digit n1 (hence stage-B row length n2 = n / n1) is fastest
    per n?
 

@@ -1,21 +1,34 @@
-"""Device time of the stage-A kernel (K3) at the main path's shapes, for
-comparing two checkouts of the port on one card.
+"""Device time of the stage-A kernels at their harness and main-path shapes,
+for comparing two checkouts of the port on one card.
 
-    python gpu_fft_tpu_torch/scripts/time_stage_a.py --tree DIR --label NAME [--sweep]
+    python gpu_fft_tpu_torch/scripts/time_stage_a.py --tree DIR --label NAME [--legacy] [--sweep]
 
 imports ``gpu_fft_tpu_torch`` from the checkout at DIR (built there on first
 use), times K3 on the factored plan that ``transform_any`` uses at 2^20 and
 2^22 (real input, the real path's rows; complex input, all rows) and appends
 one JSON line to ``chiprun_out/time_stage_a.jsonl``.  The time is the
 profiler's device time of the stage-A kernel, median of 5 profiles of 50
-calls each.  Run it once per checkout, in turns (A B B A), in one session on
-the card: times from two sessions do not compare.
+calls each (a profile that records no kernel is taken again and counted
+under ``empty_profiles``); before it, one launch is checked against the
+plain version (max|d| <= 1e-5 max|plain|, the error under
+``max_abs_err``).  Run it once per checkout, in turns (A B B A), on one
+card in one run: times from two runs do not compare.
+
+``--legacy`` also times the kernels of stage A on a materialized twiddle,
+on the ``ablate_large`` plans: K3-legacy (``stage_a`` on such a plan) at
+2^20 on real input with all rows and with the real path's 72, at 2^22 with
+72, and at 2^20 on complex input with all rows, each also with L2 flushed
+before every call; S2 (``stage_a_manual``) at 2^20 with n1 = 128 and
+n1 = 256.  It runs on a checkout from before S2's stacked table too
+(``s2_setup``).
 
 ``--sweep`` (a checkout whose K3 is the radix kernel, with the geometry
 arguments) also times it at every column-tile width W in {16, 32, 64, 128}
 that fits 1,024 threads (n1 W / 8), each launch checked against the plain
-version (max|d| <= 1e-5 max|plain|), beside the width ``stage_a_geometry``
-picks; the rows go into the same JSON line under ``sweep``.
+version, beside the width ``stage_a_geometry`` picks; with ``--legacy`` (a
+checkout with ``manual_launch_shapes``) also S2 at every column tile
+``manual_geometry`` considers, the shipped one marked.  The rows go into
+the same JSON line under ``sweep``.
 
 ``time_dot.py`` beside it times S3 with the same helpers.
 """
@@ -30,26 +43,51 @@ import sys
 from pathlib import Path
 
 
+#: Profiles that recorded no matching kernel since the script started.  The
+#: profiler on an H100 now and then records no kernel at all, several times
+#: in a row; such a profile is taken again and counted here, and
+#: :func:`append_record` writes the count into each JSON line.
+EMPTY_PROFILES = 0
+
+
 def kernel_ms(fn, match: str = "", calls: int = 50, profiles: int = 5) -> float:
-    """Median over ``profiles`` of the per-call device time (ms) of the CUDA
-    kernels whose name holds ``match`` (every kernel for "")."""
+    """Median over ``profiles`` profiles of the per-call device time (ms) of
+    the CUDA kernels whose name holds ``match`` (every kernel for "").  A
+    profile with no such kernel is taken again and counted in
+    ``EMPTY_PROFILES``; more empty profiles than ``profiles`` in one call
+    raise."""
+    global EMPTY_PROFILES
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    samples = []
-    for _ in range(profiles):
+    samples, empty = [], 0
+    while len(samples) < profiles:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages() if match in e.key)
-        if us <= 0:
-            raise RuntimeError(f"the profiler recorded no kernel matching {match!r}")
-        samples.append(us / calls / 1000.0)
+        if us > 0:
+            samples.append(us / calls / 1000.0)
+            continue
+        empty += 1
+        EMPTY_PROFILES += 1
+        if empty > profiles:
+            raise RuntimeError(f"the profiler recorded no kernel matching {match!r} in {empty} profiles")
     return statistics.median(samples)
+
+
+def l2_flush(dev, mib: int = 256):
+    """A call that reads ``mib`` MiB on ``dev``, so that a kernel launched
+    after it finds none of its inputs in L2 (50 MB on an H100).  Its own
+    kernel's name holds no kernel name of the port's."""
+    import torch
+
+    buf = torch.ones(mib << 18, device=dev)
+    return lambda: buf.sum()
 
 
 def open_tree(root: str) -> None:
@@ -69,7 +107,21 @@ def append_record(name: str, rec: dict) -> None:
     out = Path("chiprun_out") / name
     out.parent.mkdir(exist_ok=True)
     with out.open("a") as f:
-        f.write(json.dumps(rec) + "\n")
+        f.write(json.dumps({**rec, "empty_profiles": EMPTY_PROFILES}) + "\n")
+
+
+def checked_ms(fn, plain, match: str = "") -> tuple[float, float]:
+    """(device ms of ``fn`` as :func:`kernel_ms` gives it, max|fn() - plain()|);
+    raises if one launch is off its plain version by more than 1e-5 max|plain|."""
+    import torch
+
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    if not err <= 1e-5 * scale:
+        raise RuntimeError(f"kernel off its plain version: max|d| {err:.3e} > 1e-5 x {scale:.3e}")
+    return kernel_ms(fn, match), err
 
 
 def sweep_widths(lib, K, plan, xr, xi, rows: int) -> list[dict]:
@@ -107,11 +159,72 @@ def sweep_widths(lib, K, plan, xr, xi, rows: int) -> list[dict]:
     return out
 
 
+def s2_setup(A, plan: dict, n1: int) -> tuple[dict, list]:
+    """S2's plan and column tiles on the checkout ``A`` comes from.  One from
+    before S2's stacked table has neither ``manual_tables`` (its S2 takes
+    the legacy plan as it is) nor ``manual_launch_shapes``: no tiles."""
+    if not hasattr(A, "manual_tables"):
+        return plan, []
+    return A.manual_tables(plan), A.manual_launch_shapes(n1, plan["n2"])
+
+
+def time_legacy(rec: dict, sweep: bool, dev, gen) -> None:
+    """K3-legacy and S2 on the ``ablate_large`` plans into ``rec`` (and S2
+    at every column tile into ``rec["sweep"]`` with ``sweep``).  K3-legacy
+    is timed twice: back to back, where at 2^20 its inputs (21-25 MB) stay
+    in L2 between calls, and with L2 flushed before each call (the key's
+    suffix ``L2 flushed``), which is what its share of the HBM bound reads."""
+    import torch
+
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import ablation as A
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.scripts.ablate_large import make_plan
+
+    flush = l2_flush(dev)
+    for n, rows, complex_ in ((1 << 20, None, False), (1 << 20, 72, False), (1 << 22, 72, False),
+                              (1 << 20, None, True)):
+        plan = P.on_device(make_plan, n, 128, -1, device=dev)
+        n2 = plan["n2"]
+        ct = P.stage_a_col_tile(128, n2)
+        xr = torch.randn(1, 128, n2, generator=gen, device=dev)
+        xi = torch.randn(1, 128, n2, generator=gen, device=dev) if complex_ else None
+        key = f"legacy n={n} {'complex' if complex_ else 'real'} rows={rows or 'all'}"
+
+        def run():
+            return K.stage_a(xr, xi, 128, n2, plan, ct, rows=rows)
+
+        def run_cold():
+            flush()
+            return run()
+
+        for k, fn in ((key, run), (f"{key} L2 flushed", run_cold)):
+            rec["ms"][k], rec["max_abs_err"][k] = checked_ms(
+                fn, lambda: K.stage_a_plain(xr, xi, 128, n2, plan, ct, rows=rows), "stage_a")
+            print(k, rec["ms"][k], flush=True)
+        del xr, xi
+    for n1 in (128, 256):
+        plan, tiles = s2_setup(A, P.on_device(make_plan, 1 << 20, n1, -1, device=dev), n1)
+        x = torch.randn(n1, plan["n2"], generator=gen, device=dev)
+        key = f"manual n={1 << 20} n1={n1}"
+        rec["ms"][key], rec["max_abs_err"][key] = checked_ms(
+            lambda: A.stage_a_manual(x, plan), lambda: A.stage_a_manual_plain(x, plan))
+        print(key, rec["ms"][key], flush=True)
+        want = A.stage_a_manual_plain(x, plan)
+        for i, bn in enumerate(tiles if sweep else ()):
+            ms, err = checked_ms(lambda bn=bn: A.manual_launch(x, plan, bn), lambda: want)
+            row = {"kernel": "stage_a_manual", "n": 1 << 20, "n1": n1, "bn": bn,
+                   "shipped": i == 0, "max_abs_err": err, "ms": ms}
+            print(json.dumps(row), flush=True)
+            rec["sweep"].append(row)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", required=True, help="root of the checkout to import the port from")
     ap.add_argument("--label", required=True, help="name of the checkout in the output")
-    ap.add_argument("--sweep", action="store_true", help="also time every column-tile width")
+    ap.add_argument("--legacy", action="store_true", help="also time K3-legacy and S2")
+    ap.add_argument("--sweep", action="store_true", help="also time every launch shape that fits")
     args = ap.parse_args()
     open_tree(args.tree)
     import torch
@@ -127,18 +240,21 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {"label": args.label, "tree": args.tree, "card": card_line(),
-           "module": K.__file__, "ms": {}, "sweep": []}
+           "module": K.__file__, "ms": {}, "max_abs_err": {}, "sweep": []}
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         rows = P.stage_a_real_rows(n1)
         xr = torch.randn(1, n1, n2, generator=gen, device=dev)
         xi = torch.randn(1, n1, n2, generator=gen, device=dev)
-        rec["ms"][f"n={n} real rows={rows}"] = kernel_ms(
-            lambda: K.stage_a(xr, None, n1, n2, plan, ct, rows=rows), "stage_a")
-        rec["ms"][f"n={n} complex"] = kernel_ms(lambda: K.stage_a(xr, xi, n1, n2, plan, ct), "stage_a")
+        for key, xi_, r in ((f"n={n} real rows={rows}", None, rows), (f"n={n} complex", xi, None)):
+            rec["ms"][key], rec["max_abs_err"][key] = checked_ms(
+                lambda: K.stage_a(xr, xi_, n1, n2, plan, ct, rows=r),
+                lambda: K.stage_a_plain(xr, xi_, n1, n2, plan, ct, rows=r), "stage_a")
         for xi_, r in ((None, rows), (xi, n1)) if args.sweep else ():
             rec["sweep"] += sweep_widths(_build.library(), K, plan, xr, xi_, r)
+    if args.legacy:
+        time_legacy(rec, args.sweep, dev, gen)
     append_record("time_stage_a.jsonl", rec)
     print(json.dumps(rec))
 

@@ -117,9 +117,7 @@ OWN_KERNELS = (
     "dense_f32_kernel",
     "operand_probe_kernel",
     "stage_a_dot_wgmma_kernel",
-    "stage_a_manual_kernel",
     "stage_a_radix_kernel",
-    "stage_a_tile_kernel",
     "whole_kernel",
 )
 _OWN = re.compile(r"\b(" + "|".join(OWN_KERNELS) + r")\b")

@@ -201,9 +201,12 @@ def test_irfft_on_card(dev, b, n, kernel):
     "n,n1,complex_,tiles,rows",
     [(1 << 17, 16, False, None, None), (1 << 17, 16, True, None, 16),
      (1 << 17, 128, False, None, 72), (1 << 17, 128, True, 1, None),
-     (1 << 20, 128, False, None, None), (1 << 20, 256, True, 2, 136)],
+     (1 << 20, 128, False, None, None), (1 << 20, 256, True, 2, 136),
+     (1 << 22, 128, False, None, 72)],
 )
 def test_stage_a_legacy_kernel(dev, n, n1, complex_, tiles, rows):
+    """Against the plain version (1e-5) and numpy in float64: the exact
+    column DFT times the exact twiddle, within 5 log2(n1) eps of its peak."""
     plan = P.on_device(legacy_plan, n, n1, -1, device=dev)
     n2 = plan["n2"]
     ct = P.stage_a_col_tile(n1, n2)
@@ -214,16 +217,36 @@ def test_stage_a_legacy_kernel(dev, n, n1, complex_, tiles, rows):
     got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows)
     assert K.COUNTS["stage_a_legacy"].launches == 1 and K.COUNTS["stage_a"].launches == 0
     _close(got, K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows))
+    r, ncols = got[0].shape[1:]
+    x = xr[0, :, :ncols].cpu().double().numpy()
+    if complex_:
+        x = x + 1j * xi[0, :, :ncols].cpu().double().numpy()
+    k1c = np.arange(r)[:, None] * np.arange(ncols)[None, :] % n
+    ref = np.fft.fft(x, axis=0)[:r] * np.exp(-2j * np.pi * k1c / n)
+    err = max(np.abs(got[0][0].cpu().numpy() - ref.real).max(), np.abs(got[1][0].cpu().numpy() - ref.imag).max())
+    assert err <= 5 * np.log2(n1) * np.finfo(np.float32).eps * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("n,n1", [(1 << 17, 128), (1 << 20, 128), (1 << 20, 256), (1 << 17, 32)])
+@pytest.mark.parametrize("n,n1", [(1 << 17, 128), (1 << 20, 128), (1 << 20, 256), (1 << 17, 32), (1 << 13, 128)])
 def test_stage_a_manual_kernel(dev, n, n1):
-    plan = P.on_device(legacy_plan, n, n1, -1, device=dev)
+    """Every column tile the rule considers (the shipped one first), against
+    the plain version; 2^13 at n1 = 128 is the narrowest tile, n2 = 64."""
+    plan = A.manual_tables(P.on_device(legacy_plan, n, n1, -1, device=dev))
     x = torch.randn(n1, plan["n2"], device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    want = A.stage_a_manual_plain(x, plan)
     A.reset_counts()
-    got = A.stage_a_manual(x, plan)
+    _close(A.stage_a_manual(x, plan), want)
     assert A.COUNTS["stage_a_manual"].launches == 1
-    _close(got, A.stage_a_manual_plain(x, plan))
+    for bn in A.manual_launch_shapes(n1, plan["n2"]):
+        _close(A.manual_launch(x, plan, bn), want)
+
+
+def test_stage_a_manual_needs_its_stacked_table(dev):
+    plan = P.on_device(legacy_plan, 1 << 17, 128, -1, device=dev)
+    A.reset_counts()
+    with pytest.raises(ValueError, match="f_stack"):
+        A.stage_a_manual(torch.zeros(128, plan["n2"], device=dev), plan)
+    assert A.COUNTS["stage_a_manual"].launches == 0
 
 
 _DOT_SHAPES = [(1, 128, 8192), (1, 32, 256), (2, 64, 512), (1, 256, 8192), (3, 128, 1024),
@@ -317,7 +340,7 @@ def test_compiled_stats_counts_the_own_kernels(dev):
 
 
 def test_chained_step_stats_times_a_graph(dev):
-    plan = P.on_device(legacy_plan, 1 << 17, 128, -1, device=dev)
+    plan = A.manual_tables(P.on_device(legacy_plan, 1 << 17, 128, -1, device=dev))
     x = torch.randn(128, plan["n2"], device=dev)
     A.reset_counts()
     st = chained_step_stats(lambda z: A.stage_a_manual(z, plan)[0], x, k1=2, k2=12, reps=2,
