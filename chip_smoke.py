@@ -27,6 +27,18 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    against numpy's irfft (float64) and torch.fft.irfft from n = 256 to 2^24,
    irfft_device at (16, 65,536) and (64, 4,096); its counts show K2, K1 and
    K3 ran where the dispatch sends them;
+3b. gradients through the autograd seams, counted from 0: the Parseval
+   gradient of fft_device at (1, n), n = 1,024 … 2^22 (gate 2*5*log2(n)*eps,
+   exactly two launches of the band's kernel a grad, no plain call), dot
+   tests of transform_any, inverse_real and irfft_device (1e-4, inner
+   products in float64), torch.func.jvp (1e-4) and Welch's gradient at 2^20
+   against a central difference (5e-3);
+3c. the spectral path at full size, counted from 0, against scipy.signal
+   and numpy in float64 with the JAX package's tests' gates: welch (mean
+   and median), csd, coherence, spectrogram_scipy, stft_scipy /
+   istft_scipy, the STFT roundtrip, ShortTimeFFT, periodogram (2^22 on K3,
+   48,000 mixed, 1,000,003 Bluestein with two K3 launches) and
+   fft_exact / ifft_exact; the engine each estimator's transform took;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -42,8 +54,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    S3 f32 beside torch.matmul on the
    stacked LHS, S3 bf16_x1 beside torch.mm of the bf16 operands into fp32,
    or the refusal's text where torch has no out_dtype); each main-path call
-   against torch.fft, and irfft_device beside ifft_device and
-   torch.fft.irfft;
+   against torch.fft, irfft_device beside ifft_device and
+   torch.fft.irfft, and this slice's calls (a Parseval grad step, welch,
+   the STFT roundtrip, periodogram, fft_exact) beside their torch
+   counterparts;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -91,6 +105,22 @@ IRFFT_SIZES = (256, 1024, 4096, 16384, 65536, 1 << 17, 1 << 20, 1 << 22, 1 << 24
 IRFFT_BATCHES = ((16, 65536), (64, 4096))
 IRFFT_STAGED = (1 << 18, 1 << 20, 1 << 22, 1 << 24)
 IRFFT_TIMED = ((1, 32768), (1, 65536), (1, 1 << 20), (1, 1 << 22), (16, 65536))
+# Phase 3b: the Parseval gradient at (1, n) and the kernel whose band n is
+# (None: the torch engines, the control); dot tests; forward mode.
+GRAD_SIZES = ((1024, "whole_transform_packed"), (4096, "whole_transform"), (16384, "whole_transform"),
+              (65536, None), (1 << 20, "stage_a"), (1 << 22, "stage_a"))
+DOT_TRANSFORM = ((1, 4096), (2, 1 << 20))
+DOT_INVERSE_REAL = (1, 1 << 20)
+DOT_IRFFT = (4, 1 << 22)
+JVP_SIZES = (4096, 1 << 20)
+WELCH_GRAD = (1 << 20, 4096)
+# Phase 3c: the spectral path at full size.
+WELCH_SHAPE = (8, 1 << 20, 4096, 2048)  # channels, samples, nperseg, noverlap
+PAIR_SHAPE = (1 << 20, 4096)  # csd / coherence: samples, nperseg
+SPEC_SHAPE = (1 << 20, 1024, 768)  # spectrogram / stft_scipy: samples, nperseg, noverlap
+STFT_SHAPES = ((1 << 20, 1024, 256), (16384, 256, 64))  # samples, frame, hop
+PERIODOGRAM_SIZES = (1 << 22, 48000, 1000003)
+EXACT_SIZES = (48000, 1000003)
 
 
 T0 = time.perf_counter()
@@ -241,6 +271,361 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str =
         return None, []
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return sum(by_name.values()), [(k[:60], v) for k, v in ranked]
+
+
+def record(report: dict, key: str, label: str, n: int, err: float, limit: float) -> None:
+    """Print one gated error, keep it under ``report[key]`` and fail past
+    its limit."""
+    report.setdefault(key, []).append(dict(case=label, n=n, err=err, limit=limit, ok=err <= limit))
+    print(f"  {label:52s} err {err:.3e} limit {limit:.3e} {'ok' if err <= limit else 'FAIL'}")
+    if not err <= limit:
+        fail(f"{label}: error {err:.3e} over {limit:.3e}")
+
+
+def counts() -> dict:
+    """(launches, plain_calls) of each transform-path kernel."""
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    return {k: (c.launches, c.plain_calls) for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+
+
+def count_delta(before: dict) -> tuple[dict, int]:
+    """Launches per kernel since ``before``, and plain calls in all."""
+    after = counts()
+    return ({k: after[k][0] - before[k][0] for k in after},
+            sum(after[k][1] - before[k][1] for k in after))
+
+
+def band_kernel(b: int, n: int):
+    """The kernel ``kernels/large.py:transform_any`` launches for a (b, n)
+    transform (K1, K2 or K3), or None where the torch engines run it."""
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.config import FUSED_MAX
+    from gpu_fft_tpu_torch.tuning import get_tuning
+
+    if n > FUSED_MAX:
+        return "stage_a"
+    if P.whole_kernel_applies(b, n):
+        return "whole_transform_packed" if n <= get_tuning().whole_packed_n_max else "whole_transform"
+    return None
+
+
+def engine(b: int, n: int, real_input: bool) -> str:
+    """The engine ``kernels/large.py:transform_any`` takes for a (b, n)
+    transform: the band's kernel, a torch engine, or the staged path."""
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.config import DIRECT_MAX
+
+    kernel = band_kernel(b, n)
+    if kernel == "stage_a":
+        return "staged: K3 + torch stage B"
+    if kernel:
+        return {"whole_transform_packed": "K2", "whole_transform": "K1"}[kernel]
+    if n <= DIRECT_MAX:
+        return "torch direct DFT"
+    if real_input and P.half_spectrum_applies(n):
+        return "torch four-step, half spectrum"
+    folded = P.use_folded_layout(b, n)
+    return (f"torch four-step, {'wide' if P.wide_split_applies(b, n) else 'balanced'} split, "
+            f"{'folded' if folded else 'transposes'}")
+
+
+def grad_phase(report: dict, dev, rng, grad_sizes=GRAD_SIZES, dot_transform=DOT_TRANSFORM,
+               dot_inverse_real=DOT_INVERSE_REAL, dot_irfft=DOT_IRFFT, jvp_sizes=JVP_SIZES,
+               welch_grad=WELCH_GRAD) -> dict:
+    """Phase 3b: gradients through the autograd seams on the card.  Returns
+    the launches of the phase (counted from 0) and per Parseval size."""
+    import numpy as np
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels.large import inverse_real, transform_any
+
+    def tensor(*shape, grad=False):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).requires_grad_(grad)
+
+    def host(t):
+        return t.detach().cpu().double().numpy()
+
+    def power(yr, yi):
+        return (yr * yr + yi * yi).sum()
+
+    K.reset_counts()
+    per_size = {}
+    for n, kernel in grad_sizes:
+        x = tensor(1, n, grad=True)
+        before = counts()
+        (g,) = torch.autograd.grad(power(*gt.fft_device(x)), x)
+        torch.cuda.synchronize()
+        launched, plain = count_delta(before)
+        xs = host(x)
+        record(report, "grad_path", f"grad Parseval n={n} ({engine(1, n, True)})", n,
+               float(np.abs(host(g) - 2 * n * xs).max() / (2 * n * np.abs(xs).max())), 2 * gate(n))
+        want = {k: 2 if k == kernel else 0 for k in launched}
+        if launched != want or plain:
+            fail(f"grad n={n}: launches {launched} and {plain} plain calls, expected {want} and none")
+        per_size[n] = launched
+
+    def dot_test(label, n, fn, ins, outs):
+        v = [tensor(*s, grad=True) for s in ins]
+        w = [tensor(*s) for s in outs]
+        out = fn(*v)
+        out = out if isinstance(out, tuple) else (out,)
+        lhs = sum(float(np.vdot(host(o), host(ww))) for o, ww in zip(out, w))
+        back = torch.autograd.grad(out, v, grad_outputs=w)
+        rhs = sum(float(np.vdot(host(b), host(vv))) for b, vv in zip(back, v))
+        record(report, "grad_path", f"dot test {label}", n, abs(lhs - rhs) / max(1.0, abs(lhs)), 1e-4)
+
+    for b, n in dot_transform:
+        for sign in (-1, 1):
+            dot_test(f"transform_any ({b}, {n}) sign {sign:+d}", n,
+                     lambda p, q, n=n, sign=sign: transform_any(p, q, n, sign), [(b, n)] * 2, [(b, n)] * 2)
+    b, n = dot_inverse_real
+    dot_test(f"inverse_real ({b}, {n})", n, lambda p, q: inverse_real(p, q, n), [(b, n)] * 2, [(b, n)])
+    b, n = dot_irfft
+    h = n // 2 + 1
+    dot_test(f"irfft_device ({b}, {n})", n, gt.irfft_device, [(b, h)] * 2, [(b, n)])
+
+    for n in jvp_sizes:
+        x = tensor(1, n)
+        out, tan = torch.func.jvp(lambda v: power(*gt.fft_device(v)), (x,), (x,))
+        record(report, "grad_path", f"jvp Parseval n={n}: |tangent/out - 2|", n,
+               abs(float(tan) / float(out) - 2.0), 1e-4)
+
+    # Welch's gradient against a central difference.  The loss is a
+    # quadratic form, so the difference is exact but for rounding: the
+    # per-bin estimates are summed in float64.
+    n, nperseg = welch_grad
+    x, d = tensor(n, grad=True), tensor(n)
+    (g,) = torch.autograd.grad(gt.welch_device(x, nperseg=nperseg)[1].sum(), x)
+    eps = 1e-2
+    with torch.no_grad():
+        lp, lm = (float(gt.welch_device(x + s * eps * d, nperseg=nperseg)[1].double().sum()) for s in (1, -1))
+    an = float(np.vdot(host(g), host(d)))
+    record(report, "grad_path", f"grad welch n={n} nperseg={nperseg} vs central difference", n,
+           abs((lp - lm) / (2 * eps) - an) / max(1.0, abs(an)), 5e-3)
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    plain = sum(c.plain_calls for c in K.COUNTS.values())
+    print(f"  launches in phase 3b: {launched}; plain calls {plain}")
+    print(f"  Parseval grad launches per size (forward + backward): {per_size}")
+    if plain:
+        fail(f"phase 3b ran {plain} plain kernel versions on the card")
+    for name, count in launched.items():
+        if count < 1:
+            fail(f"{name} was launched no time on the gradient path")
+    report["grad_launches"] = launched
+    report["grad_launches_per_size"] = {str(k): v for k, v in per_size.items()}
+    return launched
+
+
+def analysis_phase(report: dict, dev, rng, welch_shape=WELCH_SHAPE, pair_shape=PAIR_SHAPE,
+                   spec_shape=SPEC_SHAPE, stft_shapes=STFT_SHAPES,
+                   periodogram_sizes=PERIODOGRAM_SIZES, exact_sizes=EXACT_SIZES) -> dict:
+    """Phase 3c: the spectral path on the card against scipy.signal and
+    numpy in float64, with the JAX package's tests' gates.  Returns the
+    launches of the phase (counted from 0)."""
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.ops.exact import mixed_split
+
+    def rel(got, ref):
+        return float(np.abs(np.asarray(got, np.float64) - ref).max() / np.abs(ref).max())
+
+    def signal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    K.reset_counts()
+    engines = {}
+    c, n, nperseg, noverlap = welch_shape
+    x = signal(c, n)
+    xt = torch.from_numpy(x).to(dev)
+    segs = c * ((n - nperseg) // (nperseg - noverlap) + 1)
+    engines["welch"] = f"({segs}, {nperseg}): {engine(segs, nperseg, True)}"
+    for average in ("mean", "median"):
+        _, p = gt.welch_device(xt, nperseg=nperseg, noverlap=noverlap, window="hann", average=average)
+        _, ref = ss.welch(x.astype(np.float64), nperseg=nperseg, noverlap=noverlap, window="hann",
+                          average=average, axis=-1)
+        record(report, "analysis_path", f"welch_device ({c}, {n}) nperseg={nperseg} {average} (rel)", n,
+               rel(p.cpu().numpy(), ref), 1e-4)
+    del xt
+
+    n, nperseg = pair_shape
+    x = signal(n)
+    y = (0.5 * x + signal(n)).astype(np.float32)
+    segs = (n - nperseg) // (nperseg // 2) + 1
+    engines["csd, coherence"] = f"({segs}, {nperseg}) per signal: {engine(segs, nperseg, True)}"
+    _, (pr, pi) = gt.csd_device(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), nperseg=nperseg)
+    _, ref = ss.csd(x.astype(np.float64), y.astype(np.float64), nperseg=nperseg)
+    record(report, "analysis_path", f"csd_device n={n} nperseg={nperseg} (rel)", n,
+           float(np.abs(pr.cpu().numpy() + 1j * pi.cpu().numpy() - ref).max() / np.abs(ref).max()), 1e-4)
+    _, coh = gt.coherence_device(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), nperseg=nperseg)
+    _, ref = ss.coherence(x.astype(np.float64), y.astype(np.float64), nperseg=nperseg)
+    record(report, "analysis_path", f"coherence_device n={n} nperseg={nperseg} (abs)", n,
+           float(np.abs(coh.cpu().numpy() - ref).max()), 1e-3)
+
+    n, nperseg, noverlap = spec_shape
+    x = signal(n)
+    segs = (n - nperseg) // (nperseg - noverlap) + 1
+    engines["spectrogram_scipy"] = f"({segs}, {nperseg}): {engine(segs, nperseg, True)}"
+    _, _, sxx = gt.spectrogram_scipy(x, nperseg=nperseg, noverlap=noverlap, device=dev)
+    _, _, ref = ss.spectrogram(x.astype(np.float64), nperseg=nperseg, noverlap=noverlap)
+    record(report, "analysis_path", f"spectrogram_scipy n={n} nperseg={nperseg} (rel)", n, rel(sxx, ref), 2e-3)
+    _, _, (zr, zi) = gt.stft_scipy(x, nperseg=nperseg, noverlap=noverlap, device=dev)
+    _, _, ref = ss.stft(x.astype(np.float64), nperseg=nperseg, noverlap=noverlap)
+    record(report, "analysis_path", f"stft_scipy n={n} nperseg={nperseg} (rel)", n,
+           float(np.abs(zr + 1j * zi - ref).max() / np.abs(ref).max()), 2e-3)
+    _, back = gt.istft_scipy(zr, zi, nperseg=nperseg, noverlap=noverlap, device=dev)
+    _, ref = ss.istft(ref, nperseg=nperseg, noverlap=noverlap)
+    record(report, "analysis_path", f"istft_scipy n={n} nperseg={nperseg} vs scipy (abs)", n,
+           float(np.abs(back[:n] - ref[:n]).max()), 1e-4)
+
+    for n, frame, hop in stft_shapes:
+        x = signal(n)
+        num = (n - frame) // hop + 1
+        engines[f"stft L={n} frame={frame}"] = f"({num}, {frame}): {engine(num, frame, True)}"
+        sr, si = gt.stft_device(torch.from_numpy(x).to(dev), frame, hop)
+        y = gt.istft_device(sr, si, hop, length=n).cpu().numpy()
+        cov = slice(frame, (num - 1) * hop)  # every sample under a full window stack
+        record(report, "analysis_path", f"istft_device(stft_device) L={n} frame={frame} hop={hop}", n,
+               float(np.abs(y[cov] - x[cov]).max() / np.abs(x).max()), gate(frame))
+
+    # ShortTimeFFT at the first STFT shape, against scipy's where this
+    # scipy has the class, else numpy float64 frames of the same geometry.
+    n, frame, hop = stft_shapes[0]
+    x = signal(n)
+    sft = gt.ShortTimeFFT.from_window("hann", 1.0, frame, frame - hop, device=dev)
+    z = sft.stft(x)
+    if hasattr(ss, "ShortTimeFFT"):
+        oracle = "scipy.signal.ShortTimeFFT"
+        ref = ss.ShortTimeFFT.from_window("hann", 1.0, frame, frame - hop).stft(x.astype(np.float64))
+    else:
+        oracle = "numpy float64 frames"
+        w = gt.window_table("hann", frame).astype(np.float64)
+        xp = np.pad(x.astype(np.float64), (frame, frame))
+        starts = [(p * hop - frame // 2) + frame for p in range(sft.p_min, sft.p_max(n))]
+        ref = np.fft.rfft(np.stack([xp[s:s + frame] * w for s in starts]), axis=-1).T
+    record(report, "analysis_path", f"ShortTimeFFT.stft L={n} frame={frame} hop={hop} vs {oracle} (rel)",
+           n, float(np.abs(z - ref).max() / np.abs(ref).max()), 2e-4)
+    back = sft.istft(z, k1=n)
+    record(report, "analysis_path", f"ShortTimeFFT.istft L={n} frame={frame} hop={hop} vs signal", n,
+           float(np.abs(back - x).max() / np.abs(x).max()), 2e-4)
+    report["short_time_fft_oracle"] = oracle
+
+    per_size = {}
+    for n in periodogram_sizes:
+        x = signal(n)
+        before = counts()
+        _, p = gt.periodogram_device(torch.from_numpy(x).to(dev))
+        p = p.cpu().numpy()
+        per_size[f"periodogram {n}"] = count_delta(before)[0]
+        _, ref = ss.periodogram(x.astype(np.float64))
+        m = mixed_split(n)
+        engines[f"periodogram {n}"] = (engine(1, n, True) if n & (n - 1) == 0 else
+                                       f"mixed {m[0]} x {m[1]}: torch" if m else
+                                       f"Bluestein m={1 << (2 * n - 2).bit_length()}: "
+                                       f"{engine(1, 1 << (2 * n - 2).bit_length(), False)}, twice")
+        record(report, "analysis_path", f"periodogram_device n={n} (rel)", n, rel(p, ref), 2e-4)
+    for n in exact_sizes:
+        x = signal(n)
+        m = 1 << (2 * n - 2).bit_length() if mixed_split(n) is None else n
+        before = counts()
+        yr, yi = gt.fft_exact_device(torch.from_numpy(x).to(dev))
+        ref = np.fft.fft(x.astype(np.float64))
+        record(report, "analysis_path", f"fft_exact_device n={n} vs numpy f64 (rel)", n,
+               float(max(np.abs(yr.cpu().numpy() - ref.real).max(), np.abs(yi.cpu().numpy() - ref.imag).max())
+                     / np.abs(ref).max()), gate(m))
+        br, bi = gt.ifft_exact_device(yr, yi)
+        back = br.cpu().numpy().astype(np.float64) + 1j * bi.cpu().numpy()
+        ref = np.fft.ifft(yr.cpu().double().numpy() + 1j * yi.cpu().double().numpy())
+        record(report, "analysis_path", f"ifft_exact_device n={n} vs numpy f64 (rel)", n,
+               float(np.abs(back - ref).max() / np.abs(ref).max()), gate(m))
+        per_size[f"fft_exact + ifft_exact {n}"] = count_delta(before)[0]
+
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    plain = sum(c.plain_calls for c in K.COUNTS.values())
+    print(f"  engines: {engines}")
+    print(f"  launches in phase 3c: {launched}; plain calls {plain}; by call: {per_size}")
+    if plain:
+        fail(f"phase 3c ran {plain} plain kernel versions on the card")
+    if launched["stage_a"] < 1:
+        fail("stage_a was launched no time on the analysis path")
+    for n in periodogram_sizes:  # Bluestein: one launch for each of its two m-point transforms
+        kernel = band_kernel(1, 1 << (2 * n - 2).bit_length())
+        got = per_size[f"periodogram {n}"]
+        if n & (n - 1) and mixed_split(n) is None and got != {k: 2 if k == kernel else 0 for k in got}:
+            fail(f"periodogram n={n}: launches {got}, expected two of {kernel}")
+    report.update(analysis_launches=launched, analysis_launches_per_call=per_size, analysis_engines=engines)
+    return launched
+
+
+def analysis_times(report: dict, dev) -> None:
+    """Phase 4's rows for this slice's path: each call beside its torch
+    counterpart, CUDA events and profiler device time."""
+    import numpy as np
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch.ops.spectral import _scale_mult_on
+    from gpu_fft_tpu_torch.ops.stft import window_on
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def randn(*shape, grad=False):
+        return torch.randn(*shape, generator=gen, device=dev).requires_grad_(grad)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    def row(label, port_fn, torch_fn, torch_name):
+        ms, tms = cuda_ms(port_fn, iters=10, repeats=3), cuda_ms(torch_fn, iters=10, repeats=3)
+        (dev_ms, top), (tdev_ms, _) = device_ms(port_fn, iters=10, top=6), device_ms(torch_fn, iters=10)
+        report["times"].append(dict(what=label, ms=ms, torch_ms=tms, torch_call=torch_name, device_ms=dev_ms,
+                                    torch_device_ms=tdev_ms, top_kernels=top))
+        print(f"  {label:44s} events: port {ms:.4f} ms {torch_name} {tms:.4f} ms | "
+              f"device: port {fmt(dev_ms)} {torch_name} {fmt(tdev_ms)}")
+        print(f"    top kernels: {[(k, round(v, 4)) for k, v in top]}")
+
+    for n in (4096, 1 << 20):
+        x = randn(1, n, grad=True)
+        row(f"grad step (Parseval) B=1 n={n}",
+            lambda x=x: torch.autograd.grad(sum((y * y).sum() for y in gt.fft_device(x)), x),
+            lambda x=x: torch.autograd.grad(torch.fft.fft(x).abs().square().sum(), x),
+            "torch.fft.fft + autograd")
+    c, n, nperseg, noverlap = WELCH_SHAPE
+    x = randn(c, n)
+    w = window_on("hann", nperseg, dev)
+    mult = _scale_mult_on("hann", nperseg, 1.0, "density", None, dev)
+
+    def torch_welch():
+        segs = x.unfold(-1, nperseg, nperseg - noverlap)
+        segs = (segs - segs.mean(-1, keepdim=True)) * w
+        return torch.fft.rfft(segs).abs().square().mean(-2) * mult
+
+    row(f"welch_device ({c}, {n}) nperseg={nperseg}",
+        lambda: gt.welch_device(x, nperseg=nperseg, noverlap=noverlap), torch_welch,
+        "unfold+torch.fft.rfft+mean")
+    del x
+    for n, frame, hop in STFT_SHAPES:
+        x = randn(n)
+        wt = torch.hann_window(frame, periodic=True, device=dev)
+        row(f"stft roundtrip L={n} frame={frame} hop={hop}",
+            lambda x=x, frame=frame, hop=hop: gt.istft_device(*gt.stft_device(x, frame, hop), hop, length=n),
+            lambda x=x, frame=frame, hop=hop, wt=wt: torch.istft(
+                torch.stft(x, frame, hop, window=wt, return_complex=True), frame, hop, window=wt, length=n),
+            "torch.stft+torch.istft")
+    for n in (1 << 22, 1000003):
+        x = randn(n)
+        mult = _scale_mult_on(None, n, 1.0, "density", None, dev)
+        row(f"periodogram_device n={n}", lambda x=x: gt.periodogram_device(x),
+            lambda x=x, mult=mult: torch.fft.rfft(x - x.mean()).abs().square() * mult,
+            "torch.fft.rfft")
+    x = randn(48000)
+    row("fft_exact_device n=48000", lambda: gt.fft_exact_device(x), lambda: torch.fft.fft(x), "torch.fft.fft")
 
 
 def main() -> None:
@@ -461,10 +846,7 @@ def main() -> None:
     rng = np.random.default_rng(0)
 
     def check(label, n, err, limit):
-        report["main_path"].append(dict(case=label, n=n, err=err, limit=limit, ok=err <= limit))
-        print(f"  {label:44s} err {err:.3e} limit {limit:.3e} {'ok' if err <= limit else 'FAIL'}")
-        if not err <= limit:
-            fail(f"{label}: error {err:.3e} over {limit:.3e}")
+        record(report, "main_path", label, n, err, limit)
 
     def launches():
         return {k: c.launches for k, c in K.COUNTS.items()}
@@ -589,6 +971,16 @@ def main() -> None:
     for name, n in need:
         if irfft_per_size[n][name] < 1:
             fail(f"{name} was not launched by the irfft path at n={n}")
+
+    # ── Phase 3b: gradients on the card ─────────────────────────────────────
+    stamp("phase 3b")
+    print("phase 3b: gradients through the autograd seams on device='cuda'")
+    grad_launches = grad_phase(report, dev, rng)
+
+    # ── Phase 3c: the spectral path on the card ─────────────────────────────
+    stamp("phase 3c")
+    print("phase 3c: the spectral path on device='cuda' against scipy.signal / numpy in float64")
+    analysis_launches = analysis_phase(report, dev, rng)
 
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
@@ -771,6 +1163,8 @@ def main() -> None:
                   f" (ifft_device {fmt(idev)})")
             print(f"    irfft top kernels: {[(k, round(v, 4)) for k, v in irtop]}")
 
+    analysis_times(report, dev)
+
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
     print("phase 5: stage-A ablation harnesses, quick setting (device times from CUDA graphs)")
@@ -865,14 +1259,16 @@ def main() -> None:
         "copy_min": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/calibrate_latency.py:79"),
     }
     # The main path's launches: fft/ifft and the real-output path together.
-    all_launches = {**{k: main_launches[k] + irfft_launches[k] for k in MAIN_PATH_KERNELS},
+    all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
+                       for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
     for name, (src, rep) in sources.items():
         t = kernel_ms[name]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=all_launches[name],
-            irfft_path_launches=irfft_launches.get(name, 0),
+            irfft_path_launches=irfft_launches.get(name, 0), grad_path_launches=grad_launches.get(name, 0),
+            analysis_path_launches=analysis_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},

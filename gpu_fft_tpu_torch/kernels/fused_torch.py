@@ -24,6 +24,7 @@ __all__ = [
     "irfft_direct_half_k128",
     "irfft_fold_columns",
     "stage_a_torch",
+    "stage_a_torch_transpose",
     "stage_b",
     "stage_b_half",
     "stage_b_irfft",
@@ -313,27 +314,54 @@ def stage_b_irfft_from_half(gr, gi, t: dict):
     return out.reshape(b, n1 * p * q)
 
 
+def _stage_a_twiddle(plan: dict):
+    """The stage-A twiddle W (n1, n2) of a plan: the factored one rebuilt in
+    full, two[k1, c // ct] * twi[k1, c % ct] (the production plan), or a
+    legacy materialized ``twr``/``twi`` pair."""
+    if "two_r" not in plan:
+        return plan["twr"], plan["twi"]
+    n1 = plan["f1r"].shape[0]
+    o_r = plan["two_r"][:, :, None]  # (n1, n2/ct, 1)
+    o_i = plan["two_i"][:, :, None]
+    i_r = plan["twi_r"][:, None, :]  # (n1, 1, ct)
+    i_i = plan["twi_i"][:, None, :]
+    n2 = plan["two_r"].shape[1] * plan["twi_r"].shape[1]
+    return (o_r * i_r - o_i * i_i).reshape(n1, n2), (o_r * i_i + o_i * i_r).reshape(n1, n2)
+
+
 def stage_a_torch(x3r, x3i, plan: dict):
     """Column DFT + twiddle of the staged path over (B, n1, n2) views:
     Y[b, k1, c] = (sum_a F1[k1, a] x[b, a, c]) * W[k1, c].  ``x3i`` may be
-    None.  W is the factored twiddle rebuilt in full, two[k1, c // ct] *
-    twi[k1, c % ct] (the production plan), or a legacy materialized (n1, n2)
-    ``twr``/``twi`` pair."""
+    None.  W: :func:`_stage_a_twiddle`."""
     f1r, f1i = plan["f1r"], plan["f1i"]
-    if "two_r" in plan:
-        n1 = f1r.shape[0]
-        o_r = plan["two_r"][:, :, None]  # (n1, n2/ct, 1)
-        o_i = plan["two_i"][:, :, None]
-        i_r = plan["twi_r"][:, None, :]  # (n1, 1, ct)
-        i_i = plan["twi_i"][:, None, :]
-        n2 = plan["two_r"].shape[1] * plan["twi_r"].shape[1]
-        twr = (o_r * i_r - o_i * i_i).reshape(n1, n2)
-        twi = (o_r * i_i + o_i * i_r).reshape(n1, n2)
-    else:
-        twr, twi = plan["twr"], plan["twi"]
+    twr, twi = _stage_a_twiddle(plan)
     pr = torch.einsum("ka,bac->bkc", f1r, x3r)
     pi = torch.einsum("ka,bac->bkc", f1i, x3r)
     if x3i is not None:
         pr = pr - torch.einsum("ka,bac->bkc", f1i, x3i)
         pi = pi + torch.einsum("ka,bac->bkc", f1r, x3i)
     return pr * twr - pi * twi, pr * twi + pi * twr
+
+
+def stage_a_torch_transpose(gr, gi, plan: dict):
+    """The transpose (real-form adjoint) of stage A on a complex input:
+    x-bar[b, a, c] = sum_k1 conj(F1[k1, a]) * conj(W[k1, c]) * g[b, k1, c].
+
+    ``plan``: the whole stage-A plan (all n1 rows, all column tiles);
+    ``gr, gi``: the (B, rows, cols) cotangent of a call that kept the first
+    ``rows`` rows and ``cols`` columns, zero-padded here back to (B, n1, n2)
+    (the dropped outputs take no part).  Returns the (B, n1, n2) pair; a real
+    input's gradient is its real part.  The autodiff rule of the staged
+    fold's K3 call (``kernels/large.py:_StageAFold``), where the JAX package
+    transposes its einsum engine ``stage_a_jnp``."""
+    f1r, f1i = plan["f1r"], plan["f1i"]
+    twr, twi = _stage_a_twiddle(plan)
+    n1, n2 = twr.shape
+    pad = (0, n2 - gr.shape[2], 0, n1 - gr.shape[1])
+    gr = torch.nn.functional.pad(gr, pad)
+    gi = torch.nn.functional.pad(gi, pad)
+    hr = gr * twr + gi * twi  # conj(W) * g
+    hi = gi * twr - gr * twi
+    xr = torch.einsum("ka,bkc->bac", f1r, hr) + torch.einsum("ka,bkc->bac", f1i, hi)
+    xi = torch.einsum("ka,bkc->bac", f1r, hi) - torch.einsum("ka,bkc->bac", f1i, hr)
+    return xr, xi

@@ -18,11 +18,34 @@ n >= ``irfft_half_min`` (fused) and n >= ``irfft_half_staged_min`` (K3 on
 half the column tiles, then the per-row fold), else ``transform_any`` with
 the imaginary part dropped (K1/K2 in their band); the direct folded tables
 at n <= DIRECT_MAX.
+
+Autodiff (``gpu_fft_tpu/kernels/large.py``'s seams): the kernels fill their
+outputs through ctypes, which autograd cannot see, so each kernel call on
+these paths sits inside a ``torch.autograd.Function`` whose backward and
+forward-mode rules run the same dispatch again:
+
+* :class:`_WholeTransform` (K1/K2 in the band) and :class:`_StagedTransform`
+  (the whole staged body: K3 and the torch stage B).  A transform is a
+  symmetric complex-linear map (F^T = F), so its real-form transpose is
+  conj . T . conj: the backward is the Function itself on the conjugated
+  cotangent, the JVP the Function on the tangent.  Both call ``apply``, so
+  the backward graph is differentiable again (Hessian-vector products).
+* :class:`_StageAFold` (K3 on the first column tiles in
+  :func:`inverse_real`'s staged fold): the JVP is K3 on the tangent, the
+  backward the written-out transpose ``stage_a_torch_transpose``.
+
+None saves a tensor: each map is linear, so a rule needs only its key
+(n, sign, scale; n and the kept column tiles).  A call whose inputs no
+autodiff mode sees runs the wrapped body straight (``_through``), since
+``apply`` costs host time.  On the CPU the same rules run over the plain
+versions.  ``vmap`` is not supported (nor in the JAX package
+at staged sizes): fold extra axes into B.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd import forward_ad
 
 from ..config import DIRECT_MAX, FUSED_MAX
 from ..plan import (
@@ -54,6 +77,7 @@ from .fused_torch import (
     irfft_direct_half,
     irfft_direct_half_k128,
     irfft_fold_columns,
+    stage_a_torch_transpose,
     stage_b,
     stage_b_half,
     stage_b_irfft_from_half,
@@ -74,10 +98,7 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
     if n <= FUSED_MAX:
         b = xr.shape[0]
         if whole_kernel_applies(b, n):
-            if n <= get_tuning().whole_packed_n_max:
-                plan = on_device(get_whole_packed_plan, n, sign, scale, device=dev)
-                return whole_transform_packed(xr, xi, plan)
-            return whole_transform(xr, xi, on_device(get_whole_plan, n, sign, scale, device=dev))
+            return _through(_WholeTransform, _whole, xr, xi, (n, sign, scale))
         if xi is None and half_spectrum_applies(n):
             plan = on_device(get_fused_plan, n, sign, False, scale, device=dev)
             if plan.kind == "fourstep":
@@ -90,11 +111,158 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
     if scale is not None:
         yr, yi = transform_any(xr, xi, n, sign)
         return yr * scale, yi * scale
-    return _staged(xr, xi, n, sign)
+    return _through(_StagedTransform, _staged, xr, xi, (n, sign))
 
 
-def _staged(xr, xi, n: int, sign: int):
-    """The staged (n > FUSED_MAX) body of :func:`transform_any`."""
+# ── Autodiff seams ───────────────────────────────────────────────────────────
+
+
+def _tracked(*ts) -> bool:
+    """Whether reverse-mode autograd records these tensors or they carry a
+    forward-mode tangent (``torch.func`` transforms show as one or the
+    other)."""
+    grad = torch.is_grad_enabled()
+    return any(t is not None and ((grad and t.requires_grad) or forward_ad.unpack_dual(t).tangent is not None)
+               for t in ts)
+
+
+def _through(function, body, xr, xi, key):
+    """``function.apply`` where an autodiff mode can see the inputs, else the
+    ``body`` it wraps, straight: ``apply`` costs host time on every call."""
+    return function.apply(xr, xi, key) if _tracked(xr, xi) else body(xr, xi, key)
+
+
+def _whole(xr, xi, key):
+    """K1 or K2 on B = 1 rows in the band, ``key`` = (n, sign, scale)."""
+    n, sign, scale = key
+    dev = xr.device
+    if n <= get_tuning().whole_packed_n_max:
+        return whole_transform_packed(xr, xi, on_device(get_whole_packed_plan, n, sign, scale, device=dev))
+    return whole_transform(xr, xi, on_device(get_whole_plan, n, sign, scale, device=dev))
+
+
+def _stage_a_fold(x3r, x3i, key):
+    """K3 with the inverse plan (default tile) on the first ``tiles`` column
+    tiles of a (B, n1, n2) view, ``key`` = (n, tiles)."""
+    n, tiles = key
+    plan = on_device(get_stage_a_plan, n, +1, None, device=x3r.device)
+    return stage_a(x3r, x3i, plan["n1"], plan["n2"], plan, plan["ct"], col_tiles=tiles)
+
+
+def _contiguous(t):
+    """A cotangent or tangent as a kernel takes it: contiguous (``y.sum()``
+    hands back a stride-0 tensor); None stays None."""
+    return None if t is None else t.contiguous()
+
+
+def _complex_linear(apply, ar, ai):
+    """``apply(ar + i ai)`` for a complex-linear ``apply(re, im)`` whose
+    imaginary part may be None; a None ``ar`` is zero: T(i a) = i T(a)."""
+    if ar is None:
+        if ai is None:
+            return None, None
+        yr, yi = apply(_contiguous(ai), None)
+        return -yi, yr
+    return apply(_contiguous(ar), _contiguous(ai))
+
+
+def _self_transpose(apply, real_input: bool, gr, gi):
+    """Real-form transpose of a symmetric complex-linear map T (F^T = F):
+    x-bar = conj(T(conj(g))); for real input only its real part."""
+    tr, ti = _complex_linear(apply, gr, None if gi is None else -gi)
+    if real_input:
+        return tr, None
+    return tr, None if ti is None else -ti
+
+
+class _WholeTransform(torch.autograd.Function):
+    """K1 (``whole_transform``) or K2 (``whole_transform_packed``) on a B = 1
+    row in the band, ``key`` = (n, sign, scale): the scale folded into the
+    plan is real, so the transpose carries it unchanged."""
+
+    @staticmethod
+    def forward(xr, xi, key):
+        return _whole(xr, xi, key)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.key = inputs[2]
+        ctx.real_input = inputs[1] is None
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        def apply(a, b):
+            return _WholeTransform.apply(a, b, ctx.key)
+
+        return (*_self_transpose(apply, ctx.real_input, gr, gi), None)
+
+    @staticmethod
+    def jvp(ctx, txr, txi, _):
+        return _complex_linear(lambda a, b: _WholeTransform.apply(a, b, ctx.key), txr, txi)
+
+
+class _StagedTransform(torch.autograd.Function):
+    """The staged body :func:`_staged` (K3 and stage B), ``key`` = (n, sign)."""
+
+    @staticmethod
+    def forward(xr, xi, key):
+        return _staged(xr, xi, key)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.key = inputs[2]
+        ctx.real_input = inputs[1] is None
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        def apply(a, b):
+            return _StagedTransform.apply(a, b, ctx.key)
+
+        return (*_self_transpose(apply, ctx.real_input, gr, gi), None)
+
+    @staticmethod
+    def jvp(ctx, txr, txi, _):
+        return _complex_linear(lambda a, b: _StagedTransform.apply(a, b, ctx.key), txr, txi)
+
+
+class _StageAFold(torch.autograd.Function):
+    """K3 over a (B, n1, n2) view with the inverse plan (sign +1, default
+    tile), the first ``tiles`` column tiles kept: ``key`` = (n, tiles).  The
+    JVP is K3 on the tangent; the backward the transpose
+    ``stage_a_torch_transpose`` (the JAX package transposes its einsum
+    engine there), whose torch ops autograd differentiates again."""
+
+    @staticmethod
+    def forward(x3r, x3i, key):
+        return _stage_a_fold(x3r, x3i, key)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.key = inputs[2]
+        ctx.real_input = inputs[1] is None
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        if gr is None and gi is None:
+            return None, None, None
+        gr = torch.zeros_like(gi) if gr is None else gr
+        gi = torch.zeros_like(gr) if gi is None else gi
+        plan = on_device(get_stage_a_plan, ctx.key[0], +1, None, device=gr.device)
+        xr, xi = stage_a_torch_transpose(gr, gi, plan)
+        return xr, None if ctx.real_input else xi, None
+
+    @staticmethod
+    def jvp(ctx, txr, txi, _):
+        return _complex_linear(lambda a, b: _StageAFold.apply(a, b, ctx.key), txr, txi)
+
+
+def _staged(xr, xi, key):
+    """The staged (n > FUSED_MAX) body of :func:`transform_any`, ``key`` =
+    (n, sign)."""
+    n, sign = key
     b = xr.shape[0]
     plan = on_device(get_stage_a_plan, n, sign, stage_a_ct_full_range(n), device=xr.device)
     n1, n2 = plan["n1"], plan["n2"]
@@ -140,9 +308,8 @@ def inverse_real(xr, xi, n: int, scale: float | None = None):
             plan = on_device(get_stage_a_plan, n, +1, None, device=dev)
             n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
             tiles = -(-(n2 // 2 + 1) // ct)
-            yr, yi = stage_a(
-                xr.reshape(b, n1, n2), xi.reshape(b, n1, n2), n1, n2, plan, ct, col_tiles=tiles
-            )
+            yr, yi = _through(_StageAFold, _stage_a_fold, xr.reshape(b, n1, n2), xi.reshape(b, n1, n2),
+                              (n, tiles))
             return stage_b_irfft_from_half(*irfft_fold_columns(yr, yi, bt), bt)
     yr, _ = transform_any(xr, xi, n, +1, scale=scale)
     return yr

@@ -40,10 +40,12 @@ __all__ = [
     "fft_sequential_step",
     "ifft_sequential_step",
     "roundtrip_sequential_step",
+    "stft_roundtrip_step",
     "torch_fft_forward_step",
     "torch_fft_inverse_step",
     "torch_fft_roundtrip_step",
     "trace",
+    "welch_step",
 ]
 
 
@@ -341,6 +343,36 @@ def torch_fft_inverse_step(n: int):
 def torch_fft_roundtrip_step(n: int):
     def step(x):
         return torch.fft.ifft(torch.fft.fft(x.to(torch.complex64))).real
+
+    return step
+
+
+# ── Analysis-op steps ────────────────────────────────────────────────────────
+
+
+def stft_roundtrip_step(frame: int, hop: int):
+    """(1, L) -> istft(stft(x)): the whole analysis and synthesis pipeline.
+    WOLA reconstruction is idempotent on the covered samples, so chained
+    values stay bounded without rescaling."""
+    from ..ops.stft import istft_device, stft_device
+
+    def step(x):
+        sr, si = stft_device(x[0], frame, hop)
+        return istft_device(sr, si, hop, length=x.shape[1])[None]
+
+    return step
+
+
+def welch_step(nperseg: int):
+    """(1, L) -> x + 1e-6 * the Welch PSD tiled to L: the estimate feeds the
+    chained value (far below the signal), so every step computes it."""
+    from ..ops.spectral import welch_device
+
+    def step(x):
+        _, p = welch_device(x[0], nperseg=nperseg)
+        length = x.shape[1]
+        tiled = p.repeat(-(-length // p.shape[0]))[:length]
+        return x + tiled[None] * 1e-6
 
     return step
 

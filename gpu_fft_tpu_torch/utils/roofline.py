@@ -11,9 +11,10 @@ time on a :class:`ChipSpec`,
 and names the wall that sets it (``bound``).  The stages mirror the port's
 dispatch (``kernels/large.py:transform_any``, ``inverse_real``), so the
 cost is that of the plan that runs.  Only the kinds of a ported caller are
-costed (``fft``, ``ifft``, ``roundtrip``, ``irfft``); the JAX package's
-other kinds raise ``NotImplementedError`` naming the ROADMAP item that
-ports their module.
+costed (``fft``, ``ifft``, ``roundtrip``, ``irfft``, ``grad_fft``,
+``welch``, ``stft_roundtrip``, ``fft_exact``); the JAX package's other
+kinds raise ``NotImplementedError`` naming the ROADMAP item that ports
+their module.
 
 * ``CHIPS`` holds ``h100`` and ``cpu-approx`` (order-of-magnitude figures so
   that the accounting stays defined in the CPU tests).
@@ -53,6 +54,7 @@ import torch
 
 from .. import plan as _plan
 from ..config import DIRECT_MAX, FUSED_MAX
+from ..tuning import get_tuning
 
 __all__ = [
     "CHIPS",
@@ -97,10 +99,6 @@ _BENCH = "ROADMAP item 0 (the H100 bench's config kinds)"
 NOT_PORTED_KINDS = {
     **{k: _BENCH for k in ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch",
                            "ifft_sequential", "roundtrip_batch", "roundtrip_sequential")},
-    "grad_fft": "ROADMAP item 4 (autodiff)",
-    "welch": "ROADMAP item 5 (ops/spectral)",
-    "stft_roundtrip": "ROADMAP item 6 (ops/stft)",
-    "fft_exact": "ROADMAP item 7 (ops/exact.mixed_split)",
     "dct_roundtrip": "ROADMAP item 8 (ops/dct)",
     "resample": "ROADMAP item 8 (ops/dsp)",
     "hilbert": "ROADMAP item 8 (ops/dsp)",
@@ -299,29 +297,76 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     """FLOPs, least bytes and per-stage classes of one configuration.
 
     ``kind``: fft (real in, split-complex out), ifft (complex in and out),
-    roundtrip (fft + ifft) or irfft (Hermitian spectrum in, real out,
-    :func:`irfft_stages`).  The kinds of :data:`NOT_PORTED_KINDS` raise
-    ``NotImplementedError``; any other raises ``ValueError``.
+    roundtrip (fft + ifft), irfft (Hermitian spectrum in, real out,
+    :func:`irfft_stages`), and the analysis kinds: welch ((b, n) =
+    (segments, nperseg): the segments' forward transform; the O(bn) window
+    and mean are left out, so the bound stays a lower bound), grad_fft (the
+    spectrum power's gradient: the forward and its transpose, a full
+    complex transform, charged as a roundtrip), stft_roundtrip ((frames,
+    frame_size): the forward frames and the one-sided inverse) and
+    fft_exact (any n: the mixed four-step's two products, else Bluestein's
+    two complex m-point transforms).  The kinds of :data:`NOT_PORTED_KINDS`
+    raise ``NotImplementedError``; any other raises ``ValueError``.
     """
     f32 = 4
     if kind in NOT_PORTED_KINDS:
         raise NotImplementedError(f"transform_cost kind {kind!r} is not ported: {NOT_PORTED_KINDS[kind]}")
-    if kind == "fft":
-        stages, elem = transform_stages(b, n, True)
+
+    def parts(*specs):
+        stages: list = []
+        elem = 0.0
+        for bb, nn, real in specs:
+            s, e = transform_stages(bb, nn, real)
+            stages += s
+            elem += e
+        return stages, elem
+
+    if kind in ("fft", "welch"):
+        stages, elem = parts((b, n, True))
         bytes_ = b * n * f32 * (1 + 2)  # read x, write (re, im)
     elif kind == "ifft":
         stages, elem = transform_stages(b, n, False)
         elem += 2.0 * b * n  # 1/N scale
         bytes_ = b * n * f32 * (2 + 2)
-    elif kind == "roundtrip":
-        s1, e1 = transform_stages(b, n, True)
-        s2, e2 = transform_stages(b, n, False)
-        stages, elem = s1 + s2, e1 + e2 + 2.0 * b * n
+    elif kind in ("roundtrip", "grad_fft"):
+        stages, elem = parts((b, n, True), (b, n, False))
+        elem += 2.0 * b * n
         bytes_ = b * n * f32 * (1 + 2)
     elif kind == "irfft":
         # The 1/n scale lives in the tables at the fold sizes: no extra pass.
         stages, elem, read_frac = irfft_stages(b, n)
         bytes_ = b * n * f32 * (2.0 * read_frac + 1)
+    elif kind == "stft_roundtrip":
+        # The inverse leg is inverse_real_half: at direct frame sizes two
+        # real products against the folded tables (K = n/2 with the
+        # Nyquist broadcast where irfft_direct_k128, else h = n/2 + 1
+        # deep), above them the full roundtrip's charge.
+        if n <= DIRECT_MAX:
+            stages, elem = parts((b, n, True))
+            if n >= 256 and get_tuning().irfft_direct_k128:
+                stages.append((2 * 2.0 * b * n * (n // 2), n // 2))
+            else:
+                stages.append((2 * 2.0 * b * n * (n // 2 + 1), n // 2 + 1))
+            elem += 4.0 * b * n  # window, overlap-add, WOLA division
+        else:
+            stages, elem = parts((b, n, True), (b, n, False))
+            elem += 2.0 * b * n
+        bytes_ = b * n * f32 * (1 + 2)
+    elif kind == "fft_exact":
+        from ..ops.exact import mixed_split
+
+        sp = mixed_split(n)
+        if sp is not None:
+            n1, n2 = sp
+            stages = [(2 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * n2, n2)]
+            elem = 6.0 * b * n  # twiddle
+        else:
+            m = 1
+            while m < 2 * n - 1:
+                m *= 2
+            stages, elem = parts((b, m, False), (b, m, False))
+            elem += 3 * 6.0 * b * n  # the three chirp products
+        bytes_ = b * n * f32 * (1 + 2)
     else:
         raise ValueError(f"unknown config kind {kind!r}")
     return {

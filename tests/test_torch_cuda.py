@@ -367,3 +367,80 @@ def test_wrapper_rejects_bad_tables(dev):
         K.whole_transform(x, None, bad)
     with pytest.raises(ValueError, match="on cpu"):
         K.whole_transform(x, None, P.on_device(P.get_whole_plan, 4096, -1, None, device="cpu"))
+
+
+# ── Autodiff and the analysis path on the card ───────────────────────────────
+
+GRAD_BANDS = [(1024, "whole_transform_packed"), (4096, "whole_transform"), (1 << 20, "stage_a")]
+
+
+@pytest.mark.parametrize("n,kernel", GRAD_BANDS)
+def test_fft_device_output_carries_a_grad_fn(dev, n, kernel):
+    """The kernels fill their outputs through ctypes; behind the autograd
+    Functions the result still joins the graph, and the backward launches
+    the band's kernel again (no plain version, no CPU)."""
+    x = torch.randn(1, n, device=dev, requires_grad=True)
+    K.reset_counts()
+    yr, yi = gt.fft_device(x)
+    assert yr.grad_fn is not None and yi.grad_fn is not None
+    (g,) = torch.autograd.grad((yr**2 + yi**2).sum(), x)
+    assert K.COUNTS[kernel].launches == 2
+    assert all(c.plain_calls == 0 for c in K.COUNTS.values())
+    gate = 2 * 5 * np.log2(n) * np.finfo(np.float32).eps
+    assert float((g - 2 * n * x).abs().max()) <= gate * 2 * n * float(x.abs().max())
+
+
+@pytest.mark.parametrize("n,kernel", GRAD_BANDS)
+def test_stride0_cotangent_is_accepted(dev, n, kernel):
+    x = torch.randn(1, n, device=dev, requires_grad=True)
+    yr, yi = gt.fft_device(x)
+    K.reset_counts()
+    (yr.sum() + yi.sum()).backward()
+    assert K.COUNTS[kernel].launches == 1 and x.grad is not None
+    # d/dx sum(Re Fx + Im Fx) = Re(F^T 1) + Im(F^T 1) = n e_0 (F^T = F).
+    ref = torch.fft.fft(torch.ones(n, dtype=torch.complex64, device=dev))
+    want = (ref.real + ref.imag)[None]
+    assert float((x.grad - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_staged_fold_gradient_on_card(dev):
+    """irfft_device at 2^20: K3 on the fold's tiles forward, the torch
+    transpose backward; a dot test in float64."""
+    n = 1 << 20
+    h = n // 2 + 1
+    sr, si = (torch.randn(1, h, device=dev, requires_grad=True) for _ in "ri")
+    w = torch.randn(1, n, device=dev)
+    K.reset_counts()
+    y = gt.irfft_device(sr, si)
+    assert K.COUNTS["stage_a"].launches == 1
+    gr, gi = torch.autograd.grad(y, (sr, si), grad_outputs=w)
+    vr, vi = torch.randn(1, h, device=dev), torch.randn(1, h, device=dev)
+    lhs = float((gt.irfft_device(vr, vi).double() * w.double()).sum())
+    rhs = float((gr.double() * vr.double()).sum() + (gi.double() * vi.double()).sum())
+    assert abs(lhs - rhs) / max(1.0, abs(lhs)) <= 1e-4
+
+
+def test_welch_and_stft_roundtrip_on_card(dev):
+    import scipy.signal
+
+    x = np.random.default_rng(5).standard_normal(1 << 16).astype(np.float32)
+    f, p = gt.welch(x, nperseg=1024, device="cuda")
+    _, ref = scipy.signal.welch(x.astype(np.float64), nperseg=1024)
+    assert np.abs(p - ref).max() <= 1e-4 * np.abs(ref).max()
+    r, i = gt.stft_device(torch.from_numpy(x).to(dev), 1024, 256)
+    y = gt.istft_device(r, i, 256, length=x.size).cpu().numpy()
+    gate = 5 * np.log2(1024) * np.finfo(np.float32).eps * np.abs(x).max()
+    assert np.abs(y[1024:-1024] - x[1024:-1024]).max() <= gate
+
+
+@pytest.mark.parametrize("name,shape", [("welch", (1, 1 << 16)), ("stft_roundtrip", (1, 16384))])
+def test_analysis_steps_chain_in_cuda_graphs(dev, name, shape):
+    """The analysis steps are capturable: their tables are cached on the
+    device by the warm-up call, so a captured step uploads nothing."""
+    from gpu_fft_tpu_torch.utils import profiling
+
+    step = profiling.welch_step(256) if name == "welch" else profiling.stft_roundtrip_step(256, 64)
+    x = torch.randn(*shape, device=dev)
+    st = chained_step_stats(step, x, k1=2, k2=12, reps=2, min_span_s=0.002)
+    assert st.median_s > 0
+    assert bool(torch.isfinite(step(x)).all())

@@ -32,7 +32,10 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.scripts.calibrate_chip, gpu_fft_tpu_torch.scripts.ablate_whole_packed, "
         "gpu_fft_tpu_torch.scripts.ablate_engines, gpu_fft_tpu_torch.config, "
         "gpu_fft_tpu_torch.backends, gpu_fft_tpu_torch.tuning, gpu_fft_tpu_torch.plan, "
-        "gpu_fft_tpu_torch.kernels.fused_torch, gpu_fft_tpu_torch.ops.transform\n"
+        "gpu_fft_tpu_torch.kernels.fused_torch, gpu_fft_tpu_torch.ops.transform, "
+        "gpu_fft_tpu_torch.ops.windows, gpu_fft_tpu_torch.signal.windows, "
+        "gpu_fft_tpu_torch.ops.stft, gpu_fft_tpu_torch.ops.exact, gpu_fft_tpu_torch.ops.spectral, "
+        "gpu_fft_tpu_torch.ops.short_time_fft\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"
@@ -86,6 +89,8 @@ def test_chip_smoke_fails_alone(tmp_path):
         ("gpu_fft_tpu_torch.utils.signal", 4),
         ("gpu_fft_tpu_torch.ops.spectral", 1),
         ("gpu_fft_tpu_torch.ops.transform", 1),
+        ("gpu_fft_tpu_torch.ops.stft", 2),
+        ("gpu_fft_tpu_torch.ops.short_time_fft", 5),
     ],
 )
 def test_doctests(module, expected_min):

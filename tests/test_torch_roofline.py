@@ -23,7 +23,7 @@ from gpu_fft_tpu_torch.utils import profiling as tprof
 from gpu_fft_tpu_torch.utils import roofline as roof
 
 ROOT = Path(__file__).resolve().parent.parent
-PORTED_KINDS = ("fft", "ifft", "roundtrip", "irfft")
+PORTED_KINDS = ("fft", "ifft", "roundtrip", "irfft", "grad_fft", "welch", "stft_roundtrip", "fft_exact")
 GRID = [(1, 1 << k) for k in range(8, 23)] + [(2, 16384), (16, 4096), (16, 65536)]
 H100 = roof.CHIPS["h100"]
 
@@ -38,6 +38,18 @@ def test_transform_cost_matches_the_jax_package(kind):
         assert got["elem_flops"] == pytest.approx(want["elem_flops"], rel=1e-12, abs=0.0), (kind, b, n)
         assert [k for _, k in got["stages"]] == [k for _, k in want["stages"]], (kind, b, n)
         assert [f for f, _ in got["stages"]] == pytest.approx([f for f, _ in want["stages"]], rel=1e-12)
+
+
+@pytest.mark.parametrize("n", [6, 1000, 44100, 48000, 65537, 997 * 1009, 1000003])
+@pytest.mark.parametrize("b", [1, 3])
+def test_fft_exact_cost_matches_the_jax_package_off_powers_of_two(b, n):
+    """The mixed four-step's two stages, or Bluestein's two m-point
+    transforms, as the JAX package charges them (GRID holds powers of two
+    only)."""
+    got, want = roof.transform_cost(b, n, "fft_exact"), jroof.transform_cost(b, n, "fft_exact")
+    assert got["bytes"] == want["bytes"]
+    assert got["flops"] == pytest.approx(want["flops"], rel=1e-12)
+    assert got["stages"] == pytest.approx(want["stages"], rel=1e-12)
 
 
 @pytest.mark.parametrize("kind", sorted(roof.NOT_PORTED_KINDS))
