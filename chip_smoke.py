@@ -39,6 +39,16 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    istft_scipy, the STFT roundtrip, ShortTimeFFT, periodogram (2^22 on K3,
    48,000 mixed, 1,000,003 Bluestein with two K3 launches) and
    fft_exact / ifft_exact; the engine each estimator's transform took;
+3d. the filtering path at full size, counted from 0, against scipy.signal
+   / scipy.fft in float64 with the JAX package's tests' gates:
+   oaconvolve_device, fftfilt_device (8, 2^20) * 1,025 taps, filtfilt_fir,
+   fft_convolve_device at m = 2^21 (three K3 launches), FIRStream (256
+   chunks of 4,096, 257 taps, K1 twice a step), lfilter_device and
+   sosfiltfilt (8, 2^20), resample_poly_device 3/2, decimate (iir, fir),
+   hilbert_device 2^20 (two K3), resample_device, dct/idct at (1, 2^20)
+   (one K3 each) and (64, 4,096), types 1/3/4 and DSTs at 48,000, czt at
+   2^16 (two K3) and 1,000 (two K1), zoom_fft, fht / ifht at 2^20 and
+   10,000; each row's launches, no plain call;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -57,7 +67,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    against torch.fft, irfft_device beside ifft_device and
    torch.fft.irfft, and this slice's calls (a Parseval grad step, welch,
    the STFT roundtrip, periodogram, fft_exact) beside their torch
-   counterparts;
+   counterparts, and the filtering rows (oaconvolve, fftfilt, FIRStream.step,
+   lfilter, resample_poly, hilbert, the DCT-II/III roundtrip) beside theirs
+   on torch.fft where torch has one;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -67,8 +79,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``ablate_whole_packed``, ``ablate_engines`` and ``calibrate_chip`` in
    their quick setting; the launch counts show S1, S4 and S5 (and K1, K2,
    K3) ran, every timed row is a positive number (the irfft fold gate's
-   too), the only rows without a time are the retired ones and the
-   unported overlap-add block, and every parity row is within
+   too, and the overlap-add block section's), the only rows without a
+   time are the retired ones, and every parity row is within
    5*log2(n)*eps.
 
 Phase 2 also holds S1 (the left-matmul four-step), S4 (the operand probe)
@@ -121,6 +133,10 @@ SPEC_SHAPE = (1 << 20, 1024, 768)  # spectrogram / stft_scipy: samples, nperseg,
 STFT_SHAPES = ((1 << 20, 1024, 256), (16384, 256, 64))  # samples, frame, hop
 PERIODOGRAM_SIZES = (1 << 22, 48000, 1000003)
 EXACT_SIZES = (48000, 1000003)
+# Phase 3d: the filtering path at full size.
+FILTER_ROWS = (8, 1 << 20)  # oaconvolve / fftfilt / lfilter / sosfiltfilt / resample_poly
+FIR_TAPS = 1025
+STREAM = (256, 4096, 257)  # chunks, chunk, taps
 
 
 T0 = time.perf_counter()
@@ -271,6 +287,36 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str =
         return None, []
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return sum(by_name.values()), [(k[:60], v) for k, v in ranked]
+
+
+def capture_launches(large) -> tuple[dict, object]:
+    """Wraps the dispatch's kernel entries (``large.stage_a``,
+    ``large.whole_transform``, ``large.whole_transform_packed``) so that the
+    first input of every distinct launch geometry is kept, cloned: (kernel,
+    input shape, real or complex, plan, tile arguments) -> (xr, xi, args,
+    kwargs).  The counts are the wrapped kernels' own.  Returns the dict and
+    a function that puts the entries back."""
+    seen = {}
+    originals = {name: getattr(large, name) for name in MAIN_PATH_KERNELS}
+
+    def wrap(name, fn):
+        def call(xr, xi, *args, **kw):
+            key = (name, tuple(xr.shape), xi is None,
+                   *(id(a) if isinstance(a, dict) else a for a in args), *sorted(kw.items()))
+            if key not in seen:
+                seen[key] = (xr.clone(), None if xi is None else xi.clone(), args, kw)
+            return fn(xr, xi, *args, **kw)
+
+        return call
+
+    for name, fn in originals.items():
+        setattr(large, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(large, name, fn)
+
+    return seen, restore
 
 
 def record(report: dict, key: str, label: str, n: int, err: float, limit: float) -> None:
@@ -628,6 +674,308 @@ def analysis_times(report: dict, dev) -> None:
     row("fft_exact_device n=48000", lambda: gt.fft_exact_device(x), lambda: torch.fft.fft(x), "torch.fft.fft")
 
 
+def filter_phase(report: dict, dev, rng, rows=FILTER_ROWS, fir_taps=FIR_TAPS, stream=STREAM) -> dict:
+    """Phase 3d: the filtering path on the card against scipy.signal /
+    scipy.fft / numpy in float64, with the JAX package's tests' gates.
+    Each row records its error, its gate and the K1/K2/K3 launches of its
+    call; no plain version may run.  Returns the launches of the phase
+    (counted from 0)."""
+    import numpy as np
+    import scipy.fft as sf
+    import scipy.signal as ss
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import large as L
+
+    per_call = {}
+
+    def rel(got, ref, floor=0.0):
+        got = np.asarray(got)
+        return float(np.abs(got - ref).max() / max(floor, float(np.abs(ref).max())))
+
+    def run(label, fn):
+        """``fn()`` with the launches it made recorded under ``label``."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[label], plain = count_delta(before)
+        if plain:
+            fail(f"{label}: {plain} plain kernel versions ran on the card")
+        return out
+
+    def row(label, n, err, limit):
+        record(report, "filter_path", f"{label} (launches {per_call.get(label.split(' vs ')[0], {})})", n, err,
+               limit)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    K.reset_counts()
+    geometries, restore = capture_launches(L)
+    b, n = rows
+    x = rng.standard_normal((b, n)).astype(np.float32)
+    x64 = x.astype(np.float64)
+    h = gt.firwin(fir_taps, 0.2)
+    xt, ht = tensor(x), tensor(h)
+    h32 = h.astype(np.float32).astype(np.float64)
+
+    lbl = f"oaconvolve_device ({b}, {n}) * {fir_taps} block 16384"
+    y = run(lbl, lambda: gt.oaconvolve_device(xt, ht, block=16384)).cpu().numpy()
+    ref = ss.oaconvolve(x64, h32[None], axes=-1)
+    row(f"{lbl} vs scipy.signal.oaconvolve (rel)", n, rel(y, ref), 2e-3)
+    lbl = f"fftfilt_device ({b}, {n}) * {fir_taps}"
+    y = run(lbl, lambda: gt.fftfilt_device(xt, ht)).cpu().numpy()
+    ref = ss.lfilter(h32, [1.0], x64, axis=-1)
+    row(f"{lbl} vs scipy.signal.lfilter (rel)", n, rel(y, ref), 2e-3)
+    lbl = f"filtfilt_fir {n} * {fir_taps}"
+    y = run(lbl, lambda: gt.filtfilt_fir(x[0], h, device=dev))
+    ref = ss.filtfilt(h32, [1.0], x64[0])
+    row(f"{lbl} vs scipy.signal.filtfilt (rel)", n, rel(y, ref), 2e-3)
+
+    m = 1 << 21
+    lbl = f"fft_convolve_device (1, {n}) * 4097 (m = 2^21)"
+    bb = rng.standard_normal(4097).astype(np.float32)
+    y = run(lbl, lambda: gt.fft_convolve_device(xt[:1], tensor(bb[None]))).cpu().numpy()
+    ref = ss.fftconvolve(x64[:1], bb.astype(np.float64)[None], axes=-1)  # the f64 linear convolution
+    row(f"{lbl} vs f64 convolution (rel)", m, rel(y, ref), 2 * gate(m))
+
+    chunks, chunk, taps = stream
+    hs = gt.firwin(taps, 0.3).astype(np.float32)
+    sig = rng.standard_normal(chunks * chunk).astype(np.float32)
+    fir = gt.FIRStream(hs, chunk=chunk, device=dev)
+    state, outs = fir.init(), []
+    sig_t = tensor(sig)
+    steps = []
+    for i in range(chunks):
+        before = counts()
+        state, yc = fir.step(state, sig_t[i * chunk:(i + 1) * chunk])
+        steps.append(count_delta(before))
+        outs.append(yc)
+    torch.cuda.synchronize()
+    lbl = f"FIRStream.step x {chunks} chunk={chunk} taps={taps}"
+    per_call[lbl] = {k: sum(d[k] for d, _ in steps) for k in steps[0][0]}
+    if any(p for _, p in steps) or any(d != {**{k: 0 for k in d}, "whole_transform": 2} for d, _ in steps):
+        fail(f"FIRStream.step launches {steps[:2]}..., expected K1 twice a step and no plain call")
+    y = torch.cat(outs).cpu().numpy()
+    ref = ss.lfilter(hs.astype(np.float64), [1.0], sig.astype(np.float64))
+    row(f"{lbl} vs scipy.signal.lfilter (rel)", chunks * chunk, rel(y, ref), 2e-3)
+
+    bw, aw = ss.butter(4, 0.2)
+    lbl = f"lfilter_device butter(4) ({b}, {n})"
+    y = run(lbl, lambda: gt.lfilter_device(bw, aw, xt)).cpu().numpy()
+    ref = ss.lfilter(bw, aw, x64, axis=-1)
+    row(f"{lbl} vs scipy.signal.lfilter (rel)", n, rel(y, ref, 1.0), 2e-4)
+    sos = ss.butter(8, 0.2, output="sos")
+    lbl = f"sosfiltfilt butter(8) ({b}, {n})"
+    y = run(lbl, lambda: gt.sosfiltfilt(sos, x64, device=dev))
+    ref = ss.sosfiltfilt(sos, x64, axis=-1)
+    row(f"{lbl} vs scipy.signal.sosfiltfilt (rel)", n, rel(y, ref, 1.0), 5e-4)
+
+    lbl = f"resample_poly_device 3/2 ({b}, {n})"
+    y = run(lbl, lambda: gt.resample_poly_device(xt, 3, 2)).cpu().numpy()
+    ref = ss.resample_poly(x64, 3, 2, axis=-1)
+    row(f"{lbl} vs scipy.signal.resample_poly (rel)", n, rel(y, ref), 2e-3)
+    for ftype in ("iir", "fir"):
+        lbl = f"decimate q=4 {ftype} {n}"
+        y = run(lbl, lambda: gt.decimate(x[0], 4, ftype=ftype, device=dev))
+        ref = ss.decimate(x64[0], 4, ftype=ftype)
+        row(f"{lbl} vs scipy.signal.decimate (rel)", n, rel(y, ref), 2e-3)
+
+    lbl = f"hilbert_device {n}"
+    ar, ai = run(lbl, lambda: gt.hilbert_device(xt[0]))
+    ref = ss.hilbert(x64[0])
+    row(f"{lbl} vs scipy.signal.hilbert (rel)", n,
+        rel(ar.cpu().numpy().astype(np.float64) + 1j * ai.cpu().numpy(), ref), 2 * gate(n))
+    for n_in, num in ((n, n // 2), (44100, 48000)):
+        lbl = f"resample_device {n_in} -> {num}"
+        y = run(lbl, lambda n_in=n_in, num=num: gt.resample_device(xt[0, :n_in], num)).cpu().numpy()
+        ref = ss.resample(x64[0, :n_in], num)
+        row(f"{lbl} vs scipy.signal.resample (rel)", n_in, rel(y, ref), 2 * gate(max(n_in, num)))
+
+    for shape in ((1, n), (64, 4096)):
+        xs = x.reshape(-1)[: shape[0] * shape[1]].reshape(shape)
+        lbl = f"dct_device type 2 ortho {shape}"
+        y = run(lbl, lambda xs=xs: gt.dct_device(tensor(xs), 2, "ortho")).cpu().numpy()
+        ref = sf.dct(xs.astype(np.float64), type=2, norm="ortho")
+        row(f"{lbl} vs scipy.fft.dct (rel)", shape[1], rel(y, ref, 1.0), 5e-5)
+        lbl = f"idct_device type 2 ortho {shape}"
+        back = run(lbl, lambda y=y: gt.idct_device(tensor(y), 2, "ortho")).cpu().numpy()
+        ref = sf.idct(y.astype(np.float64), type=2, norm="ortho")
+        row(f"{lbl} vs scipy.fft.idct (rel)", shape[1], rel(back, ref, 1.0), 5e-5)
+    x48 = x64[0, :48000]
+    for fn, rfn, t in (("dct", sf.dct, 1), ("dct", sf.dct, 3), ("dct", sf.dct, 4), ("dst", sf.dst, 2),
+                       ("dst", sf.dst, 1), ("dst", sf.dst, 4)):
+        lbl = f"{fn}_device type {t} 48000"
+        y = run(lbl, lambda fn=fn, t=t: getattr(gt, f"{fn}_device")(tensor(x48), t)).cpu().numpy()
+        ref = rfn(x48.astype(np.float32).astype(np.float64), type=t)
+        row(f"{lbl} vs scipy.fft.{fn} (rel)", 48000, rel(y, ref, 1.0), 5e-5)
+
+    nc = 1 << 16
+    lbl = f"czt_device n = m = {nc}"
+    cr, ci = run(lbl, lambda: gt.czt_device(xt[0, :nc]))
+    ref = ss.czt(x64[0, :nc])
+    row(f"{lbl} vs scipy.signal.czt (rel)", nc, rel(cr.cpu().numpy().astype(np.float64) + 1j * ci.cpu().numpy(), ref),
+        2e-4)
+    lbl = "czt_device n = m = 1000"
+    cr, ci = run(lbl, lambda: gt.czt_device(xt[0, :1000]))
+    ref = ss.czt(x64[0, :1000])
+    row(f"{lbl} vs scipy.signal.czt (rel)", 1000, rel(cr.cpu().numpy().astype(np.float64) + 1j * ci.cpu().numpy(), ref),
+        2e-4)
+    lbl = "zoom_fft_device n = m = 1000 band [0.1, 0.3]"
+    cr, ci = run(lbl, lambda: gt.zoom_fft_device(xt[0, :1000], [0.1, 0.3], m=1000))
+    ref = ss.zoom_fft(x64[0, :1000], [0.1, 0.3], m=1000)
+    row(f"{lbl} vs scipy.signal.zoom_fft (rel)", 1000,
+        rel(cr.cpu().numpy().astype(np.float64) + 1j * ci.cpu().numpy(), ref), 2e-4)
+
+    for nf in (n, 10000):
+        dln, mu = 12.8 / nf, 0.5
+        r = np.exp((np.arange(nf) - (nf - 1) / 2) * dln)
+        a = (r**1.5 * np.exp(-r * r / 2)).astype(np.float32)
+        off = gt.fhtoffset(dln, mu)
+        lbl = f"fht_device {nf}"
+        got = run(lbl, lambda a=a, dln=dln, off=off: gt.fht_device(tensor(a), dln, mu, offset=off)).cpu().numpy()
+        ref = sf.fht(a.astype(np.float64), dln, mu, offset=off)
+        row(f"{lbl} vs scipy.fft.fht (rel)", nf, rel(got, ref, 1.0), 3e-5)
+        lbl = f"ifht_device {nf}"
+        back = run(lbl, lambda got=got, dln=dln, off=off: gt.ifht_device(tensor(got), dln, mu, offset=off)).cpu().numpy()
+        ref = sf.ifht(got.astype(np.float64), dln, mu, offset=off)
+        row(f"{lbl} vs scipy.fft.ifht (rel)", nf, rel(back, ref, 1.0), 3e-5)
+
+    restore()
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    plain = sum(c.plain_calls for c in K.COUNTS.values())
+    print(f"  launches in phase 3d: {launched}; plain calls {plain}")
+    for label, got in per_call.items():
+        print(f"    {label}: {got}")
+    if plain:
+        fail(f"phase 3d ran {plain} plain kernel versions on the card")
+    for kernel in ("stage_a", "whole_transform"):
+        if launched[kernel] < 1:
+            fail(f"{kernel} was launched no time on the filtering path")
+    expect = {f"fft_convolve_device (1, {n}) * 4097 (m = 2^21)": {"stage_a": 3},
+              f"hilbert_device {n}": {"stage_a": 2},
+              f"dct_device type 2 ortho {(1, n)}": {"stage_a": 1},
+              f"idct_device type 2 ortho {(1, n)}": {"stage_a": 1},
+              f"czt_device n = m = {nc}": {"stage_a": 2},
+              "czt_device n = m = 1000": {"whole_transform": 2}}
+    for label, want in expect.items():
+        got = {k: v for k, v in per_call[label].items() if v}
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+    report.update(filter_launches=launched, filter_launches_per_call=per_call)
+
+    # Every kernel geometry the phase launched, held against its plain version
+    # on the input the path gave it (after the counts are read: these
+    # launches are not the path's).
+    print(f"  {len(geometries)} kernel geometries launched in phase 3d, each vs its plain version "
+          f"(gate max|d| <= {TOL} max|plain|):")
+    for (name, shape, real, *rest), (gx, gy, args, kw) in geometries.items():
+        got = getattr(K, name)(gx, gy, *args, **kw)
+        want = getattr(K, name + "_plain")(gx, gy, *args, **kw)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        ok = err <= TOL * scale
+        case = (f"phase 3d {shape} {'real' if real else 'complex'} "
+                f"{[a for a in args if not isinstance(a, dict)]} {kw or ''}")
+        report["kernel_checks"].append(dict(kernel=name, case=case, max_abs_err=err, max_abs=scale,
+                                            exact=False, ok=ok))
+        print(f"    {name:24s} {case:56s} max|d| {err:.3e} max|plain| {scale:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} {case}: kernel disagrees with its plain version")
+    del geometries
+    torch.cuda.synchronize()
+    return launched
+
+
+def filter_times(report: dict, dev) -> None:
+    """Phase 4's rows for the filtering path: each call beside its torch
+    counterpart where torch has one, CUDA events and profiler device
+    time."""
+    import numpy as np
+    import scipy.signal as ss
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    def row(label, port_fn, torch_fn=None, torch_name=None, iters=10):
+        ms = cuda_ms(port_fn, iters=iters, repeats=3)
+        dev_ms, top = device_ms(port_fn, iters=iters, top=6)
+        tms = tdev_ms = None
+        if torch_fn is not None:
+            tms, (tdev_ms, _) = cuda_ms(torch_fn, iters=iters, repeats=3), device_ms(torch_fn, iters=iters)
+        report["times"].append(dict(what=label, ms=ms, torch_ms=tms, torch_call=torch_name, device_ms=dev_ms,
+                                    torch_device_ms=tdev_ms, top_kernels=top))
+        other = f" {torch_name} {tms:.4f} ms" if tms is not None else " (no torch counterpart)"
+        print(f"  {label:44s} events: port {ms:.4f} ms{other} | device: port {fmt(dev_ms)}"
+              + (f" {torch_name} {fmt(tdev_ms)}" if torch_fn is not None else ""))
+        print(f"    top kernels: {[(k, round(v, 4)) for k, v in top]}")
+
+    b, n = FILTER_ROWS
+    x = torch.randn(b, n, generator=gen, device=dev)
+    h = gt.firwin(FIR_TAPS, 0.2).astype(np.float32)
+    ht = torch.from_numpy(h).to(dev)
+    m = 1 << 21
+    hspec = torch.fft.rfft(ht, n=m)
+    row(f"oaconvolve_device ({b}, {n}) * {FIR_TAPS}", lambda: gt.oaconvolve_device(x, ht),
+        lambda: torch.fft.irfft(torch.fft.rfft(x, n=m) * hspec, n=m)[:, : n + FIR_TAPS - 1],
+        "torch.fft.rfft/irfft m=2^21", iters=5)
+    row(f"fftfilt_device ({b}, {n}) * {FIR_TAPS}", lambda: gt.fftfilt_device(x, ht),
+        lambda: torch.fft.irfft(torch.fft.rfft(x, n=m) * hspec, n=m)[:, :n],
+        "torch.fft.rfft/irfft m=2^21", iters=5)
+    chunks, chunk, taps = STREAM
+    fir = gt.FIRStream(gt.firwin(taps, 0.3).astype(np.float32), chunk=chunk, device=dev)
+    st0, xc = fir.init(), torch.randn(1, chunk, generator=gen, device=dev)
+    mm = 1 << (chunk + taps - 2).bit_length()
+    hs = torch.fft.rfft(torch.from_numpy(gt.firwin(taps, 0.3).astype(np.float32)).to(dev), n=mm)
+
+    def torch_stream():
+        full = torch.fft.irfft(torch.fft.rfft(xc, n=mm) * hs, n=mm)
+        t = taps - 1
+        return full[:, chunk:chunk + t], torch.cat([full[:, :t] + st0, full[:, t:chunk]], 1)
+
+    row(f"FIRStream.step chunk={chunk} taps={taps}", lambda: fir.step(st0, xc), torch_stream,
+        f"torch.fft.rfft/irfft m={mm}")
+    bw, aw = ss.butter(4, 0.2)
+    row(f"lfilter_device butter(4) ({b}, {n})", lambda: gt.lfilter_device(bw, aw, x), iters=3)
+    row(f"resample_poly_device 3/2 ({b}, {n})", lambda: gt.resample_poly_device(x, 3, 2), iters=5)
+    x1 = x[0].contiguous()
+    mask = torch.zeros(n, device=dev)
+    mask[0] = mask[n // 2] = 1.0
+    mask[1: n // 2] = 2.0
+    row(f"hilbert_device {n}", lambda: gt.hilbert_device(x1),
+        lambda: torch.fft.ifft(torch.fft.fft(x1) * mask), "torch.fft.fft*mask*ifft")
+
+    def makhoul_roundtrip(v):
+        nn = v.shape[-1]
+        k = torch.arange(nn, device=dev, dtype=torch.float32)
+        w = torch.exp(-0.5j * torch.pi * k / nn)
+        f = torch.full((nn,), (1.0 / (2.0 * nn)) ** 0.5, device=dev)
+        f[0] = (1.0 / (4.0 * nn)) ** 0.5
+
+        def step():
+            p = torch.cat([v[:, 0::2], v[:, 1::2].flip(-1)], -1)
+            y = 2.0 * (torch.fft.fft(p) * w).real * f  # DCT-II, ortho
+            t = torch.cat([torch.zeros_like(y[:, :1]), y[:, 1:].flip(-1)], -1) / f[None] / 2.0
+            z = torch.fft.ifft((y / f[None] / 2.0 - 1j * t) * w.conj()).real
+            out = torch.empty_like(z)
+            out[:, 0::2], out[:, 1::2] = z[:, : (nn + 1) // 2], z[:, (nn + 1) // 2:].flip(-1)
+            return out
+
+        return step
+
+    for shape in ((1, n), (64, 4096)):
+        v = torch.randn(*shape, generator=gen, device=dev)
+        row(f"dct+idct type 2 ortho {shape}", lambda v=v: gt.idct_device(gt.dct_device(v, 2, "ortho"), 2, "ortho"),
+            makhoul_roundtrip(v), "Makhoul on torch.fft")
+
+
 def main() -> None:
     if not (ROOT / "gpu_fft_tpu_torch" / "__init__.py").is_file():
         fail(f"gpu_fft_tpu_torch not found beside {Path(__file__).name}; run from the repo root")
@@ -705,7 +1053,7 @@ def main() -> None:
             fail(f"{name} {case}: kernel disagrees with its plain version")
 
     whole_cases = [("whole_transform_packed", 1024, 1)] + [
-        ("whole_transform", n, b) for n in (2048, 4096, 16384) for b in (1, 3)
+        ("whole_transform", n, b) for n in (2048, 4096, 8192, 16384) for b in (1, 3)
     ] + [("whole_transform", n, 1) for n in (32768, 65536)]  # beyond the gate: no n1 limit
     for name, n, b in whole_cases:
         kern = getattr(K, name)
@@ -718,10 +1066,11 @@ def main() -> None:
         compare(name, f"B={b} n={n} complex inv 1/n", kern(xr, xi, inv), plain(xr, xi, inv))
         torch.cuda.synchronize()
 
-    # The shipped ct at 2^17, 2^20 and 2^24; at 2^18 (n2 = 2,048) every ct
-    # that the L4 lever of ablate_2e20_levers sets.
+    # The shipped ct at 2^17, 2^20, 2^21 (phase 3d's convolution) and 2^24;
+    # at 2^18 (n2 = 2,048) every ct that the L4 lever of ablate_2e20_levers
+    # sets.
     k3_cases = [(1 << 17, None), *(((1 << 18), ct) for ct in (512, 1024, 2048)),
-                (1 << 20, None), (1 << 24, None)]
+                (1 << 20, None), (1 << 21, None), (1 << 24, None)]
     for n, ct in k3_cases:
         ct = P.stage_a_ct_full_range(n) if ct is None else ct
         plan = P.on_device(P.get_stage_a_plan, n, -1, ct, device=dev)
@@ -740,8 +1089,9 @@ def main() -> None:
 
     # K3 as the staged real-output inverse runs it: complex input, sign +1,
     # all rows, the first ceil((n2/2 + 1) / ct) column tiles; ct = 512 is the
-    # path's (the plan's default tile), 1,024 and 2,048 the L4 lever's.
-    for n in IRFFT_STAGED:
+    # path's (the plan's default tile), 1,024 and 2,048 the L4 lever's.  2^19
+    # and 2^21 are the folds of phase 3d's resample and convolution.
+    for n in sorted((*IRFFT_STAGED, 1 << 19, 1 << 21)):
         for ct in (512, 1024, 2048):
             plan = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
             n1, n2 = plan["n1"], plan["n2"]
@@ -982,6 +1332,11 @@ def main() -> None:
     print("phase 3c: the spectral path on device='cuda' against scipy.signal / numpy in float64")
     analysis_launches = analysis_phase(report, dev, rng)
 
+    # ── Phase 3d: the filtering path on the card ────────────────────────────
+    stamp("phase 3d")
+    print("phase 3d: the filtering path on device='cuda' against scipy.signal / scipy.fft in float64")
+    filter_launches = filter_phase(report, dev, rng)
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -1164,6 +1519,7 @@ def main() -> None:
             print(f"    irfft top kernels: {[(k, round(v, 4)) for k, v in irtop]}")
 
     analysis_times(report, dev)
+    filter_times(report, dev)
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
@@ -1222,8 +1578,8 @@ def main() -> None:
            "ablate_whole_packed": ablate_whole_packed.parity_failures(wp_res)}
     if any(off.values()):
         fail(f"calibration rows over 5*log2(n)*eps: {off}")
-    if chip_res["oa_block"] != {"error": calibrate_chip.NOT_PORTED}:
-        fail("calibrate_chip: the unported oa_block section holds something else than 'not ported'")
+    if [r["block"] for r in chip_res["oa_block"]] != list(calibrate_chip.OA_BLOCKS):
+        fail(f"calibrate_chip: the overlap-add block section timed {chip_res['oa_block']}")
     if not chip_res["irfft_fold"]:
         fail("calibrate_chip: the irfft fold gate measured nothing")
     times = [r["per_call_us"] for r in lat_res["rows"].values()]
@@ -1238,13 +1594,14 @@ def main() -> None:
     times += [r["us"] for r in chip_res["stage_a_digit"]]
     times += [r[k] for r in chip_res["half_spectrum"] for k in ("full_us", "half_us")]
     times += [r[k] for r in chip_res["irfft_fold"] for k in ("full_us", "fold_us")]
+    times += [r["us"] for r in chip_res["oa_block"]]
     if not all(np.isfinite(t) and t > 0 for t in times):
         fail(f"a calibration time is not a positive number: {times}")
     for name, row in lat_res["roofline"].items():
         if row["n_kernels"] < 1 or not row["sol_us"] > 0:
             fail(f"calibrate_latency roofline row {name} is empty: {row}")
     print(f"  calibration: {len(times)} timed values, all positive; parity within 5*log2(n)*eps; "
-          f"no error rows but the retired ones and the unported overlap-add block")
+          f"no error rows but the retired ones")
 
     sources = {
         "whole_transform_packed": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:383"),
@@ -1260,6 +1617,7 @@ def main() -> None:
     }
     # The main path's launches: fft/ifft and the real-output path together.
     all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
+                          + filter_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
@@ -1269,6 +1627,7 @@ def main() -> None:
             name=name, route="cuda", source=src, replaces=rep, launches=all_launches[name],
             irfft_path_launches=irfft_launches.get(name, 0), grad_path_launches=grad_launches.get(name, 0),
             analysis_path_launches=analysis_launches.get(name, 0),
+            filter_path_launches=filter_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},

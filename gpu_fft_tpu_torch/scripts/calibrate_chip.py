@@ -18,10 +18,12 @@ judged by the bench).
   irfft fold gate        the full inverse (``transform_any``, sign +1,
                          1/n; K1 at 2^14) against the Hermitian fold
                          (``fused_irfft``), B = 1, for ``irfft_half_min``
+  overlap-add block      ``oaconvolve_device`` of a 262,144-sample signal
+                         with 257 ``firwin`` taps at each block length
+                         4,096 ... 32,768, for ``oa_block_min``
 
-The overlap-add block floor needs ``ops/filter`` (ROADMAP item 8), which is
-not ported; its section is recorded as ``"not ported"``.  The staged gate
-``irfft_half_staged_min`` keeps the table's value, as in the JAX script.
+The staged gate ``irfft_half_staged_min`` keeps the table's value, as in
+the JAX script.
 
 Usage: python -m gpu_fft_tpu_torch.scripts.calibrate_chip [--quick]
 Writes ``chiprun_out/calibrate_chip_results.json``.
@@ -37,16 +39,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-NOT_PORTED = "not ported"
 NEVER = 1 << 62  # a gate that never opens
+OA_BLOCKS = (4096, 8192, 16384, 32768)
 
 
 def tuning_entry(base, wide_batch_min: int, stage_a_n1: int, half_spectrum_min: int,
-                 irfft_half_min: int) -> str:
+                 irfft_half_min: int, oa_block_min: int) -> str:
     """``base`` (a ``ChipTuning``) with the measured fields, as Python source."""
     t = dataclasses.replace(base, wide_batch_min=wide_batch_min, stage_a_n1=stage_a_n1,
                             half_spectrum_min=half_spectrum_min, irfft_half_min=irfft_half_min,
-                            calibrated=True,
+                            oa_block_min=oa_block_min, calibrated=True,
                             note="measured by gpu_fft_tpu_torch/scripts/calibrate_chip.py")
     fields = "\n".join(f"    {f.name}={getattr(t, f.name)!r}," for f in dataclasses.fields(t))
     return f"ChipTuning(\n{fields}\n)"
@@ -57,6 +59,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
     from ..config import apply_precision
     from ..kernels.fused_torch import fused_fft, fused_fft_folded, fused_fft_half, fused_irfft
     from ..kernels.large import transform_any
+    from ..ops.filter import firwin, oaconvolve_device
     from ..plan import get_fused_plan, get_irfft_plan, on_device
     from ..tuning import get_tuning
     from ..utils import profiling
@@ -67,7 +70,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
     timing = dict(k1=3, k2=23, reps=3, min_span_s=0.01) if quick else dict(k1=20, k2=220, reps=5)
     results: dict = {"device": torch.cuda.get_device_name(dev), "quick": quick,
                      "wide_split": [], "stage_a_digit": [], "half_spectrum": [],
-                     "oa_block": {"error": NOT_PORTED}, "irfft_fold": []}
+                     "oa_block": [], "irfft_fold": []}
 
     def us(step, x0):
         return profiling.chained_step_stats(step, x0, **timing).median_s * 1e6
@@ -142,8 +145,17 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
         if t_fold < t_full:
             irfft_min = min(irfft_min, n)
 
-    print("[calibrate] overlap-add block floor: not ported (ops/filter)")
-    entry = tuning_entry(get_tuning(), wide_batch_min, best_digit, half_min, irfft_min)
+    # ── oa_block_min: the overlap-add block floor ───────────────────────────
+    print("[calibrate] overlap-add block floor (262144-sample signal, 257 taps):", flush=True)
+    sig = rand(1, 1 << 18)
+    taps = torch.from_numpy(firwin(257, 0.3).astype(np.float32)).to(dev)
+    for blk in OA_BLOCKS:
+        t = us(lambda v, blk=blk: oaconvolve_device(v, taps, block=blk)[:, : v.shape[1]], sig)
+        results["oa_block"].append({"block": blk, "us": t})
+        print(f"  block={blk}: {t:.2f} us", flush=True)
+    best_block = min(results["oa_block"], key=lambda r: r["us"])["block"]
+
+    entry = tuning_entry(get_tuning(), wide_batch_min, best_digit, half_min, irfft_min, best_block)
     results["tuning_entry"] = entry
     print("[calibrate] a ChipTuning entry from these measurements (tuning.py is not edited):")
     print(entry)

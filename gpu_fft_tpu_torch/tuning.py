@@ -30,6 +30,8 @@ class ChipTuning:
     * ``folded_*``: the folded (zero-transpose) layout when
       n <= folded_n_max or b >= folded_batch_min.
     * ``stage_a_n1``: the staged column digit.
+    * ``oa_block_min``: the floor of the overlap-add block transform length
+      (``ops/filter.py:_best_block_fft_size``).
     * ``half_spectrum_min``: real input computes only k1 <= n1/2 and mirrors.
     * ``irfft_half_min``: a real-output inverse folds the conjugate half of
       its input before the matmuls (fused sizes);
@@ -49,6 +51,7 @@ class ChipTuning:
     folded_n_max: int
     folded_batch_min: int
     stage_a_n1: int
+    oa_block_min: int
     half_spectrum_min: int
     irfft_half_min: int
     irfft_half_staged_min: int
@@ -71,6 +74,7 @@ _H100 = ChipTuning(
     folded_n_max=16384,
     folded_batch_min=2,
     stage_a_n1=128,
+    oa_block_min=16384,
     half_spectrum_min=1 << 15,
     irfft_half_min=1 << 15,
     irfft_half_staged_min=1 << 18,

@@ -34,11 +34,17 @@ __all__ = [
     "benchmark",
     "chained_step_stats",
     "chained_step_time",
+    "dct_roundtrip_step",
     "fft_forward_step",
     "fft_inverse_step",
     "fft_roundtrip_step",
     "fft_sequential_step",
+    "firstream_step",
+    "hilbert_step",
     "ifft_sequential_step",
+    "lfilter_step",
+    "oaconvolve_step",
+    "resample_step",
     "roundtrip_sequential_step",
     "stft_roundtrip_step",
     "torch_fft_forward_step",
@@ -373,6 +379,89 @@ def welch_step(nperseg: int):
         length = x.shape[1]
         tiled = p.repeat(-(-length // p.shape[0]))[:length]
         return x + tiled[None] * 1e-6
+
+    return step
+
+
+# ── Filtering-op steps ───────────────────────────────────────────────────────
+
+
+def dct_roundtrip_step():
+    """(B, n) -> idct(dct(x)), orthonormal (magnitude-stable)."""
+    from ..ops.dct import dct_device, idct_device
+
+    def step(x):
+        return idct_device(dct_device(x, norm="ortho"), norm="ortho")
+
+    return step
+
+
+def hilbert_step():
+    """(B, n) -> the Hilbert transform of x (the analytic signal's imaginary
+    part).  H(H(x)) = -x for zero-mean signals: magnitude-stable."""
+    from ..ops.dsp import hilbert_device
+
+    def step(x):
+        return hilbert_device(x)[1]
+
+    return step
+
+
+def oaconvolve_step(n: int, taps, device=None):
+    """(B, n) -> x + 1e-6 * the causal FIR filtering of x through the
+    overlap-add block path: the filtered signal feeds back far below the
+    signal, so every step runs the whole block pipeline.  The taps go to
+    ``device`` (default ``"cuda"``) once, here."""
+    from ..config import resolve_device
+    from ..ops.filter import oaconvolve_device
+
+    h = torch.as_tensor(np.asarray(taps, dtype=np.float32), device=resolve_device(device))
+
+    def step(x):
+        return x + oaconvolve_device(x, h)[:, :n] * 1e-6
+
+    return step
+
+
+def firstream_step(chunk: int, taps: int, batch: int = 1, device=None):
+    """(batch, taps - 1 + chunk) [carry | chunk] -> the next [carry |
+    filtered]: one ``FIRStream.step`` (a forward and an inverse transform
+    at the padded chunk length).  The filtered chunk feeds back; a
+    unity-DC-gain lowpass keeps the chain magnitude-stable."""
+    from ..ops.filter import FIRStream, firwin
+
+    stream = FIRStream(firwin(taps, 0.3).astype(np.float32), chunk=chunk, batch=batch, device=device)
+    t = taps - 1
+
+    def step(c):
+        st, y = stream.step(c[:, :t], c[:, t:])
+        return torch.cat([st, y], dim=1)
+
+    return step
+
+
+def resample_step(n: int, mid: int):
+    """(B, n) -> resample(resample(x, mid), n), down then back up.  After
+    the first step the signal is band-limited to the mid rate: a fixed
+    point."""
+    from ..ops.dsp import resample_device
+
+    def step(x):
+        return resample_device(resample_device(x, mid), n)
+
+    return step
+
+
+def lfilter_step(b, a):
+    """(B, n) -> lfilter(b, a, x) through the block-state engine.  A stable
+    lowpass contracts the chained value toward zero; it stays finite."""
+    from ..ops.iir import lfilter_device
+
+    bb = tuple(float(v) for v in b)
+    aa = tuple(float(v) for v in a)
+
+    def step(x):
+        return lfilter_device(bb, aa, x)
 
     return step
 

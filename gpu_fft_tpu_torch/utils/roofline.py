@@ -99,12 +99,7 @@ _BENCH = "ROADMAP item 0 (the H100 bench's config kinds)"
 NOT_PORTED_KINDS = {
     **{k: _BENCH for k in ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch",
                            "ifft_sequential", "roundtrip_batch", "roundtrip_sequential")},
-    "dct_roundtrip": "ROADMAP item 8 (ops/dct)",
-    "resample": "ROADMAP item 8 (ops/dsp)",
-    "hilbert": "ROADMAP item 8 (ops/dsp)",
-    "oaconvolve": "ROADMAP item 8 (ops/filter)",
-    "fftfilt": "ROADMAP item 8 (ops/filter)",
-    "conv2d": "ROADMAP items 8 and 9 (ops/filter, ops/fft2d)",
+    "conv2d": "ROADMAP item 9 (ops/filter's 2-D part, ops/fft2d)",
     "fft2": "ROADMAP item 9 (ops/fft2d)",
 }
 
@@ -303,9 +298,12 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     and mean are left out, so the bound stays a lower bound), grad_fft (the
     spectrum power's gradient: the forward and its transpose, a full
     complex transform, charged as a roundtrip), stft_roundtrip ((frames,
-    frame_size): the forward frames and the one-sided inverse) and
-    fft_exact (any n: the mixed four-step's two products, else Bluestein's
-    two complex m-point transforms).  The kinds of :data:`NOT_PORTED_KINDS`
+    frame_size): the forward frames and the one-sided inverse), fft_exact
+    (any n: the mixed four-step's two products, else Bluestein's two
+    complex m-point transforms), and the filtering kinds: hilbert (a
+    roundtrip), dct_roundtrip (a real forward and the irfft charge),
+    resample (down to n/2 and back) and oaconvolve / fftfilt ((blocks,
+    block length): a real forward and a complex inverse).  The kinds of :data:`NOT_PORTED_KINDS`
     raise ``NotImplementedError``; any other raises ``ValueError``.
     """
     f32 = 4
@@ -328,10 +326,40 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
         stages, elem = transform_stages(b, n, False)
         elem += 2.0 * b * n  # 1/N scale
         bytes_ = b * n * f32 * (2 + 2)
-    elif kind in ("roundtrip", "grad_fft"):
+    elif kind in ("roundtrip", "grad_fft", "hilbert"):
+        # hilbert: the forward, the gain mask, the full complex inverse
+        # (the analytic signal is complex).
         stages, elem = parts((b, n, True), (b, n, False))
         elem += 2.0 * b * n
         bytes_ = b * n * f32 * (1 + 2)
+    elif kind == "dct_roundtrip":
+        # Orthonormal dct + idct (ops/dct.py): Makhoul's forward is a real
+        # transform at n and a rotation; DCT-III's inverse is the real-output
+        # inverse (the irfft charge).  The permutation is data movement and
+        # is not charged, so the bound stays a lower bound.
+        stages, elem = parts((b, n, True))
+        s2, e2, _ = irfft_stages(b, n)
+        stages += s2
+        elem += e2 + 4.0 * b * n  # pre/post rotations
+        bytes_ = b * n * f32 * (1 + 2)
+    elif kind == "resample":
+        # resample(resample(x, n/2), n), down then back up: real forwards at
+        # n and n/2, real-output inverses at n/2 and n (pow2 targets ride
+        # inverse_real); the spectrum surgery is O(bn).
+        mid = n // 2
+        stages, elem = parts((b, n, True), (b, mid, True))
+        for target in (mid, n):
+            s2, e2, _ = irfft_stages(b, target)
+            stages += s2
+            elem += e2
+        elem += 4.0 * b * n
+        bytes_ = b * n * f32 * (1 + 1)
+    elif kind in ("oaconvolve", "fftfilt"):
+        # Overlap-add FIR, (b, n) = (blocks, block length m): forward real
+        # blocks, the spectrum product, the complex inverse and 1/m.
+        stages, elem = parts((b, n, True), (b, n, False))
+        elem += 8.0 * b * n
+        bytes_ = b * n * f32 * (1 + 1)  # real blocks in, real blocks out
     elif kind == "irfft":
         # The 1/n scale lives in the tables at the fold sizes: no extra pass.
         stages, elem, read_frac = irfft_stages(b, n)

@@ -276,11 +276,11 @@ def test_engine_errors_allow_only_the_retired_rows():
 
 
 def test_tuning_entry_is_a_chip_tuning():
-    text = calibrate_chip.tuning_entry(get_tuning(), 16, 256, calibrate_chip.NEVER, 1 << 16)
+    text = calibrate_chip.tuning_entry(get_tuning(), 16, 256, calibrate_chip.NEVER, 1 << 16, 8192)
     t = eval(text, {"ChipTuning": ChipTuning})
     assert t == dataclasses.replace(get_tuning(), wide_batch_min=16, stage_a_n1=256,
                                     half_spectrum_min=1 << 62, irfft_half_min=1 << 16,
-                                    calibrated=True, note=t.note)
+                                    oa_block_min=8192, calibrated=True, note=t.note)
 
 
 # ── The scripts, rehearsed on the CPU ────────────────────────────────────────
@@ -353,7 +353,8 @@ def test_calibrate_chip_rehearsal(rehearsal, tmp_path):
     orig = tplan._stage_a_n1
     res = calibrate_chip.main(quick=True, out_dir=str(tmp_path), device="cpu")
     assert tplan._stage_a_n1 is orig  # the patched digit is restored
-    assert res["oa_block"] == {"error": calibrate_chip.NOT_PORTED}
+    assert [r["block"] for r in res["oa_block"]] == list(calibrate_chip.OA_BLOCKS)
+    assert all(r["us"] > 0 for r in res["oa_block"])
     assert [r["n"] for r in res["irfft_fold"]] == [1 << 14, 1 << 15]
     assert all(r["full_us"] > 0 and r["fold_us"] > 0 for r in res["irfft_fold"])
     assert [r["n1"] for r in res["stage_a_digit"]] == [128, 256]
@@ -361,3 +362,37 @@ def test_calibrate_chip_rehearsal(rehearsal, tmp_path):
     assert "ChipTuning(" in res["tuning_entry"]
     # Equal (fake) times: the fold never wins, so its gate stays closed.
     assert f"irfft_half_min={calibrate_chip.NEVER}," in res["tuning_entry"]
+
+
+def test_calibrate_chip_oa_block_section_rehearsal(rehearsal, monkeypatch, tmp_path):
+    """The overlap-add section times ``oaconvolve_device`` of the JAX
+    script's 262,144-sample signal with 257 taps at each block and pastes
+    the fastest into the entry.  Each timed step is held against the JAX
+    package's oaconvolve at that block (2e-3 of max(1, max|ref|),
+    ``tests/test_filter.py``'s gate); the fake times make 8,192 the
+    fastest."""
+    from gpu_fft_tpu.ops.filter import firwin as jfirwin
+    from gpu_fft_tpu.ops.filter import oaconvolve_device as joa
+
+    fake_us = dict(zip(calibrate_chip.OA_BLOCKS, (5.0, 3.0, 4.0, 6.0)))
+    oa_steps = []
+
+    def fake_stats(step, x0, **kw):
+        y = step(x0)
+        assert y.shape == x0.shape
+        us = 2.0
+        if x0.shape == (1, 1 << 18):
+            oa_steps.append((x0, y))
+            if len(oa_steps) > 2:  # the two stage-A digit rows come first at this shape
+                us = fake_us[calibrate_chip.OA_BLOCKS[len(oa_steps) - 3]]
+        return tprof.TimingStats(us * 1e-6, 1e-8, us * 1e-6, us * 1e-6, 1, 10, False)
+
+    monkeypatch.setattr(tprof, "chained_step_stats", fake_stats)
+    res = calibrate_chip.main(quick=True, out_dir=str(tmp_path), device="cpu")
+    assert [r["us"] for r in res["oa_block"]] == pytest.approx([fake_us[b] for b in calibrate_chip.OA_BLOCKS])
+    assert "oa_block_min=8192," in res["tuning_entry"]
+    taps = jfirwin(257, 0.3).astype(np.float32)
+    for (x0, y), blk in zip(oa_steps[2:], calibrate_chip.OA_BLOCKS):
+        x = x0.numpy()
+        want = np.asarray(joa(x, taps, block=blk))[:, : x.shape[1]]
+        assert np.abs(y.numpy() - want).max() / max(1.0, np.abs(want).max()) < 2e-3

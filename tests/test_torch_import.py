@@ -35,7 +35,9 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.kernels.fused_torch, gpu_fft_tpu_torch.ops.transform, "
         "gpu_fft_tpu_torch.ops.windows, gpu_fft_tpu_torch.signal.windows, "
         "gpu_fft_tpu_torch.ops.stft, gpu_fft_tpu_torch.ops.exact, gpu_fft_tpu_torch.ops.spectral, "
-        "gpu_fft_tpu_torch.ops.short_time_fft\n"
+        "gpu_fft_tpu_torch.ops.short_time_fft, gpu_fft_tpu_torch.ops.dsp, gpu_fft_tpu_torch.ops.filter, "
+        "gpu_fft_tpu_torch.ops.design, gpu_fft_tpu_torch.ops.iir, gpu_fft_tpu_torch.ops.multirate, "
+        "gpu_fft_tpu_torch.ops.czt, gpu_fft_tpu_torch.ops.dct, gpu_fft_tpu_torch.ops.fht\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"
@@ -91,6 +93,9 @@ def test_chip_smoke_fails_alone(tmp_path):
         ("gpu_fft_tpu_torch.ops.transform", 1),
         ("gpu_fft_tpu_torch.ops.stft", 2),
         ("gpu_fft_tpu_torch.ops.short_time_fft", 5),
+        ("gpu_fft_tpu_torch.ops.dsp", 8),
+        ("gpu_fft_tpu_torch.ops.filter", 6),
+        ("gpu_fft_tpu_torch.ops.multirate", 1),
     ],
 )
 def test_doctests(module, expected_min):

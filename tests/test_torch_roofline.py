@@ -23,7 +23,8 @@ from gpu_fft_tpu_torch.utils import profiling as tprof
 from gpu_fft_tpu_torch.utils import roofline as roof
 
 ROOT = Path(__file__).resolve().parent.parent
-PORTED_KINDS = ("fft", "ifft", "roundtrip", "irfft", "grad_fft", "welch", "stft_roundtrip", "fft_exact")
+PORTED_KINDS = ("fft", "ifft", "roundtrip", "irfft", "grad_fft", "welch", "stft_roundtrip", "fft_exact",
+                "hilbert", "dct_roundtrip", "resample", "oaconvolve", "fftfilt")
 GRID = [(1, 1 << k) for k in range(8, 23)] + [(2, 16384), (16, 4096), (16, 65536)]
 H100 = roof.CHIPS["h100"]
 
@@ -192,3 +193,32 @@ def test_timing_stats_rel_iqr():
     st = tprof.TimingStats(2e-6, 1e-7, 1.9e-6, 2.2e-6, 3, 100, False)
     assert st.rel_iqr == pytest.approx(0.05)
     assert np.isinf(tprof.TimingStats(0.0, 0.0, 0.0, 0.0, 1, 1, True).rel_iqr)
+
+
+@pytest.mark.parametrize("name,shape", [("dct_roundtrip", (2, 512)), ("hilbert", (2, 1000)),
+                                        ("oaconvolve", (1, 40000)), ("firstream", (1, 64 + 512)),
+                                        ("resample", (2, 1024)), ("lfilter", (2, 3000))])
+def test_filtering_steps_match_the_jax_packages(name, shape):
+    """One step of each filtering chain on the CPU against the JAX
+    package's step on the same input: the shape is kept (a chained step's
+    contract) and the values agree within 2e-3 of max(1, max|JAX|) (the
+    filtering tests' widest gate)."""
+    import scipy.signal
+
+    from gpu_fft_tpu.utils import profiling as jprof
+
+    b, a = scipy.signal.butter(4, 0.2)
+    taps = scipy.signal.firwin(257, 0.3)
+    make = {
+        "dct_roundtrip": lambda p: p.dct_roundtrip_step(),
+        "hilbert": lambda p: p.hilbert_step(),
+        "oaconvolve": lambda p: p.oaconvolve_step(shape[1], taps, **({"device": "cpu"} if p is tprof else {})),
+        "firstream": lambda p: p.firstream_step(512, 65, **({"device": "cpu"} if p is tprof else {})),
+        "resample": lambda p: p.resample_step(shape[1], shape[1] // 2),
+        "lfilter": lambda p: p.lfilter_step(b, a),
+    }[name]
+    x = np.random.default_rng(len(name)).standard_normal(shape).astype(np.float32)
+    got = make(tprof)(torch.from_numpy(x)).numpy()
+    want = np.asarray(make(jprof)(x))
+    assert got.shape == x.shape == want.shape
+    assert np.abs(got - want).max() <= 2e-3 * max(1.0, float(np.abs(want).max()))
