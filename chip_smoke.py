@@ -49,6 +49,21 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (one K3 each) and (64, 4,096), types 1/3/4 and DSTs at 48,000, czt at
    2^16 (two K3) and 1,000 (two K1), zoom_fft, fht / ifht at 2^20 and
    10,000; each row's launches, no plain call;
+3e. the 2-D / N-D path, NATIVE and the examples, counted from 0, against
+   numpy / scipy in float64: fft2_device / ifft2_device and rfft2_device /
+   irfft2_device on a 512 x 131,072 panel (K3 once each way, the rows at
+   B = 512; gate 5*log2(H*W)*eps), the host fft2 / ifft2 / rfft2 / irfft2
+   of a 4,096^2 image and its fft_convolve2d_device with a 33 x 33 kernel
+   at 8,192^2 (torch engines, no launch; 2*5*log2(m1*m2)*eps against
+   scipy.signal.fftconvolve), fftn / rfftn and their inverses on a 256^3
+   volume, fftn_device of a 1-D 1,024 / 16,384 array (K2 / K1 once), the
+   four ndimage Fourier filters on the image's spectrum against
+   scipy.ndimage (2e-6) and their ifft2 against numpy; NATIVE (built with
+   ``make -C native`` where missing; the phase fails if it does not load)
+   at 1,024 ... 65,536 and B = 16; the six ``gpu_fft_tpu_torch.examples``
+   to their OK lines; each call's launches, no plain call, then every
+   kernel geometry the phase launched (K3 at B = 512 among them) against
+   its plain version;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -69,7 +84,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the STFT roundtrip, periodogram, fft_exact) beside their torch
    counterparts, and the filtering rows (oaconvolve, fftfilt, FIRStream.step,
    lfilter, resample_poly, hilbert, the DCT-II/III roundtrip) beside theirs
-   on torch.fft where torch has one;
+   on torch.fft where torch has one, and the 2-D rows (fft2, rfft2, irfft2
+   on the panel and the image, fft_convolve2d_device, fftn on the volume)
+   beside torch.fft's;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -137,6 +154,13 @@ EXACT_SIZES = (48000, 1000003)
 FILTER_ROWS = (8, 1 << 20)  # oaconvolve / fftfilt / lfilter / sosfiltfilt / resample_poly
 FIR_TAPS = 1025
 STREAM = (256, 4096, 257)  # chunks, chunk, taps
+# Phase 3e: the 2-D / N-D path, NATIVE and the examples.
+PANEL = (512, 1 << 17)  # channels x samples: K3 on the row passes at B = 512
+IMAGE = 4096  # square image; the torch four-step at B = 4,096
+CONV_KERNEL = 33  # the image's convolution kernel side: padded to 8,192^2
+VOLUME = 256  # cube side: the direct product on each axis
+NATIVE_SIZES = (1024, 4096, 16384, 65536)
+NATIVE_BATCH = 16
 
 
 T0 = time.perf_counter()
@@ -185,18 +209,19 @@ def whole_bound(n: int, complex_: bool):
     return bound(flop, "fp32", 4 * ((2 if complex_ else 1) * n + 2 * n + 2 * (n1 + 128) + 1 + 2 * n))
 
 
-def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | None, ncols: int | None = None):
-    """K3 and K3-legacy (the same radix kernel), B = 1, on the first
-    ``ncols`` (default n2) columns: a radix-2 FFT's 5 n1 log2 n1 FLOP per
-    column and 6 per stored output for the twiddle (K3's factored one is
+def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | None, ncols: int | None = None,
+                  batch: int = 1):
+    """K3 and K3-legacy (the same radix kernel) on ``batch`` signals, on the
+    first ``ncols`` (default n2) columns: a radix-2 FFT's 5 n1 log2 n1 FLOP
+    per column and 6 per stored output for the twiddle (K3's factored one is
     rebuilt: 6 more); those columns of x (both parts for complex input), the
     n1-point root row and the twiddle's rows read once (K3: two (rows,
     ncols/ct) and twi (rows, ct); K3-legacy, ``ct`` None: the materialized
     (rows, ncols)), the output written once."""
     ncols = n2 if ncols is None else ncols
-    flop = 5 * n1 * (n1.bit_length() - 1) * ncols + (6 if ct is None else 12) * rows * ncols
+    flop = batch * (5 * n1 * (n1.bit_length() - 1) * ncols + (6 if ct is None else 12) * rows * ncols)
     twiddle = rows * ncols if ct is None else rows * (ncols // ct + ct)
-    nbytes = 4 * ((2 if complex_ else 1) * n1 * ncols + 2 * n1 + 2 * twiddle + 2 * rows * ncols)
+    nbytes = 4 * (batch * ((2 if complex_ else 1) * n1 * ncols + 2 * rows * ncols) + 2 * n1 + 2 * twiddle)
     return bound(flop, "fp32", nbytes)
 
 
@@ -317,6 +342,34 @@ def capture_launches(large) -> tuple[dict, object]:
             setattr(large, name, fn)
 
     return seen, restore
+
+
+def check_geometries(report: dict, geometries: dict, phase: str) -> None:
+    """Hold each kernel geometry ``capture_launches`` kept against its plain
+    version on the same input (gate max|d| <= TOL max|plain|); fail on the
+    first that disagrees.  Empties ``geometries``."""
+    import torch
+
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    print(f"  {len(geometries)} kernel geometries launched in {phase}, each vs its plain version "
+          f"(gate max|d| <= {TOL} max|plain|):")
+    while geometries:
+        (name, shape, real, *_), (gx, gy, args, kw) = geometries.popitem()
+        got = getattr(K, name)(gx, gy, *args, **kw)
+        want = getattr(K, name + "_plain")(gx, gy, *args, **kw)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        ok = err <= TOL * scale
+        case = (f"{phase} {shape} {'real' if real else 'complex'} "
+                f"{[a for a in args if not isinstance(a, dict)]} {kw or ''}")
+        report["kernel_checks"].append(dict(kernel=name, case=case, max_abs_err=err, max_abs=scale,
+                                            exact=False, ok=ok))
+        print(f"    {name:24s} {case:56s} max|d| {err:.3e} max|plain| {scale:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} {case}: kernel disagrees with its plain version")
+        del got, want, gx, gy
+    torch.cuda.synchronize()
 
 
 def record(report: dict, key: str, label: str, n: int, err: float, limit: float) -> None:
@@ -869,23 +922,7 @@ def filter_phase(report: dict, dev, rng, rows=FILTER_ROWS, fir_taps=FIR_TAPS, st
     # Every kernel geometry the phase launched, held against its plain version
     # on the input the path gave it (after the counts are read: these
     # launches are not the path's).
-    print(f"  {len(geometries)} kernel geometries launched in phase 3d, each vs its plain version "
-          f"(gate max|d| <= {TOL} max|plain|):")
-    for (name, shape, real, *rest), (gx, gy, args, kw) in geometries.items():
-        got = getattr(K, name)(gx, gy, *args, **kw)
-        want = getattr(K, name + "_plain")(gx, gy, *args, **kw)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        scale = max(float(w.abs().max()) for w in want)
-        ok = err <= TOL * scale
-        case = (f"phase 3d {shape} {'real' if real else 'complex'} "
-                f"{[a for a in args if not isinstance(a, dict)]} {kw or ''}")
-        report["kernel_checks"].append(dict(kernel=name, case=case, max_abs_err=err, max_abs=scale,
-                                            exact=False, ok=ok))
-        print(f"    {name:24s} {case:56s} max|d| {err:.3e} max|plain| {scale:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{name} {case}: kernel disagrees with its plain version")
-    del geometries
-    torch.cuda.synchronize()
+    check_geometries(report, geometries, "phase 3d")
     return launched
 
 
@@ -974,6 +1011,292 @@ def filter_times(report: dict, dev) -> None:
         v = torch.randn(*shape, generator=gen, device=dev)
         row(f"dct+idct type 2 ortho {shape}", lambda v=v: gt.idct_device(gt.dct_device(v, 2, "ortho"), 2, "ortho"),
             makhoul_roundtrip(v), "Makhoul on torch.fft")
+
+
+def twod_phase(report: dict, dev, rng, panel=PANEL, image=IMAGE, ktaps=CONV_KERNEL, volume=VOLUME) -> dict:
+    """Phase 3e: the 2-D / N-D transforms, the ndimage Fourier filters, the
+    2-D convolution, NATIVE and the port's examples on the card, each call
+    against numpy / scipy in float64 and counted; no plain version may run.
+    Returns the launches of the phase (counted from 0)."""
+    import contextlib
+    import importlib
+    import io
+
+    import numpy as np
+    import scipy.fft as sf
+    import scipy.ndimage as nd
+    import scipy.signal as ss
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    import gpu_fft_tpu_torch.ndimage as ndi
+    from gpu_fft_tpu_torch.backends import native
+    from gpu_fft_tpu_torch.examples import NAMES
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import large as L
+
+    per_call = {}
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    def cerr(re, im, ref):
+        """max |(re, im) - ref| / max |ref| for a complex float64 ref."""
+        return max(float(np.abs(host(re) - ref.real).max()), float(np.abs(host(im) - ref.imag).max())) \
+            / float(np.abs(ref).max())
+
+    def rerr(got, ref):
+        return float(np.abs(host(got) - ref).max()) / float(np.abs(ref).max())
+
+    def run(label, fn):
+        """``fn()`` with the launches it made recorded under ``label``."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        per_call[label], plain = count_delta(before)
+        if plain:
+            fail(f"{label}: {plain} plain kernel versions ran on the card")
+        return out
+
+    def row(label, n, err, limit):
+        record(report, "twod_path", f"{label} (launches {per_call.get(label.split(' vs ')[0], {})})", n, err,
+               limit)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    K.reset_counts()
+    geometries, restore = capture_launches(L)
+
+    # The panel: channels x samples, K3 on the rows at B = h.
+    h, w = panel
+    x = rng.standard_normal((h, w)).astype(np.float32)
+    xt = tensor(x)
+    ref = sf.fft2(x.astype(np.float64), workers=-1)
+    lbl = f"fft2_device {h} x {w}"
+    yr, yi = run(lbl, lambda: gt.fft2_device(xt))
+    row(f"{lbl} vs numpy f64 (rel)", h * w, cerr(yr, yi, ref), gate(h * w))
+    lbl = f"ifft2_device {h} x {w}"
+    br, bi = run(lbl, lambda: gt.ifft2_device(yr, yi))
+    row(f"{lbl} vs input, roundtrip (rel)", h * w, max(rerr(br, x), float(bi.abs().max()) / float(np.abs(x).max())),
+        gate(h * w))
+    del yr, yi, br, bi
+    lbl = f"rfft2_device {h} x {w}"
+    hr, hi = run(lbl, lambda: gt.rfft2_device(xt))
+    row(f"{lbl} vs numpy f64 (rel)", h * w, cerr(hr, hi, ref[:, : w // 2 + 1]), gate(h * w))
+    del ref
+    lbl = f"irfft2_device {h} x {w}"
+    back = run(lbl, lambda: gt.irfft2_device(hr, hi))
+    row(f"{lbl} vs input, roundtrip (rel)", h * w, rerr(back, x), gate(h * w))
+    del hr, hi, back, xt, x
+
+    # The image, through the host forms (numpy in and out).
+    img = rng.standard_normal((image, image)).astype(np.float32)
+    img64 = img.astype(np.float64)
+    iref = sf.fft2(img64, workers=-1)
+    nn = image * image
+    lbl = f"fft2 {image} x {image}"
+    re, im = run(lbl, lambda: gt.fft2(img, device=dev))
+    row(f"{lbl} vs numpy f64 (rel)", nn, cerr(re, im, iref), gate(nn))
+    lbl = f"ifft2 {image} x {image}"
+    br, bi = run(lbl, lambda: gt.ifft2(re, im, device=dev))
+    row(f"{lbl} vs input, roundtrip (rel)", nn, max(rerr(br, img64), float(np.abs(bi).max()) / float(np.abs(img).max())),
+        gate(nn))
+    lbl = f"rfft2 {image} x {image}"
+    hr, hi = run(lbl, lambda: gt.rfft2(img, device=dev))
+    row(f"{lbl} vs numpy f64 (rel)", nn, cerr(hr, hi, iref[:, : image // 2 + 1]), gate(nn))
+    lbl = f"irfft2 {image} x {image}"
+    back = run(lbl, lambda: gt.irfft2(hr, hi, device=dev))
+    row(f"{lbl} vs input, roundtrip (rel)", nn, rerr(back, img64), gate(nn))
+    del re, im, br, bi, hr, hi, back
+
+    # The image convolved with a 33 x 33 kernel: both padded to 8,192^2.
+    kern = rng.standard_normal((ktaps, ktaps)).astype(np.float32)
+    img_t = tensor(img)
+    m = 1 << (image + ktaps - 2).bit_length()
+    lbl = f"fft_convolve2d_device {image}^2 * {ktaps}^2 (m = {m}^2)"
+    conv = run(lbl, lambda: gt.fft_convolve2d_device(img_t, tensor(kern)))
+    cref = ss.fftconvolve(img64, kern.astype(np.float64))
+    row(f"{lbl} vs scipy.signal.fftconvolve f64 (rel)", m * m, rerr(conv, cref), 2 * gate(m * m))
+    del conv, cref
+
+    # The volume: every axis on the direct product.
+    vol = rng.standard_normal((volume,) * 3).astype(np.float32)
+    vol64 = vol.astype(np.float64)
+    vt = tensor(vol)
+    nv = volume ** 3
+    vref = sf.fftn(vol64, workers=-1)
+    lbl = f"fftn_device {volume}^3"
+    yr, yi = run(lbl, lambda: gt.fftn_device(vt))
+    row(f"{lbl} vs numpy f64 (rel)", nv, cerr(yr, yi, vref), gate(nv))
+    lbl = f"ifftn_device {volume}^3"
+    br, bi = run(lbl, lambda: gt.ifftn_device(yr, yi))
+    row(f"{lbl} vs input, roundtrip (rel)", nv, max(rerr(br, vol64), float(bi.abs().max()) / float(np.abs(vol).max())),
+        gate(nv))
+    del yr, yi, br, bi
+    lbl = f"rfftn_device {volume}^3"
+    hr, hi = run(lbl, lambda: gt.rfftn_device(vt))
+    row(f"{lbl} vs numpy f64 (rel)", nv, cerr(hr, hi, vref[..., : volume // 2 + 1]), gate(nv))
+    lbl = f"irfftn_device {volume}^3"
+    back = run(lbl, lambda: gt.irfftn_device(hr, hi))
+    row(f"{lbl} vs input, roundtrip (rel)", nv, rerr(back, vol64), gate(nv))
+    del hr, hi, back, vt, vref
+
+    # fftn of a 1-D array: the band's kernels.
+    for n in (1024, 16384):
+        x1 = rng.standard_normal(n).astype(np.float32)
+        lbl = f"fftn_device 1-D {n}"
+        yr, yi = run(lbl, lambda: gt.fftn_device(tensor(x1)))
+        row(f"{lbl} vs numpy f64 (rel)", n, cerr(yr, yi, np.fft.fft(x1.astype(np.float64))), gate(n))
+
+    # The ndimage Fourier filters on the image's spectrum, then ifft2: each
+    # filtered spectrum against scipy.ndimage on the same float32 spectrum
+    # (tests/test_ndimage_fourier.py's gate, 2e-6 of max(1, max|ref|)), each
+    # image against numpy's float64 inverse of scipy's spectrum.
+    lbl = f"fft2_device {image} x {image} spectrum"
+    fr, fi = run(lbl, lambda: gt.fft2_device(img_t))
+    spec = host(fr).astype(np.float64) + 1j * host(fi)
+    for name, param in (("fourier_gaussian", 3.0), ("fourier_uniform", 9.0), ("fourier_ellipsoid", 9.0),
+                        ("fourier_shift", (10.5, -20.25))):
+        lbl = f"{name}_device {image}^2"
+        gr, gi = run(lbl, lambda name=name, param=param: getattr(ndi, f"{name}_device")(fr, fi, param))
+        fref = getattr(nd, name)(spec, param)
+        scale = max(1.0, float(np.abs(fref).max()))
+        row(f"{lbl} vs scipy.ndimage (abs / max(1, max|ref|))", nn,
+            max(float(np.abs(host(gr) - fref.real).max()), float(np.abs(host(gi) - fref.imag).max())) / scale,
+            2e-6)
+        lbl = f"ifft2_device after {name} {image}^2"
+        br, bi = run(lbl, lambda gr=gr, gi=gi: gt.ifft2_device(gr, gi))
+        row(f"{lbl} vs numpy f64 (rel)", nn, cerr(br, bi, sf.ifft2(fref, workers=-1)), gate(nn))
+        del gr, gi, br, bi, fref
+    del fr, fi, spec, img_t
+
+    # NATIVE: the host library, built here where it is missing.
+    if not native.is_available():
+        proc = subprocess.run(["make", "-C", str(ROOT / "native")], capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"make -C native failed: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        native._load.cache_clear()
+    if not native.is_available():
+        fail(f"the NATIVE library does not load from {native.lib_path()}")
+    print(f"  NATIVE: {native.lib_path()}")
+    for n in NATIVE_SIZES:
+        x1 = rng.standard_normal(n).astype(np.float32)
+        lbl = f"fft_native {n}"
+        re, im = run(lbl, lambda: gt.fft_native(x1))
+        row(f"{lbl} vs numpy f64 (rel)", n, cerr(re, im, np.fft.fft(x1.astype(np.float64))), gate(n))
+        lbl = f"ifft_native {n}"
+        out = run(lbl, lambda: gt.ifft_native(re, im))
+        row(f"{lbl} vs input, roundtrip (rel)", n, max(rerr(out[:n], x1), float(np.abs(out[n:]).max()) / float(np.abs(x1).max())),
+            gate(n))
+    n = NATIVE_SIZES[-1]
+    xs = rng.standard_normal((NATIVE_BATCH, n)).astype(np.float32)
+    lbl = f"fft_batch(backend=NATIVE) B={NATIVE_BATCH} n={n}"
+    specs = run(lbl, lambda: gt.fft_batch(list(xs), backend=gt.Backend.NATIVE))
+    bref = np.fft.fft(xs.astype(np.float64), axis=-1)
+    row(f"{lbl} vs numpy f64 (rel)", n,
+        cerr(np.stack([r for r, _ in specs]), np.stack([i for _, i in specs]), bref), gate(n))
+
+    # The port's examples on the card, each to its own OK gate.
+    report["examples"] = {}
+    for name in NAMES:
+        mod = importlib.import_module(f"gpu_fft_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        lbl = f"example {name}"
+        with contextlib.redirect_stdout(buf):
+            rc = run(lbl, lambda mod=mod: mod.main(device=dev))
+        out = buf.getvalue()
+        print(f"  {lbl} (launches {per_call[lbl]}):")
+        for line in out.splitlines():
+            print(f"    | {line}")
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        ok = rc == 0 and "FAIL" not in out and last.endswith("OK" if name == "training" else "[OK]")
+        if name == "backends":
+            ok &= "NATIVE" in out
+        if name == "simple":
+            ok &= "Dominant frequency: 15.04 Hz" in out
+        report["examples"][name] = dict(ok=ok, rc=rc, output=out, launches=per_call[lbl])
+        if not ok:
+            fail(f"{lbl}: no OK gate (rc {rc}): {out[-500:]}")
+
+    restore()
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    plain = sum(c.plain_calls for c in K.COUNTS.values())
+    print(f"  launches in phase 3e: {launched}; plain calls {plain}")
+    for label, got in per_call.items():
+        print(f"    {label}: {got}")
+    if plain:
+        fail(f"phase 3e ran {plain} plain kernel versions on the card")
+    expect = {**{f"{f} {h} x {w}": {"stage_a": 1} for f in ("fft2_device", "ifft2_device", "rfft2_device",
+                                                              "irfft2_device")},
+              **{f"{f} {image} x {image}": {} for f in ("fft2", "ifft2", "rfft2", "irfft2")},
+              f"fft_convolve2d_device {image}^2 * {ktaps}^2 (m = {m}^2)": {},
+              **{f"{f} {volume}^3": {} for f in ("fftn_device", "ifftn_device", "rfftn_device", "irfftn_device")},
+              f"fft2_device {image} x {image} spectrum": {},
+              "fftn_device 1-D 1024": {"whole_transform_packed": 1},
+              "fftn_device 1-D 16384": {"whole_transform": 1},
+              **{label: {} for label in per_call if label.startswith(("fourier_", "ifft2_device after",
+                                                                      "fft_native", "ifft_native", "fft_batch"))}}
+    for label, want in expect.items():
+        got = {k: v for k, v in per_call[label].items() if v}
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+    report.update(twod_launches=launched, twod_launches_per_call=per_call)
+
+    # Every kernel geometry the phase launched, held against its plain
+    # version on the input the path gave it (K3 at B = 512 among them).
+    if not any(name == "stage_a" and shape[0] == h for name, shape, *_ in geometries):
+        fail(f"K3 was not launched at B = {h} on the panel's rows")
+    check_geometries(report, geometries, "phase 3e")
+    return launched
+
+
+def twod_times(report: dict, dev) -> None:
+    """Phase 4's rows for the 2-D / N-D path, each beside its torch.fft
+    counterpart in the same call: CUDA events and profiler device time."""
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    def row(label, port_fn, torch_fn, torch_name, iters=5):
+        ms = cuda_ms(port_fn, iters=iters, repeats=3)
+        dev_ms, top = device_ms(port_fn, iters=iters, top=6)
+        tms, (tdev_ms, _) = cuda_ms(torch_fn, iters=iters, repeats=3), device_ms(torch_fn, iters=iters)
+        report["times"].append(dict(what=label, ms=ms, torch_ms=tms, torch_call=torch_name, device_ms=dev_ms,
+                                    torch_device_ms=tdev_ms, top_kernels=top))
+        print(f"  {label:44s} events: port {ms:.4f} ms {torch_name} {tms:.4f} ms | device: port {fmt(dev_ms)}"
+              f" {torch_name} {fmt(tdev_ms)}")
+        print(f"    top kernels: {[(k, round(v, 4)) for k, v in top]}")
+
+    h, w = PANEL
+    for shape in ((h, w), (IMAGE, IMAGE)):
+        x = torch.randn(*shape, generator=gen, device=dev)
+        row(f"fft2_device {shape}", lambda x=x: gt.fft2_device(x), lambda x=x: torch.fft.fft2(x), "torch.fft.fft2")
+        hr, hi = (t.contiguous() for t in gt.rfft2_device(x))
+        z = torch.complex(hr, hi)
+        row(f"rfft2_device {shape}", lambda x=x: gt.rfft2_device(x), lambda x=x: torch.fft.rfft2(x),
+            "torch.fft.rfft2")
+        row(f"irfft2_device {shape}", lambda hr=hr, hi=hi: gt.irfft2_device(hr, hi),
+            lambda z=z, shape=shape: torch.fft.irfft2(z, s=shape), "torch.fft.irfft2")
+        del x, hr, hi, z
+    img = torch.randn(IMAGE, IMAGE, generator=gen, device=dev)
+    kern = torch.randn(CONV_KERNEL, CONV_KERNEL, generator=gen, device=dev)
+    m = 1 << (IMAGE + CONV_KERNEL - 2).bit_length()
+    out = IMAGE + CONV_KERNEL - 1
+
+    def torch_conv():
+        return torch.fft.irfft2(torch.fft.rfft2(img, s=(m, m)) * torch.fft.rfft2(kern, s=(m, m)),
+                                s=(m, m))[:out, :out]
+
+    row(f"fft_convolve2d_device {IMAGE}^2 * {CONV_KERNEL}^2", lambda: gt.fft_convolve2d_device(img, kern),
+        torch_conv, "torch.fft.rfft2*rfft2->irfft2")
+    vol = torch.randn(VOLUME, VOLUME, VOLUME, generator=gen, device=dev)
+    row(f"fftn_device {VOLUME}^3", lambda: gt.fftn_device(vol), lambda: torch.fft.fftn(vol), "torch.fft.fftn")
 
 
 def main() -> None:
@@ -1337,6 +1660,12 @@ def main() -> None:
     print("phase 3d: the filtering path on device='cuda' against scipy.signal / scipy.fft in float64")
     filter_launches = filter_phase(report, dev, rng)
 
+    # ── Phase 3e: the 2-D / N-D path, NATIVE and the examples ───────────────
+    stamp("phase 3e")
+    print("phase 3e: the 2-D / N-D path, NATIVE and the examples on device='cuda' against numpy / scipy "
+          "in float64")
+    twod_launches = twod_phase(report, dev, rng)
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -1451,6 +1780,22 @@ def main() -> None:
                   lambda: K.stage_a_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles),
                   stage_a_bound(n1, n2, n1, True, ct, ncols=tiles * ct))
         del xr, xi
+    # K3 at the panel's geometry: the row pass of fft2 / ifft2 at B = 512.
+    b, n = PANEL
+    plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
+    inv = P.on_device(P.get_stage_a_plan, n, 1, P.stage_a_ct_full_range(n), device=dev)
+    n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+    rows = P.stage_a_real_rows(n1)
+    xr, xi = randn(b, n1, n2), randn(b, n1, n2)
+    time_pair(f"stage_a B={b} n={n} real rows={rows}", "stage_a",
+              lambda: K.stage_a(xr, None, n1, n2, plan, ct, rows=rows),
+              lambda: K.stage_a_plain(xr, None, n1, n2, plan, ct, rows=rows),
+              stage_a_bound(n1, n2, rows, False, ct, batch=b))
+    time_pair(f"stage_a B={b} n={n} complex inv", "stage_a",
+              lambda: K.stage_a(xr, xi, n1, n2, inv, ct),
+              lambda: K.stage_a_plain(xr, xi, n1, n2, inv, ct),
+              stage_a_bound(n1, n2, n1, True, ct, batch=b))
+    del xr, xi
     # S3's one-call yardsticks: f32, torch.matmul on the stacked LHS; x1,
     # torch.mm of the bf16 operands into fp32 (x rounded outside the timed
     # region); x6 has none.
@@ -1520,6 +1865,7 @@ def main() -> None:
 
     analysis_times(report, dev)
     filter_times(report, dev)
+    twod_times(report, dev)
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
@@ -1617,7 +1963,7 @@ def main() -> None:
     }
     # The main path's launches: fft/ifft and the real-output path together.
     all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
-                          + filter_launches[k]
+                          + filter_launches[k] + twod_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
@@ -1627,7 +1973,7 @@ def main() -> None:
             name=name, route="cuda", source=src, replaces=rep, launches=all_launches[name],
             irfft_path_launches=irfft_launches.get(name, 0), grad_path_launches=grad_launches.get(name, 0),
             analysis_path_launches=analysis_launches.get(name, 0),
-            filter_path_launches=filter_launches.get(name, 0),
+            filter_path_launches=filter_launches.get(name, 0), twod_path_launches=twod_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},

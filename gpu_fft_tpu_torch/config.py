@@ -41,6 +41,10 @@ DEVICE_ENV_VAR = "GPU_FFT_TPU_TORCH_DEVICE"
 # backends.default_backend, which maps the JAX package's names).
 BACKEND_ENV_VAR = "GPU_FFT_TPU_BACKEND"
 
+# Path override for the NATIVE backend's host C++ library (built by
+# ``make -C native``), the JAX package's variable.
+NATIVE_LIB_ENV_VAR = "GPU_FFT_TPU_NATIVE_LIB"
+
 
 def env_backend_name() -> str | None:
     """The backend name requested through ``GPU_FFT_TPU_BACKEND``, or None."""

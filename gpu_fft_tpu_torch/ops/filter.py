@@ -1,6 +1,6 @@
 """FFT-domain FIR filtering: overlap-add convolution, design, application.
 
-Port of ``gpu_fft_tpu/ops/filter.py`` (the 1-D part).  The centerpiece is
+Port of ``gpu_fft_tpu/ops/filter.py``.  The centerpiece is
 :func:`oaconvolve_device`, overlap-add block convolution for signals far
 longer than one transform: the signal is cut into blocks that all ride ONE
 batched transform (``kernels/large.py:transform_any``), are multiplied by
@@ -15,10 +15,12 @@ transform.  The designs (:func:`firwin`, :func:`firwin2`,
 :func:`minimum_phase`, :func:`savgol_coeffs`, :func:`group_delay`, the
 Kaiser formulas) are host float64 numpy, the JAX package's own.
 
+The 2-D convolutions (:func:`fft_convolve2d_device`, :func:`fft_convolve2d`,
+:func:`fft_correlate2d`, :func:`convolve2d`, :func:`correlate2d`) ride the
+one-sided 2-D transforms of ``ops/fft2d``.
+
 The host API takes numpy and returns numpy and runs on ``device`` (default
-``"cuda"``); ``*_device`` functions take and return tensors.  The 2-D
-convolutions ride ``ops/fft2d``, which the port does not have yet; they are
-not here.
+``"cuda"``); ``*_device`` functions take and return tensors.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ from .transform import _as_tensor, _upload, next_power_of_two
 __all__ = [
     "FIRStream",
     "choose_conv_method",
+    "convolve2d",
+    "correlate2d",
+    "fft_convolve2d",
+    "fft_convolve2d_device",
+    "fft_correlate2d",
     "fftfilt",
     "fftfilt_device",
     "filtfilt_fir",
@@ -723,11 +730,167 @@ def freqz_fir(h, n: int = 512, fs: float = 2.0 * np.pi, device=None):
     return w, yr[0, :n].cpu().numpy(), yi[0, :n].cpu().numpy()
 
 
+def fft_convolve2d_device(x, k, device=None):
+    """Full 2-D linear convolution of batched real images, on the tensors'
+    device.
+
+    ``x``: (H, W) or (B, H, W) real f32 images; ``k``: (kh, kw) or
+    (B, kh, kw) real f32 kernels; a one-image operand serves the other's
+    whole batch (its spectrum is computed once and broadcast).  Returns the
+    (B, H+kh-1, W+kw-1) full convolution, unbatched when both inputs were.
+    Both operands ride the one-sided 2-D transform (``ops/fft2d``) at the
+    power-of-two padded size, the product the real-output inverse.
+    """
+    from .fft2d import irfft2_device, rfft2_device
+
+    x = _as_tensor(x, device)
+    k = _as_tensor(k, x.device)
+    squeeze = x.dim() == 2 and k.dim() == 2
+    if x.dim() == 2:
+        x = x[None]
+    if k.dim() == 2:
+        k = k[None]
+    if x.dim() != 3 or k.dim() != 3:
+        raise ValueError(
+            f"fft_convolve2d_device expects 2-D or (B, H, W) inputs, got "
+            f"{tuple(x.shape)} vs {tuple(k.shape)}"
+        )
+    if x.shape[1] * x.shape[2] == 0 or k.shape[1] * k.shape[2] == 0:
+        raise ValueError("fft_convolve2d_device expects non-empty images")
+    if x.shape[0] != k.shape[0] and 1 not in (x.shape[0], k.shape[0]):
+        raise ValueError(
+            f"fft_convolve2d_device: batch sizes differ: {x.shape[0]} vs {k.shape[0]}"
+        )
+    h, w = x.shape[1], x.shape[2]
+    kh, kw = k.shape[1], k.shape[2]
+    oh, ow = h + kh - 1, w + kw - 1
+    m1 = max(2, next_power_of_two(oh))
+    m2 = max(2, next_power_of_two(ow))
+    # Real x real: the one-sided (rfft2) spectra carry everything — half
+    # the bins through the product and the inverse.
+    ar, ai = rfft2_device(F.pad(x, (0, m2 - w, 0, m1 - h)))
+    br, bi = rfft2_device(F.pad(k, (0, m2 - kw, 0, m1 - kh)))
+    out = irfft2_device(*_spectral_product(ar, ai, br, bi))[:, :oh, :ow]
+    return out[0] if squeeze else out
+
+
+def _conv2d_mode_slice(x, k, mode: str, same_offset, compute_full):
+    """Shared validation + full/same/valid slicing for the 2-D conv/corr
+    pair; ``same_offset(kh, kw)`` supplies the centering convention."""
+    xv = np.asarray(x, dtype=np.float32)
+    kv = np.asarray(k, dtype=np.float32)
+    if xv.ndim != 2 or kv.ndim != 2 or xv.size == 0 or kv.size == 0:
+        raise ValueError("expected two non-empty 2-D images")
+    if mode not in ("full", "same", "valid"):
+        raise ValueError(f"mode must be full|same|valid, got {mode!r}")
+    h, w = xv.shape
+    kh, kw = kv.shape
+    if mode == "valid" and (h < kh or w < kw):
+        raise ValueError("valid mode requires the image to be at least the kernel size")
+    full = compute_full(xv, kv).cpu().numpy()
+    if mode == "full":
+        return full
+    if mode == "same":
+        r0, c0 = same_offset(kh, kw)
+        return full[r0 : r0 + h, c0 : c0 + w].copy()
+    return full[kh - 1 : h, kw - 1 : w].copy()
+
+
+def fft_convolve2d(x, k, mode: str = "full", device=None):
+    """2-D linear convolution of real images via the pow2 fft2 path.
+
+    ``scipy.signal.convolve2d`` semantics with boundary='fill': ``mode`` is
+    "full" (default, (H+kh-1, W+kw-1)), "same" (centered, x's shape), or
+    "valid" ((H-kh+1, W-kw+1); requires the image to be at least the
+    kernel's size).
+
+    >>> img = np.array([[1.0, 2.0], [3.0, 4.0]])
+    >>> fft_convolve2d(img, np.array([[1.0, 1.0]]), device="cpu").round(5).tolist()
+    [[1.0, 3.0, 2.0], [3.0, 7.0, 4.0]]
+    """
+    return _conv2d_mode_slice(
+        x, k, mode,
+        lambda kh, kw: ((kh - 1) // 2, (kw - 1) // 2),  # convolution centering
+        lambda xv, kv: fft_convolve2d_device(xv, kv, device=device),
+    )
+
+
+def fft_correlate2d(x, k, mode: str = "full", device=None):
+    """2-D cross-correlation of real images via the fft2 path.
+
+    ``scipy.signal.correlate2d(x, k, mode, boundary='fill')`` semantics for
+    real input: correlation is convolution with the doubly-flipped kernel.
+    The 'same' centering follows the correlation convention (offset kh//2,
+    not the convolution's (kh-1)//2).
+
+    >>> img = np.array([[1.0, 2.0], [3.0, 4.0]])
+    >>> fft_correlate2d(img, img, mode="valid", device="cpu").round(4).tolist()
+    [[30.0]]
+    """
+    return _conv2d_mode_slice(
+        x, k, mode,
+        lambda kh, kw: (kh // 2, kw // 2),  # correlation centering
+        lambda xv, kv: fft_convolve2d_device(xv, kv[::-1, ::-1].copy(), device=device),
+    )
+
+
+def convolve2d(in1, in2, mode: str = "full", boundary: str = "fill", fillvalue: float = 0.0, device=None):
+    """2-D convolution with scipy's boundary semantics
+    (``scipy.signal.convolve2d``): the image is extended by kernel-1 pixels
+    per side (constant / periodic / reflected), then the FFT full
+    convolution of the extended image is sliced back to the mode's window."""
+    return _conv2d_boundary(in1, in2, mode, boundary, fillvalue, False, device)
+
+
+def correlate2d(in1, in2, mode: str = "full", boundary: str = "fill", fillvalue: float = 0.0, device=None):
+    """2-D cross-correlation with boundary handling
+    (``scipy.signal.correlate2d``)."""
+    return _conv2d_boundary(in1, in2, mode, boundary, fillvalue, True, device)
+
+
+def _conv2d_boundary(in1, in2, mode, boundary, fillvalue, correlate, device):
+    x = np.asarray(in1, dtype=np.float64)
+    k = np.asarray(in2, dtype=np.float64)
+    if x.ndim != 2 or k.ndim != 2:
+        raise ValueError("convolve2d/correlate2d need 2-D inputs")
+    base = fft_correlate2d if correlate else fft_convolve2d
+    if boundary == "fill" and fillvalue == 0.0:
+        return base(x, k, mode=mode, device=device)
+    kh, kw = k.shape
+    ph, pw = kh - 1, kw - 1
+    if boundary == "fill":
+        xp = np.pad(x, ((ph, ph), (pw, pw)), mode="constant", constant_values=fillvalue)
+    elif boundary == "wrap":
+        xp = np.pad(x, ((ph, ph), (pw, pw)), mode="wrap")
+    elif boundary == "symm":
+        xp = np.pad(x, ((ph, ph), (pw, pw)), mode="symmetric")
+    else:
+        raise ValueError(f"boundary must be fill|wrap|symm, got {boundary!r}")
+    full = base(xp, k, mode="full", device=device)  # shape (H+3ph, W+3pw)
+    h, w = x.shape
+    if mode == "full":
+        oh, ow, sh, sw = ph, pw, h + ph, w + pw
+    elif mode == "same":
+        if correlate:
+            oh, ow = ph + kh // 2, pw + kw // 2
+        else:
+            oh, ow = ph + (kh - 1) // 2, pw + (kw - 1) // 2
+        sh, sw = h, w
+    elif mode == "valid":
+        oh, ow, sh, sw = 2 * ph, 2 * pw, h - kh + 1, w - kw + 1
+        if sh <= 0 or sw <= 0:
+            raise ValueError("valid mode needs the image at least the kernel's size")
+    else:
+        raise ValueError(f"mode must be full|same|valid, got {mode!r}")
+    return full[oh:oh + sh, ow:ow + sw]
+
+
 def choose_conv_method(in1, in2, mode: str = "full", measure: bool = False, device=None):
     """Pick 'fft' or 'direct' (``scipy.signal.choose_conv_method``).  Without
     ``measure``, a size heuristic (direct pays off only for tiny operands);
-    with ``measure``, both paths are timed on the actual 1-D inputs (the
-    2-D transforms are not in the port yet)."""
+    with ``measure``, both paths are timed on the actual inputs: 1-D inputs
+    against ``numpy.convolve``, 2-D ones through :func:`fft_convolve2d`
+    (the direct side times nothing there, as in the JAX package)."""
     x = np.asarray(in1)
     k = np.asarray(in2)
     if measure:
@@ -735,12 +898,11 @@ def choose_conv_method(in1, in2, mode: str = "full", measure: bool = False, devi
 
         from .dsp import fft_convolve
 
-        if x.ndim != 1:
-            raise NotImplementedError("choose_conv_method(measure=True) times 1-D inputs only: "
-                                      "the 2-D transforms (ops/fft2d) are not ported")
         times = {
-            "direct": timeit.timeit(lambda: np.convolve(x.ravel(), k.ravel(), mode), number=3),
-            "fft": timeit.timeit(lambda: fft_convolve(x, k, mode, device=device), number=3),
+            "direct": timeit.timeit(lambda: np.convolve(x.ravel(), k.ravel(), mode)
+                                    if x.ndim == 1 else None, number=3),
+            "fft": timeit.timeit(lambda: fft_convolve(x, k, mode, device=device)
+                                 if x.ndim == 1 else fft_convolve2d(x, k, mode, device=device), number=3),
         }
         return ("fft" if times["fft"] <= times["direct"] else "direct"), times
     if min(x.size, k.size) <= 16 or x.size * k.size <= 4096:

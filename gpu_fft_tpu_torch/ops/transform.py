@@ -10,6 +10,9 @@
 * ``rfft`` / ``irfft`` (and ``*_device``): the one-sided n/2 + 1 bins of a
   real signal and back, ``numpy.fft.rfft`` / ``irfft`` conventions on the
   padded length.
+* ``fft_native`` / ``ifft_native``: the host API on the NATIVE backend (the
+  host C++ library); ``warmup`` builds the kernels and the tables of given
+  (B, n) shapes before the first call.
 
 The host API takes lists / numpy arrays and returns numpy arrays; ``device``
 picks where it runs (default ``"cuda"`` or ``GPU_FFT_TPU_TORCH_DEVICE``).
@@ -32,6 +35,8 @@ __all__ = [
     "ifft_batch",
     "fft_with",
     "ifft_with",
+    "fft_native",
+    "ifft_native",
     "fft_device",
     "ifft_device",
     "rfft",
@@ -39,6 +44,7 @@ __all__ = [
     "rfft_device",
     "irfft_device",
     "next_power_of_two",
+    "warmup",
 ]
 
 
@@ -63,15 +69,23 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _dispatch_forward(x2d: np.ndarray, backend, device):
-    """(B, n) f32 ndarray -> split-complex (re, im) ndarrays."""
-    mod = backend_module(resolve_backend(backend))
+    """(B, n) f32 ndarray -> split-complex (re, im) ndarrays.  NATIVE runs
+    on the host and takes no device."""
+    backend = resolve_backend(backend)
+    mod = backend_module(backend)
+    if backend is Backend.NATIVE:
+        return mod.forward(x2d)
     yr, yi = mod.forward(_upload(x2d, resolve_device(device)))
     return yr.cpu().numpy(), yi.cpu().numpy()
 
 
 def _dispatch_inverse(xr2d: np.ndarray, xi2d: np.ndarray, backend, device):
+    """(B, n) split-complex ndarrays -> the 1/n inverse's (re, im)."""
+    backend = resolve_backend(backend)
+    mod = backend_module(backend)
+    if backend is Backend.NATIVE:
+        return mod.inverse(xr2d, xi2d)
     dev = resolve_device(device)
-    mod = backend_module(resolve_backend(backend))
     yr, yi = mod.inverse(_upload(xr2d, dev), _upload(xi2d, dev))
     return yr.cpu().numpy(), yi.cpu().numpy()
 
@@ -186,6 +200,47 @@ def ifft_with(input_real, input_imag, backend, device=None):
     return ifft(input_real, input_imag, backend=backend, device=device)
 
 
+def fft_native(input):
+    """Forward FFT on the NATIVE backend (the host C++ library)."""
+    return fft(input, backend=Backend.NATIVE)
+
+
+def ifft_native(input_real, input_imag):
+    """Inverse FFT on the NATIVE backend (the host C++ library)."""
+    return ifft(input_real, input_imag, backend=Backend.NATIVE)
+
+
+def warmup(sizes=(1024, 4096, 65536), batches=(1,), inverse: bool = True, device=None) -> None:
+    """Do a transform's first-call work ahead of the first request: build
+    the CUDA library (on a card), upload the tables of each (B, n) in
+    ``sizes`` x ``batches`` through ``plan.on_device``, and run each forward
+    (and inverse, with ``inverse``) once on ``device``, then synchronise.
+
+    Warms the backend the process will use (``GPU_FFT_TPU_BACKEND``
+    honoured); NATIVE, a host library with nothing to build, warms TORCH
+    instead.
+    """
+    dev = resolve_device(device)
+    backend = resolve_backend(None)
+    if backend is Backend.NATIVE:
+        backend = Backend.TORCH
+    for n in sizes:
+        if n < 2 or n & (n - 1):
+            raise ValueError(f"warmup sizes must be powers of two >= 2, got {n}")
+    if dev.type == "cuda" and backend is Backend.TORCH:
+        from ..kernels import _build
+
+        _build.library()
+    for n in sizes:
+        for b in batches:
+            x = torch.zeros((b, n), dtype=torch.float32, device=dev)
+            yr, yi = fft_device(x, backend=backend)
+            if inverse:
+                ifft_device(yr, yi, backend=backend)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 # ── Device-resident API ──────────────────────────────────────────────────────
 
 
@@ -195,13 +250,22 @@ def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         dev = x.device if device is None else resolve_device(device)
         return x.to(device=dev, dtype=torch.float32).contiguous()
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=resolve_device(device))
+    # contiguous: torch refuses numpy's negative strides (a reversed view).
+    return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float32), device=resolve_device(device))
 
 
 def _check_device_n(n: int, name: str) -> None:
     if n & (n - 1) or n < 2:
         raise ValueError(f"{name} requires power-of-two n >= 2, got {n}")
     _check_n(n)
+
+
+def _device_module(backend, name: str):
+    """The backend module of a tensor call; NATIVE runs on the host only."""
+    backend = resolve_backend(backend)
+    if backend is Backend.NATIVE:
+        raise ValueError(f"{name}: the NATIVE backend is host-side; use fft() / fft_batch()")
+    return backend_module(backend)
 
 
 def fft_device(x, backend=None, device=None):
@@ -212,7 +276,7 @@ def fft_device(x, backend=None, device=None):
     if squeeze:
         x = x[None]
     _check_device_n(x.shape[-1], "fft_device")
-    yr, yi = backend_module(resolve_backend(backend)).forward(x)
+    yr, yi = _device_module(backend, "fft_device").forward(x)
     return (yr[0], yi[0]) if squeeze else (yr, yi)
 
 
@@ -229,7 +293,7 @@ def ifft_device(xr, xi, backend=None, device=None):
     if squeeze:
         xr, xi = xr[None], xi[None]
     _check_device_n(xr.shape[-1], "ifft_device")
-    yr, yi = backend_module(resolve_backend(backend)).inverse(xr, xi)
+    yr, yi = _device_module(backend, "ifft_device").inverse(xr, xi)
     return (yr[0], yi[0]) if squeeze else (yr, yi)
 
 

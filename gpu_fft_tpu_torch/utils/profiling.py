@@ -34,6 +34,7 @@ __all__ = [
     "benchmark",
     "chained_step_stats",
     "chained_step_time",
+    "conv2d_step",
     "dct_roundtrip_step",
     "fft_forward_step",
     "fft_inverse_step",
@@ -436,6 +437,22 @@ def firstream_step(chunk: int, taps: int, batch: int = 1, device=None):
     def step(c):
         st, y = stream.step(c[:, :t], c[:, t:])
         return torch.cat([st, y], dim=1)
+
+    return step
+
+
+def conv2d_step(kern, device=None):
+    """(B, H, W) -> x + 1e-6 * the full 2-D convolution with ``kern``
+    cropped to (H, W): the one-sided 2-D forward of both operands, the
+    product and the real-output 2-D inverse every step.  The kernel goes to
+    ``device`` (default ``"cuda"``) once, here."""
+    from ..config import resolve_device
+    from ..ops.filter import fft_convolve2d_device
+
+    k = torch.as_tensor(np.asarray(kern, dtype=np.float32), device=resolve_device(device))
+
+    def step(x):
+        return x + fft_convolve2d_device(x, k)[:, : x.shape[1], : x.shape[2]] * 1e-6
 
     return step
 

@@ -99,8 +99,6 @@ _BENCH = "ROADMAP item 0 (the H100 bench's config kinds)"
 NOT_PORTED_KINDS = {
     **{k: _BENCH for k in ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch",
                            "ifft_sequential", "roundtrip_batch", "roundtrip_sequential")},
-    "conv2d": "ROADMAP item 9 (ops/filter's 2-D part, ops/fft2d)",
-    "fft2": "ROADMAP item 9 (ops/fft2d)",
 }
 
 #: The ``__global__`` functions of ``csrc/``: a profiled kernel whose name
@@ -303,7 +301,11 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     complex m-point transforms), and the filtering kinds: hilbert (a
     roundtrip), dct_roundtrip (a real forward and the irfft charge),
     resample (down to n/2 and back) and oaconvolve / fftfilt ((blocks,
-    block length): a real forward and a complex inverse).  The kinds of :data:`NOT_PORTED_KINDS`
+    block length): a real forward and a complex inverse), and the 2-D
+    kinds: fft2 ((H, W): the real row pass and the complex column pass) and
+    conv2d ((m1, m2), one padded image: the one-sided forward, the product
+    and the one-sided inverse; the kernel's spectrum is not charged).  The
+    kinds of :data:`NOT_PORTED_KINDS`
     raise ``NotImplementedError``; any other raises ``ValueError``.
     """
     f32 = 4
@@ -360,6 +362,25 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
         stages, elem = parts((b, n, True), (b, n, False))
         elem += 8.0 * b * n
         bytes_ = b * n * f32 * (1 + 1)  # real blocks in, real blocks out
+    elif kind == "conv2d":
+        # (b, n) = the padded (m1, m2).  Forward: real rows, then complex
+        # columns over the n//2 + 1 surviving bins; inverse: the columns over
+        # the half spectrum, then the rows' real-output inverse (at direct
+        # sizes two real products contracting hw against the folded tables).
+        hw = n // 2 + 1
+        stages, elem = parts((b, n, True), (hw, b, False), (hw, b, False))
+        if n <= DIRECT_MAX:
+            stages.append((2 * 2.0 * b * n * hw, hw))
+        else:
+            s2, e2 = parts((b, n, False))
+            stages += s2
+            elem += e2
+        elem += 8.0 * b * hw
+        bytes_ = b * n * f32 * (1 + 1)
+    elif kind == "fft2":
+        # (b, n) = (H, W): the real row pass and the complex column pass.
+        stages, elem = parts((b, n, True), (n, b, False))
+        bytes_ = b * n * f32 * (1 + 2)
     elif kind == "irfft":
         # The 1/n scale lives in the tables at the fold sizes: no extra pass.
         stages, elem, read_frac = irfft_stages(b, n)

@@ -552,3 +552,91 @@ def test_filtering_steps_chain_in_cuda_graphs(dev, name, shape):
     st = chained_step_stats(step, x, k1=2, k2=12, reps=2, min_span_s=0.002)
     assert st.median_s > 0
     assert bool(torch.isfinite(step(x)).all())
+
+
+# ── The 2-D / N-D path ───────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("call,want", [
+    ("fft2_device (4, 2^17)", {"stage_a": 1}),
+    ("ifft2_device (4, 2^17)", {"stage_a": 1}),
+    ("rfft2_device (4, 2^17)", {"stage_a": 1}),
+    ("fft2_device (256, 256)", {}),
+    ("fftn_device 1-D 1024", {"whole_transform_packed": 1}),
+    ("fftn_device 1-D 4096", {"whole_transform": 1}),
+    ("fft_convolve2d_device 256^2 * 9^2", {}),
+])
+def test_2d_calls_launch_the_expected_kernels(dev, call, want):
+    """K3 on rows longer than 65,536 at B > 1, K2 / K1 on a 1-D fftn in the
+    band, the torch engines elsewhere; no plain version on the card; each
+    output against torch.fft (5 * log2(N) * eps of max|ref|)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(4, 1 << 17, device=dev, generator=g)
+    sq = torch.randn(256, 256, device=dev, generator=g)
+    k = torch.randn(9, 9, device=dev, generator=g)
+    v1, v4 = torch.randn(1024, device=dev, generator=g), torch.randn(4096, device=dev, generator=g)
+    zx = torch.fft.fft2(x)
+    fns = {
+        "fft2_device (4, 2^17)": (lambda: gt.fft2_device(x), lambda: zx, x.numel()),
+        "ifft2_device (4, 2^17)": (lambda: gt.ifft2_device(zx.real.contiguous(), zx.imag.contiguous()),
+                                   lambda: torch.fft.ifft2(zx), x.numel()),
+        "rfft2_device (4, 2^17)": (lambda: gt.rfft2_device(x), lambda: torch.fft.rfft2(x), x.numel()),
+        "fft2_device (256, 256)": (lambda: gt.fft2_device(sq), lambda: torch.fft.fft2(sq), sq.numel()),
+        "fftn_device 1-D 1024": (lambda: gt.fftn_device(v1), lambda: torch.fft.fft(v1), 1024),
+        "fftn_device 1-D 4096": (lambda: gt.fftn_device(v4), lambda: torch.fft.fft(v4), 4096),
+        "fft_convolve2d_device 256^2 * 9^2": (
+            lambda: (gt.fft_convolve2d_device(sq, k),),
+            lambda: torch.fft.irfft2(torch.fft.rfft2(sq, s=(512, 512)) * torch.fft.rfft2(k, s=(512, 512)),
+                                     s=(512, 512))[:264, :264], 512 * 512),
+    }
+    fn, ref_fn, n = fns[call]
+    fn()  # plans and tables made on the first call
+    torch.cuda.synchronize()
+    K.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _launches()
+    assert all(p == 0 for _, p in got.values()), got
+    assert {kk: v[0] for kk, v in got.items() if v[0]} == want, got
+    ref = ref_fn()
+    parts = (ref.real, ref.imag) if ref.is_complex() else (ref,)
+    err = max(float((o - r).abs().max()) for o, r in zip(out, parts))
+    assert err <= 2 * 5 * np.log2(n) * np.finfo(np.float32).eps * float(ref.abs().max())
+
+
+def test_fft2_device_grad_on_the_card(dev):
+    """The 2-D transform keeps autograd through K3 at B = 4 and matches
+    torch.fft's gradient of the same loss."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(4, 1 << 17, device=dev, generator=g, requires_grad=True)
+    w = torch.randn(4, 1 << 17, device=dev, generator=g)
+    yr, yi = gt.fft2_device(x)
+    assert yr.grad_fn is not None
+    (got,) = torch.autograd.grad((w * yr + w * yi).sum(), x)
+    z = torch.fft.fft2(x)
+    (want,) = torch.autograd.grad((w * z.real + w * z.imag).sum(), x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_conv2d_step_chains_in_cuda_graphs(dev):
+    from gpu_fft_tpu_torch.utils import profiling
+
+    step = profiling.conv2d_step(np.ones((5, 5), np.float32) / 25.0)
+    x = torch.randn(2, 128, 128, device=dev)
+    st = chained_step_stats(step, x, k1=2, k2=12, reps=2, min_span_s=0.002)
+    assert st.median_s > 0
+    assert bool(torch.isfinite(step(x)).all())
+
+
+def test_examples_run_on_the_card(dev):
+    import contextlib
+    import importlib
+    import io
+
+    from gpu_fft_tpu_torch.examples import NAMES
+
+    for name in NAMES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = importlib.import_module(f"gpu_fft_tpu_torch.examples.{name}").main(device="cuda")
+        assert rc == 0 and "FAIL" not in buf.getvalue(), buf.getvalue()

@@ -323,5 +323,7 @@ def test_choose_conv_method_matches_jax():
         assert gt.choose_conv_method(x, k) == gf.choose_conv_method(x, k)
     method, times = gt.choose_conv_method(np.ones(300), np.ones(30), measure=True, device="cpu")
     assert method in ("fft", "direct") and set(times) == {"fft", "direct"}
-    with pytest.raises(NotImplementedError):
-        gt.choose_conv_method(np.ones((8, 8)), np.ones((3, 3)), measure=True, device="cpu")
+    # 2-D inputs are timed through fft_convolve2d, as in the JAX package.
+    method, times = gt.choose_conv_method(np.ones((8, 8)), np.ones((3, 3)), measure=True, device="cpu")
+    _, jtimes = gf.choose_conv_method(np.ones((8, 8)), np.ones((3, 3)), measure=True)
+    assert method in ("fft", "direct") and set(times) == set(jtimes) == {"fft", "direct"}

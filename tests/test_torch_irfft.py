@@ -396,9 +396,14 @@ def test_rfft_device_half_spectrum_sizes(jax_cache, b, n):
 @pytest.mark.parametrize(
     "value,want",
     [("torch", Backend.TORCH), ("torch_fft", Backend.TORCH_FFT), ("pallas", Backend.TORCH),
-     (" XLA ", Backend.TORCH_FFT), ("", Backend.TORCH)],
+     (" XLA ", Backend.TORCH_FFT), ("", Backend.TORCH), ("native", Backend.NATIVE)],
 )
-def test_backend_env_routes(monkeypatch, value, want):
+def test_backend_env_routes(monkeypatch, tmp_path, value, want):
+    if want is Backend.NATIVE:
+        from test_torch_native import native_library
+
+        if not native_library(monkeypatch, tmp_path):
+            pytest.skip("the native library is not built and the toolchain cannot build it")
     monkeypatch.setenv("GPU_FFT_TPU_BACKEND", value)
     assert default_backend() is want
     x = np.random.default_rng(2).standard_normal(1024).astype(np.float32)
@@ -406,11 +411,11 @@ def test_backend_env_routes(monkeypatch, value, want):
     re, im = gt.fft(x, device="cpu")
     ref = np.fft.fft(x.astype(np.float64))
     assert max(np.abs(re - ref.real).max(), np.abs(im - ref.imag).max()) <= _bound(1024) * np.abs(ref).max()
-    # TORCH runs K2's plain version at (1, 1,024); torch.fft runs none.
+    # TORCH runs K2's plain version at (1, 1,024); torch.fft and NATIVE none.
     assert (K.COUNTS["whole_transform_packed"].plain_calls == 1) == (want is Backend.TORCH)
 
 
-@pytest.mark.parametrize("value,match", [("native", "ROADMAP item 10"), ("cuda", "unknown")])
+@pytest.mark.parametrize("value,match", [("cuda", "unknown")])
 def test_backend_env_rejects(monkeypatch, value, match):
     monkeypatch.setenv("GPU_FFT_TPU_BACKEND", value)
     with pytest.raises(ValueError, match=match):

@@ -53,6 +53,19 @@ def test_fft_exact_cost_matches_the_jax_package_off_powers_of_two(b, n):
     assert got["stages"] == pytest.approx(want["stages"], rel=1e-12)
 
 
+@pytest.mark.parametrize("b,n", [(16, 16), (256, 512), (512, 256), (64, 1024), (4096, 4096), (8192, 8192),
+                                 (512, 1 << 17)])
+@pytest.mark.parametrize("kind", ["fft2", "conv2d"])
+def test_2d_cost_matches_the_jax_package(kind, b, n):
+    """fft2 at (H, W), conv2d at the padded (m1, m2): the row and column
+    passes as the JAX package charges them, a side beyond FUSED_MAX too."""
+    got, want = roof.transform_cost(b, n, kind), jroof.transform_cost(b, n, kind)
+    assert got["bytes"] == want["bytes"]
+    assert got["flops"] == pytest.approx(want["flops"], rel=1e-12)
+    assert got["elem_flops"] == pytest.approx(want["elem_flops"], rel=1e-12, abs=0.0)
+    assert got["stages"] == pytest.approx(want["stages"], rel=1e-12)
+
+
 @pytest.mark.parametrize("kind", sorted(roof.NOT_PORTED_KINDS))
 def test_unported_kinds_raise_not_implemented(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP item"):

@@ -197,7 +197,11 @@ def test_torch_fft_backend_matches():
     _assert_close(a, b)
     out = gt.ifft_with(*a, "torch_fft", device="cpu")
     _assert_close([out], [gt.ifft(*a, device="cpu")])
-    assert gt.available_backends() == [gt.Backend.TORCH, gt.Backend.TORCH_FFT]
+    from gpu_fft_tpu_torch.backends import native
+
+    # NATIVE is listed where its host library loads (tests/test_torch_native.py).
+    assert gt.available_backends() == [gt.Backend.TORCH, gt.Backend.TORCH_FFT] + (
+        [gt.Backend.NATIVE] if native.is_available() else [])
     assert gt.default_backend() is gt.Backend.TORCH
 
 
