@@ -61,9 +61,26 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    scipy.ndimage (2e-6) and their ifft2 against numpy; NATIVE (built with
    ``make -C native`` where missing; the phase fails if it does not load)
    at 1,024 ... 65,536 and B = 16; the six ``gpu_fft_tpu_torch.examples``
-   to their OK lines; each call's launches, no plain call, then every
-   kernel geometry the phase launched (K3 at B = 512 among them) against
-   its plain version;
+   (with ``fno``) to their OK lines; each call's launches, no plain call,
+   then every kernel geometry the phase launched (K3 at B = 512 among
+   them) against its plain version;
+3f. the scipy.fft / scipy.signal namespaces and the FNO, counted from 0:
+   compat's fft / ifft at 1,024 (K2), 4,096 and 16,384 (K1), 2^20 (K3),
+   1,000 (the mixed four-step, torch) and 1,009 (Bluestein, K1 twice),
+   rfft / irfft at 4,096 and 2^20, fftn / rfftn / irfftn and dctn(ortho) on
+   512 x 512 and hfft at 4,096, each on a CUDA complex64 tensor and through
+   ``scipy.fft.set_backend(compat.backend)`` on numpy input, against
+   scipy.fft in float64 (5*log2(N)*eps for powers of two, else 3e-5);
+   signal.hilbert at 2^20 (K3 twice), csd (8, 2^20) / 4,096, stft / istft
+   at 2^16, czt at 1,000, hilbert2 on 512^2 and envelope at 2^16 against
+   scipy.signal in float64 on the JAX tests' gates; the FNO at the
+   published widths on synthetic fields, (a) Burgers FNO1d B = 20 at 8,192,
+   (b) Navier-Stokes FNO2d B = 20 at 64^2 with 10 input steps, (c) FNO1d
+   at 2^18, B = 2 (K3 three times a layer): a forward and backward against
+   a float64 twin on torch.fft (output 2*5*log2(N)*eps, gradients 1e-4)
+   and 20 Adam steps whose loss falls; each call's launches, no plain
+   call, every geometry against its plain version; ``python -m
+   gpu_fft_tpu_torch.examples.fno`` to its OK line;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -86,7 +103,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    lfilter, resample_poly, hilbert, the DCT-II/III roundtrip) beside theirs
    on torch.fft where torch has one, and the 2-D rows (fft2, rfft2, irfft2
    on the panel and the image, fft_convolve2d_device, fftn on the volume)
-   beside torch.fft's;
+   beside torch.fft's, compat.fft at 4,096 and 2^20 beside torch.fft.fft
+   and the FNO train steps (a)-(c) beside the same model on torch.fft;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -161,6 +179,30 @@ CONV_KERNEL = 33  # the image's convolution kernel side: padded to 8,192^2
 VOLUME = 256  # cube side: the direct product on each axis
 NATIVE_SIZES = (1024, 4096, 16384, 65536)
 NATIVE_BATCH = 16
+# Phase 3f: the scipy.fft / scipy.signal namespaces and the FNO.  compat's
+# complex transforms at B = 1: (n, launches the dispatch gives); 1,000 is
+# the mixed four-step (25 x 40, torch), 1,009 Bluestein on K1 at m = 2,048.
+COMPAT_FFT = ((1024, {"whole_transform_packed": 1}), (4096, {"whole_transform": 1}),
+              (16384, {"whole_transform": 1}), (1 << 20, {"stage_a": 1}), (1000, {}),
+              (1009, {"whole_transform": 2}))
+COMPAT_REAL = ((4096, {"whole_transform": 1}), (1 << 20, {"stage_a": 1}))
+COMPAT_IMAGE = 512
+SIGNAL_HILBERT = 1 << 20
+SIGNAL_CSD = (8, 1 << 20, 4096)  # channels, samples, nperseg
+SIGNAL_STFT = (1 << 16, 256)  # samples, nperseg
+SIGNAL_ENVELOPE = (1 << 16, (5, 600))
+# The FNO at the published widths (Li et al. 2021, arXiv 2010.08895, and the
+# authors' fourier_1d.py / fourier_2d_time.py): (a) Burgers at the finest
+# grid, (b) Navier-Stokes 64^2 with T_in = 10, (c) a record long enough for
+# K3 (B * width = 128 rows of 2^18; 2^18 = irfft_half_staged_min, so the
+# irfft takes the staged fold).  Synthetic fields from the seed; depth 4.
+FNO_CELLS = {
+    "a": dict(dims=1, batch=20, size=8192, in_channels=1, modes=16, width=64, depth=4),
+    "b": dict(dims=2, batch=20, size=64, in_channels=10, modes=12, width=20, depth=4),
+    "c": dict(dims=1, batch=2, size=1 << 18, in_channels=1, modes=16, width=64, depth=4),
+}
+FNO_STEPS = 20
+EXAMPLE_GATES = {"training": "OK", "fno": "[OK] antiderivative operator learned"}
 
 
 T0 = time.perf_counter()
@@ -1210,7 +1252,7 @@ def twod_phase(report: dict, dev, rng, panel=PANEL, image=IMAGE, ktaps=CONV_KERN
         for line in out.splitlines():
             print(f"    | {line}")
         last = out.strip().splitlines()[-1] if out.strip() else ""
-        ok = rc == 0 and "FAIL" not in out and last.endswith("OK" if name == "training" else "[OK]")
+        ok = rc == 0 and "FAIL" not in out and last.endswith(EXAMPLE_GATES.get(name, "[OK]"))
         if name == "backends":
             ok &= "NATIVE" in out
         if name == "simple":
@@ -1297,6 +1339,359 @@ def twod_times(report: dict, dev) -> None:
         torch_conv, "torch.fft.rfft2*rfft2->irfft2")
     vol = torch.randn(VOLUME, VOLUME, VOLUME, generator=gen, device=dev)
     row(f"fftn_device {VOLUME}^3", lambda: gt.fftn_device(vol), lambda: torch.fft.fftn(vol), "torch.fft.fftn")
+
+
+def counted(per_call: dict, label: str, fn, want: dict):
+    """``fn()`` with the launches it made kept under ``per_call[label]``;
+    fails on a plain call, or where the kernels that ran and their counts
+    are not ``want``."""
+    import torch
+
+    before = counts()
+    out = fn()
+    torch.cuda.synchronize()
+    per_call[label], plain = count_delta(before)
+    if plain:
+        fail(f"{label}: {plain} plain kernel versions ran on the card")
+    got = {k: v for k, v in per_call[label].items() if v}
+    if got != want:
+        fail(f"{label}: launches {got}, expected {want}")
+    return out
+
+
+def namespace_phase(report: dict, dev, rng) -> dict:
+    """Phase 3f, first half: the scipy.fft namespace (``compat``) on CUDA
+    complex64 tensors and through ``scipy.fft.set_backend(compat.backend)``
+    on numpy input, and the scipy.signal namespace, each against scipy in
+    float64 without the backend; each call's launches pinned, no plain
+    call, then every kernel geometry it launched against its plain
+    version.  Returns the launches of this half (counted from 0)."""
+    import numpy as np
+    import scipy
+    import scipy.fft as sf
+    import scipy.signal as ss
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    import gpu_fft_tpu_torch.compat as cf
+    import gpu_fft_tpu_torch.signal as sg
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import large as L
+
+    print(f"  scipy {scipy.__version__}")
+    per_call = {}
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    def rel(got, ref, floor=0.0):
+        return float(np.abs(host(got) - ref).max()) / max(floor, float(np.abs(ref).max()))
+
+    def both(label, n, name, a, ref, want, limit, floor=0.0, **kw):
+        """``compat.<name>`` on the CUDA tensor of ``a`` and ``scipy.fft.<name>``
+        under the backend on ``a`` itself, each against ``ref``."""
+        t = torch.from_numpy(a).to(dev)
+        got = counted(per_call, f"compat.{label} (tensor)", lambda: getattr(cf, name)(t, **kw), want)
+        if not (isinstance(got, torch.Tensor) and got.device == t.device):
+            fail(f"compat.{label}: a tensor on {t.device} in gave {type(got)} out")
+        record(report, "namespace_path", f"compat.{label} on a CUDA tensor vs scipy f64 (launches {want})", n,
+               rel(got, ref, floor), limit)
+        with sf.set_backend(cf.backend):
+            got = counted(per_call, f"compat.{label} (backend)", lambda: getattr(sf, name)(a, **kw), want)
+        if not isinstance(got, np.ndarray) or got.dtype not in (np.complex64, np.float32):
+            fail(f"scipy.fft.{name} under the backend returned {type(got)} {getattr(got, 'dtype', '')}")
+        record(report, "namespace_path", f"scipy.fft.{label} under compat.backend vs scipy f64", n,
+               rel(got, ref, floor), limit)
+
+    def cplx(*shape):
+        return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    K.reset_counts()
+    geometries, restore = capture_launches(L)
+
+    # scipy.fft: 5*log2(N)*eps of max|ref| for powers of two, the JAX
+    # tests' 3e-5 of max(1, max|ref|) elsewhere.
+    for n, want in COMPAT_FFT:
+        z = cplx(n)
+        limit, floor = (gate(n), 0.0) if n & (n - 1) == 0 else (3e-5, 1.0)
+        for name in ("fft", "ifft"):
+            both(f"{name} {n}", n, name, z, getattr(sf, name)(z.astype(np.complex128)), want, limit, floor)
+    for n, want in COMPAT_REAL:
+        x = rng.standard_normal(n).astype(np.float32)
+        both(f"rfft {n}", n, "rfft", x, sf.rfft(x.astype(np.float64)), want, gate(n))
+        h = cplx(n // 2 + 1)
+        both(f"irfft {n}", n, "irfft", h, sf.irfft(h.astype(np.complex128)), want, gate(n))
+    m = COMPAT_IMAGE
+    img, zimg, himg = rng.standard_normal((m, m)).astype(np.float32), cplx(m, m), cplx(m, m // 2 + 1)
+    both(f"fftn {m}x{m}", m * m, "fftn", zimg, sf.fftn(zimg.astype(np.complex128)), {}, gate(m * m))
+    both(f"rfftn {m}x{m}", m * m, "rfftn", img, sf.rfftn(img.astype(np.float64)), {}, gate(m * m))
+    both(f"irfftn {m}x{m}", m * m, "irfftn", himg, sf.irfftn(himg.astype(np.complex128)), {}, gate(m * m))
+    both(f"dctn ortho {m}x{m}", m * m, "dctn", img, sf.dctn(img.astype(np.float64), norm="ortho"), {}, 3e-5,
+         1.0, norm="ortho")
+    h = cplx(2049)
+    both("hfft 4096", 4096, "hfft", h, sf.hfft(h.astype(np.complex128)), {"whole_transform": 1}, gate(4096))
+
+    # scipy.signal, on the JAX tests' gates.
+    def sig_row(label, n, err, limit):
+        ran = {k: v for k, v in per_call[label.split(" vs ")[0]].items() if v}
+        record(report, "namespace_path", f"{label} (launches {ran})", n, err, limit)
+
+    n = SIGNAL_HILBERT
+    x = rng.standard_normal(n).astype(np.float32)
+    lbl = f"signal.hilbert {n}"
+    got = counted(per_call, lbl, lambda: sg.hilbert(x), {"stage_a": 2})
+    sig_row(f"{lbl} vs scipy.signal f64 (rel)", n, rel(got, ss.hilbert(x.astype(np.float64))), 3e-5)
+    b, n, seg = SIGNAL_CSD
+    xs, ys = rng.standard_normal((b, n)).astype(np.float32), rng.standard_normal((b, n)).astype(np.float32)
+    lbl = f"signal.csd ({b}, {n}) / {seg}"
+    f, pxy = counted(per_call, lbl, lambda: sg.csd(xs, ys, fs=1e3, nperseg=seg), {})
+    fr, pref = ss.csd(xs.astype(np.float64), ys.astype(np.float64), fs=1e3, nperseg=seg)
+    if not (np.iscomplexobj(pxy) and np.allclose(f, fr)):
+        fail(f"{lbl}: not complex, or its frequencies differ from scipy's")
+    sig_row(f"{lbl} vs scipy.signal f64 (rel)", seg, rel(pxy, pref), 1e-4)
+    n, seg = SIGNAL_STFT
+    x = rng.standard_normal(n).astype(np.float32)
+    lbl = f"signal.stft {n} / {seg}"
+    f, t, zxx = counted(per_call, lbl, lambda: sg.stft(x, fs=1e3, nperseg=seg), {})
+    fr, tr, zref = ss.stft(x.astype(np.float64), fs=1e3, nperseg=seg)
+    if not (np.allclose(f, fr) and np.allclose(t, tr)):
+        fail(f"{lbl}: its frequencies or times differ from scipy's")
+    sig_row(f"{lbl} vs scipy.signal f64 (rel)", seg, rel(zxx, zref), 1e-4)
+    lbl = f"signal.istft {n} / {seg}"
+    _, back = counted(per_call, lbl, lambda: sg.istft(zxx, fs=1e3, nperseg=seg), {})
+    if back.shape != ss.istft(zref, fs=1e3, nperseg=seg)[1].shape:
+        fail(f"{lbl}: shape {back.shape} differs from scipy's")
+    sig_row(f"{lbl} vs input, roundtrip (abs)", seg, float(np.abs(back[:n] - x).max()), 1e-3)
+    x = rng.standard_normal(1000).astype(np.float32)
+    lbl = "signal.czt 1000"
+    got = counted(per_call, lbl, lambda: sg.czt(x), {"whole_transform": 2})
+    sig_row(f"{lbl} vs scipy.signal f64 (rel)", 1000, rel(got, ss.czt(x.astype(np.float64))), 3e-5)
+    lbl = f"hilbert2 {m}x{m}"
+    got = counted(per_call, lbl, lambda: gt.hilbert2(img), {})
+    sig_row(f"{lbl} vs scipy.signal f64 (rel)", m * m, rel(got, ss.hilbert2(img.astype(np.float64))), 1e-5)
+    n, bp = SIGNAL_ENVELOPE
+    t = np.arange(n) / n
+    x = (np.sin(2 * np.pi * 300 * t) * (1 + 0.5 * np.cos(2 * np.pi * 7 * t))
+         + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    lbl = f"signal.envelope {n} bp_in={bp}"
+    got = counted(per_call, lbl, lambda: sg.envelope(x, bp), {})
+    ref = ss.envelope(x.astype(np.float64), bp)
+    # the JAX test's assert_allclose(atol=2e-4, rtol=1e-3) as one number
+    sig_row(f"{lbl} vs scipy.signal f64 (|d| - 1e-3 |ref|)", n,
+            float((np.abs(got - ref) - 1e-3 * np.abs(ref)).max()), 2e-4)
+
+    restore()
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    print(f"  launches in phase 3f's namespaces: {launched}")
+    report.update(namespace_launches=launched, namespace_launches_per_call=per_call)
+    check_geometries(report, geometries, "phase 3f namespaces")
+    return launched
+
+
+def fno_data(cell: dict, seed: int):
+    """Synthetic fields at a cell's shapes, from ``seed``: band-limited
+    random fields and their heat-equation evolution, (x, y) channels-last
+    float32.  1-D (Burgers' shapes): u0 -> u(t); 2-D (Navier-Stokes'):
+    ``in_channels`` steps of a field -> the next one."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b, s, c = cell["batch"], cell["size"], cell["in_channels"]
+    k = np.fft.fftfreq(s, 1.0 / s)
+    if cell["dims"] == 1:
+        spec = np.zeros((b, s), complex)
+        spec[:, 1:17] = (rng.standard_normal((b, 16)) + 1j * rng.standard_normal((b, 16))) / np.arange(1, 17)
+        u0 = np.fft.ifft(spec, axis=-1).real * s
+        u1 = np.fft.ifft(spec * np.exp(-0.002 * k ** 2), axis=-1).real * s
+        return u0[..., None].astype(np.float32), u1[..., None].astype(np.float32)
+    kk = k[:, None] ** 2 + k[None, :] ** 2
+    spec = (rng.standard_normal((b, s, s)) + 1j * rng.standard_normal((b, s, s))) * (kk <= 64) / (1 + kk)
+    steps = [np.fft.ifft2(spec * np.exp(-0.01 * kk * i)).real * s for i in range(c + 1)]
+    return np.stack(steps[:c], axis=-1).astype(np.float32), steps[c][..., None].astype(np.float32)
+
+
+def fno_model(cell: dict, dev, seed: int):
+    """The port's FNO of a cell, its weights drawn from ``seed``."""
+    import torch
+
+    from gpu_fft_tpu_torch.models import FNO1d, FNO2d
+
+    common = dict(width=cell["width"], depth=cell["depth"], in_channels=cell["in_channels"], device=dev,
+                  generator=torch.Generator().manual_seed(seed))
+    if cell["dims"] == 1:
+        return FNO1d(modes=cell["modes"], **common)
+    return FNO2d(modes1=cell["modes"], modes2=cell["modes"], **common)
+
+
+def fft_twin(model, dtype):
+    """A copy of the port's FNO ``model`` in ``dtype`` whose spectral layers
+    run their transforms on ``torch.fft`` (``rfft`` / ``irfft``, ``rfft2`` /
+    ``irfft2``): the same parameters under the same names and the same
+    channel mix; nothing else changes.  In float64 the reference of the
+    phase 3f checks, in float32 phase 4's library call."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from gpu_fft_tpu_torch.models.fno import _cmul_mix
+
+    class Spectral(torch.nn.Module):
+        def __init__(self, spec):
+            super().__init__()
+            for name, p in spec.named_parameters(recurse=False):
+                self.register_parameter(name, p)
+            self.modes = tuple(getattr(spec, a, None) for a in ("modes", "modes1", "modes2"))
+
+        def forward(self, x):
+            if x.dim() == 3:
+                length, m = x.shape[1], self.modes[0]
+                half = length // 2 + 1
+                y = torch.fft.rfft(x.permute(0, 2, 1), dim=-1)[..., :m]
+                zr, zi = _cmul_mix(y.real, y.imag, self.w_real, self.w_imag)
+                z = torch.complex(F.pad(zr, (0, half - m)), F.pad(zi, (0, half - m)))
+                return torch.fft.irfft(z, n=length, dim=-1).permute(0, 2, 1)
+            b, h, w, _ = x.shape
+            _, m1, m2 = self.modes
+            hw = w // 2 + 1
+            y = torch.fft.rfft2(x.permute(0, 3, 1, 2))
+            tr, ti = _cmul_mix(y.real[:, :, :m1, :m2], y.imag[:, :, :m1, :m2], self.w1_real, self.w1_imag)
+            br, bi = _cmul_mix(y.real[:, :, h - m1:, :m2], y.imag[:, :, h - m1:, :m2], self.w2_real, self.w2_imag)
+            gap = tr.new_zeros(b, tr.shape[1], h - 2 * m1, m2)
+            zr = F.pad(torch.cat([tr, gap, br], dim=2), (0, hw - m2))
+            zi = F.pad(torch.cat([ti, gap, bi], dim=2), (0, hw - m2))
+            return torch.fft.irfft2(torch.complex(zr, zi), s=(h, w)).permute(0, 2, 3, 1)
+
+    twin = copy.deepcopy(model).to(dtype)
+    for i in range(model.depth):
+        setattr(twin, f"spec{i}", Spectral(getattr(twin, f"spec{i}")))
+    return twin
+
+
+def fno_phase(report: dict, dev) -> dict:
+    """Phase 3f, second half: the FNO cells (a)-(c) at the published widths
+    on the card: one forward and backward against the float64 twin
+    (``fft_twin``; output 2*5*log2(N)*eps of max|twin|, every parameter's
+    gradient 1e-4 of max|twin's|), then ``FNO_STEPS`` Adam steps (lr 1e-3)
+    whose loss must fall; launches pinned (K3 three times a layer at
+    2^18, none at the published grids), no plain call, every geometry
+    against its plain version; then ``python -m
+    gpu_fft_tpu_torch.examples.fno`` to its OK line.  Returns the launches
+    of this half (counted from 0)."""
+    import math
+    import os
+
+    import torch
+
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import large as L
+    from gpu_fft_tpu_torch.models import make_train_step, mse
+
+    per_call = {}
+    K.reset_counts()
+    geometries, restore = capture_launches(L)
+    report["fno"] = {}
+    for name, cell in FNO_CELLS.items():
+        x_np, y_np = fno_data(cell, seed=ord(name))
+        x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+        model = fno_model(cell, dev, seed=ord(name))
+        n = cell["size"] ** cell["dims"]
+        # Rows longer than 65,536: K3 for the forward rfft, the irfft's
+        # staged fold and the rfft's backward (the fold's backward is torch).
+        want = {"stage_a": 3 * cell["depth"]} if cell["dims"] == 1 and cell["size"] > 65536 else {}
+        lbl = f"FNO({name}) forward + backward {tuple(x.shape)}"
+
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            out = model(x)
+            mse(out, y).backward()
+            return out.detach()
+
+        out = counted(per_call, lbl, fwd_bwd, want)
+        twin = fft_twin(model, torch.float64)
+        tout = twin(x.double())
+        mse(tout, y.double()).backward()
+        tout = tout.detach()
+        record(report, "fno_path", f"{lbl} output vs the f64 twin (rel)", n,
+               float((out.double() - tout).abs().max()) / float(tout.abs().max()), 2 * gate(n))
+        twin_p = dict(twin.named_parameters())
+        worst = max((float((p.grad.double() - twin_p[k].grad).abs().max()) / float(twin_p[k].grad.abs().max()), k)
+                    for k, p in model.named_parameters())
+        record(report, "fno_path", f"{lbl} worst gradient ({worst[1]}) vs the f64 twin (rel)", n, worst[0], 1e-4)
+        del twin, tout, twin_p, out
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        lbl = f"FNO({name}) {FNO_STEPS} Adam steps"
+        losses = counted(per_call, lbl, lambda: [float(step(x, y)) for _ in range(FNO_STEPS)],
+                         {k: v * FNO_STEPS for k, v in want.items()})
+        print(f"  {lbl}: loss {losses[0]:.6g} -> {losses[-1]:.6g} "
+              f"(launches {({k: v for k, v in per_call[lbl].items() if v})})")
+        report["fno"][name] = dict(cell=cell, losses=losses, launches=per_call[lbl])
+        if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+            fail(f"{lbl}: the loss did not fall: {losses}")
+        del model, step, x, y
+        torch.cuda.empty_cache()
+    restore()
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    print(f"  launches in phase 3f's FNO cells: {launched}")
+    report.update(fno_launches=launched, fno_launches_per_call=per_call)
+    check_geometries(report, geometries, "phase 3f FNO")
+
+    # The example as a user runs it: its own process, on the card by default.
+    env = {k: v for k, v in os.environ.items() if k != "GPU_FFT_TPU_TORCH_DEVICE"}
+    proc = subprocess.run([sys.executable, "-m", "gpu_fft_tpu_torch.examples.fno"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"    | {line}")
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    report["example_fno_module"] = dict(rc=proc.returncode, output=proc.stdout)
+    if proc.returncode != 0 or last != EXAMPLE_GATES["fno"]:
+        fail(f"python -m gpu_fft_tpu_torch.examples.fno: rc {proc.returncode}, last line {last!r}: "
+             f"{proc.stderr[-1000:]}")
+    return launched
+
+
+def namespace_fno_times(report: dict, dev) -> None:
+    """Phase 4's rows for phase 3f: ``compat.fft`` beside ``torch.fft.fft``,
+    and each FNO cell's train step beside the same model with its spectral
+    layers on torch.fft in f32 (the library call, ``fft_twin``); CUDA
+    events and profiler device time, the top device kernels of each."""
+    import torch
+
+    import gpu_fft_tpu_torch.compat as cf
+    from gpu_fft_tpu_torch.models import make_train_step
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    def row(label, port_fn, torch_fn, torch_name, iters):
+        ms = cuda_ms(port_fn, iters=iters, repeats=3)
+        dev_ms, top = device_ms(port_fn, iters=iters, top=8)
+        ours_ms, _ = device_ms(port_fn, iters=iters, attempts=2, match="gft::")  # K1 / K2 / K3
+        tms = cuda_ms(torch_fn, iters=iters, repeats=3)
+        tdev_ms, ttop = device_ms(torch_fn, iters=iters, top=8)
+        report["times"].append(dict(what=label, ms=ms, torch_ms=tms, torch_call=torch_name, device_ms=dev_ms,
+                                    own_kernels_device_ms=ours_ms, torch_device_ms=tdev_ms, top_kernels=top,
+                                    torch_top_kernels=ttop))
+        print(f"  {label:44s} events: port {ms:.4f} ms {torch_name} {tms:.4f} ms | device: port {fmt(dev_ms)}"
+              f" (own kernels {fmt(ours_ms)}) {torch_name} {fmt(tdev_ms)}")
+        print(f"    top kernels: {[(k, round(v, 4)) for k, v in top]}")
+        print(f"    {torch_name} top kernels: {[(k, round(v, 4)) for k, v in ttop]}")
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for n in (4096, 1 << 20):
+        z = torch.complex(torch.randn(n, generator=gen, device=dev), torch.randn(n, generator=gen, device=dev))
+        row(f"compat.fft {n} complex", lambda z=z: cf.fft(z), lambda z=z: torch.fft.fft(z), "torch.fft.fft", 20)
+    for name, cell in FNO_CELLS.items():
+        x_np, y_np = fno_data(cell, seed=ord(name))
+        x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+        model = fno_model(cell, dev, seed=ord(name))
+        twin = fft_twin(model, torch.float32)
+        step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+        tstep = make_train_step(twin, torch.optim.Adam(twin.parameters(), lr=1e-3))
+        row(f"FNO({name}) train step {tuple(x.shape)}", lambda: step(x, y), lambda: tstep(x, y),
+            "the model on torch.fft", 5)
+        del model, twin, step, tstep, x, y
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1666,6 +2061,13 @@ def main() -> None:
           "in float64")
     twod_launches = twod_phase(report, dev, rng)
 
+    # ── Phase 3f: the scipy.fft / scipy.signal namespaces and the FNO ───────
+    stamp("phase 3f")
+    print("phase 3f: the scipy.fft / scipy.signal namespaces and the FNO on device='cuda' against scipy in "
+          "float64 and the float64 twin")
+    namespace_launches = namespace_phase(report, dev, rng)
+    fno_launches = fno_phase(report, dev)
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -1866,6 +2268,7 @@ def main() -> None:
     analysis_times(report, dev)
     filter_times(report, dev)
     twod_times(report, dev)
+    namespace_fno_times(report, dev)
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
@@ -1963,7 +2366,7 @@ def main() -> None:
     }
     # The main path's launches: fft/ifft and the real-output path together.
     all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
-                          + filter_launches[k] + twod_launches[k]
+                          + filter_launches[k] + twod_launches[k] + namespace_launches[k] + fno_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
@@ -1974,6 +2377,7 @@ def main() -> None:
             irfft_path_launches=irfft_launches.get(name, 0), grad_path_launches=grad_launches.get(name, 0),
             analysis_path_launches=analysis_launches.get(name, 0),
             filter_path_launches=filter_launches.get(name, 0), twod_path_launches=twod_launches.get(name, 0),
+            namespace_path_launches=namespace_launches.get(name, 0), fno_path_launches=fno_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},

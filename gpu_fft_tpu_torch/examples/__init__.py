@@ -16,7 +16,9 @@ Run one with ``python -m gpu_fft_tpu_torch.examples.<name>``:
 * ``images`` — Fourier-domain image filters between ``fft2_device`` and
   ``ifft2_device``;
 * ``filtering`` — FIR/IIR design and filtering, overlap-add, multirate, a
-  2-D convolution and peak picking.
+  2-D convolution and peak picking;
+* ``fno`` — a 1-D Fourier Neural Operator learns the antiderivative
+  operator (80 Adam steps), then a 2-D FNO runs one forward pass.
 """
 
-NAMES = ("simple", "backends", "analysis", "training", "images", "filtering")
+NAMES = ("simple", "backends", "analysis", "training", "images", "filtering", "fno")

@@ -8,8 +8,8 @@ transforms of ``ops/exact.py`` for any other length.  The host API takes
 numpy and returns numpy and runs on ``device`` (default ``"cuda"``);
 ``*_device`` functions take and return tensors on the tensor's device.
 
-``hilbert2`` and ``envelope_scipy`` ride the complex ``compat`` namespace,
-which the port does not have yet; they are not here.
+``hilbert2`` and ``envelope_scipy`` are numpy host code on the complex
+``compat`` namespace, run on ``device``.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ __all__ = [
     "detrend",
     "envelope",
     "envelope_device",
+    "envelope_scipy",
     "fft_convolve",
     "fft_convolve_device",
     "fft_correlate",
@@ -36,6 +37,7 @@ __all__ = [
     "gauss_spline",
     "hfft",
     "hilbert",
+    "hilbert2",
     "hilbert_device",
     "ifftshift",
     "ihfft",
@@ -480,9 +482,127 @@ def deconvolve(signal, divisor):
     return quot, rem
 
 
+def hilbert2(x, N=None, axes=(-2, -1), device=None):
+    """2-D analytic signal (``scipy.signal.hilbert2``): single-orthant
+    spectrum — per axis, keep bin 0, double bins 1..(n+1)//2-1, zero the
+    rest (scipy >= 1.17 semantics: even-n Nyquist is zeroed) — the
+    separable product of two 1-D analytic-signal steps on ``compat.fft2``,
+    run on ``device``."""
+    x = np.asarray(x)
+    if np.iscomplexobj(x):
+        raise ValueError("hilbert2 needs a real input")
+    if x.ndim < 2:
+        raise ValueError("hilbert2 needs an at-least-2-D input")
+    if len(axes) != 2 or axes[0] == axes[1]:
+        raise ValueError("axes must be two distinct axes")
+    x = np.moveaxis(x.astype(np.float64), axes, (-2, -1))
+    if N is None:
+        N = x.shape[-2:]
+    elif np.isscalar(N):
+        N = (int(N), int(N))
+    if len(N) != 2 or any(n <= 0 for n in N):
+        raise ValueError("N must be two positive lengths")
+    from .. import compat
+
+    Xf = compat.fft2(x, s=tuple(N), device=device)
+    h = []
+    for n in N:
+        h1 = np.zeros(n)
+        h1[0] = 1.0
+        h1[1:(n + 1) // 2] = 2.0
+        h.append(h1)
+    out = compat.ifft2(Xf * np.outer(h[0], h[1]), device=device)
+    return np.moveaxis(out, (-2, -1), axes)
+
+
 def gauss_spline(x, n: int):
     """Gaussian approximation of the order-n B-spline
     (``scipy.signal.gauss_spline``): variance (n+1)/12."""
     x = np.asarray(x, dtype=np.float64)
     sig2 = (n + 1) / 12.0
     return np.exp(-x * x / (2.0 * sig2)) / np.sqrt(2.0 * np.pi * sig2)
+
+
+def envelope_scipy(z, bp_in=(1, None), *, n_out=None, squared=False,
+                   residual="lowpass", axis=-1, device=None):
+    """Band-limited envelope + residual (``scipy.signal.envelope``,
+    scipy >= 1.16): the envelope is |baseband| of the bp_in-band analytic
+    signal; the residual is the out-of-band remainder ('lowpass' keeps
+    only the below-band part, 'all' keeps everything outside the band).
+    Rides the ``compat`` transforms on the last axis, on ``device``."""
+    from .. import compat
+
+    z = np.asarray(z)
+    if not -z.ndim <= axis < z.ndim:
+        raise ValueError(f"invalid axis {axis} for shape {z.shape}")
+    if z.shape[axis] == 0:
+        raise ValueError("z must be non-empty along axis")
+    if len(bp_in) != 2 or not all(b is None or isinstance(b, (int, np.integer))
+                                  for b in bp_in):
+        raise ValueError("bp_in must be a 2-tuple of int | None")
+    if n_out is not None and (not isinstance(n_out, (int, np.integer)) or n_out <= 0):
+        raise ValueError("n_out must be a positive int or None")
+    if residual not in ("lowpass", "all", None):
+        raise ValueError("residual must be 'lowpass', 'all' or None")
+    n = z.shape[axis]
+    n_out = n if n_out is None else int(n_out)
+    fak = n_out / n
+    lo = bp_in[0] if bp_in[0] is not None else -(n // 2)
+    hi = bp_in[1] if bp_in[1] is not None else (n + 1) // 2
+    if not -(n // 2) <= lo < hi <= (n + 1) // 2:
+        raise ValueError(f"bp_in {bp_in} out of range for n={n}")
+    z = np.moveaxis(z, axis, -1)
+    complex_in = np.iscomplexobj(z)
+    if complex_in:
+        Z = compat.fft(z, device=device)  # a fresh array — masked in place below
+    else:
+        Z = np.zeros(z.shape, dtype=complex)
+        Z[..., : n // 2 + 1] = compat.rfft(z, device=device)
+        if lo > 0:  # analytic within the band
+            Z[..., lo:hi] *= 2
+        elif hi > 0:
+            Z[..., 1:hi] *= 2
+    if not lo <= 0 < hi:
+        z_bb = compat.ifft(Z[..., lo:hi], n=n_out, device=device) * fak
+    else:
+        Zs = np.fft.fftshift(Z, axes=-1)
+        z_bb = compat.ifft(Zs[..., lo + n // 2 : hi + n // 2], n=n_out, device=device) * fak
+    env = np.abs(z_bb) if not squared else z_bb.real ** 2 + z_bb.imag ** 2
+    env = np.moveaxis(env, -1, axis)
+    if residual is None:
+        return env
+    if not lo <= 0 < hi:
+        Z[..., lo:hi] = 0
+    else:
+        Z[..., :hi] = 0
+        Z[..., lo:] = 0
+    if residual == "lowpass":
+        if hi > 0:
+            Z[..., hi : (n + 1) // 2] = 0
+        else:
+            Z[..., lo:] = 0
+            Z[..., : (n + 1) // 2] = 0
+    if complex_in:
+        if n_out == n:
+            z_res = compat.ifft(Z, device=device)
+        else:
+            # spectral resampling: move bins to the new grid, halving /
+            # doubling the unpaired Nyquist-like bin as scipy's
+            # resample(domain='freq') does
+            m = min(n, n_out)
+            Zr = np.zeros(z.shape[:-1] + (n_out,), dtype=complex)
+            up = m // 2 + 1
+            Zr[..., :up] = Z[..., :up]
+            Zr[..., -(m - up):] = Z[..., -(m - up):] if m > up else 0
+            if m % 2 == 0:
+                if n_out < n:
+                    Zr[..., m // 2] += Z[..., -(m // 2)]
+                else:
+                    Zr[..., m // 2] *= 0.5
+                    Zr[..., -(m // 2)] = Zr[..., m // 2]
+            z_res = compat.ifft(Zr, device=device) * fak
+    else:
+        if n_out != n and (m := min(n, n_out)) % 2 == 0:
+            Z[..., m // 2] *= 2 if n_out < n else 0.5
+        z_res = fak * compat.irfft(Z[..., : n // 2 + 1], n=n_out, device=device)
+    return np.stack((env, np.moveaxis(z_res, -1, axis)), axis=0)

@@ -640,3 +640,77 @@ def test_examples_run_on_the_card(dev):
         with contextlib.redirect_stdout(buf):
             rc = importlib.import_module(f"gpu_fft_tpu_torch.examples.{name}").main(device="cuda")
         assert rc == 0 and "FAIL" not in buf.getvalue(), buf.getvalue()
+
+
+# ── The scipy.fft namespace and the FNO ──────────────────────────────────────
+
+
+@pytest.mark.parametrize("call,want", [
+    ("fft 1024", {"whole_transform_packed": 1}),
+    ("fft 4096", {"whole_transform": 1}),
+    ("ifft 16384", {"whole_transform": 1}),
+    ("fft 2^20", {"stage_a": 1}),
+    ("fft 1009", {"whole_transform": 2}),
+    ("fft 1000", {}),
+    ("rfft 4096", {"whole_transform": 1}),
+    ("irfft 2^20", {"stage_a": 1}),
+    ("fftn 512^2", {}),
+])
+def test_compat_calls_launch_the_expected_kernels(dev, call, want):
+    """``compat`` on CUDA tensors: a tensor out on the card, the dispatch's
+    kernels (K2 / K1 in the band, K1 twice for Bluestein at 1,009, K3
+    staged, the mixed four-step at 1,000 and the n = 512 products of a
+    512^2 image on torch), no plain version; each output against torch.fft
+    (5 * log2(N) * eps of max|ref|; 3e-5 off powers of two)."""
+    import gpu_fft_tpu_torch.compat as cf
+
+    name, size = call.split()
+    n = {"2^20": 1 << 20, "512^2": 512 * 512}.get(size) or int(size)
+    g = torch.Generator(device=dev).manual_seed(6)
+    if name == "fftn":
+        x = torch.complex(*torch.randn(2, 512, 512, device=dev, generator=g))
+        fn, ref_fn = (lambda: cf.fftn(x)), (lambda: torch.fft.fftn(x))
+    elif name == "rfft":
+        x = torch.randn(n, device=dev, generator=g)
+        fn, ref_fn = (lambda: cf.rfft(x)), (lambda: torch.fft.rfft(x))
+    elif name == "irfft":
+        x = torch.complex(*torch.randn(2, n // 2 + 1, device=dev, generator=g))
+        fn, ref_fn = (lambda: cf.irfft(x)), (lambda: torch.fft.irfft(x))
+    else:
+        x = torch.complex(*torch.randn(2, n, device=dev, generator=g))
+        fn, ref_fn = (lambda: getattr(cf, name)(x)), (lambda: getattr(torch.fft, name)(x))
+    fn()  # plans and tables made on the first call
+    torch.cuda.synchronize()
+    K.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _launches()
+    assert all(p == 0 for _, p in got.values()), got
+    assert {kk: v[0] for kk, v in got.items() if v[0]} == want, got
+    assert isinstance(out, torch.Tensor) and out.device.type == "cuda"
+    ref = ref_fn()
+    tol = 5 * np.log2(n) * np.finfo(np.float32).eps if n & (n - 1) == 0 else 3e-5
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_fno1d_long_record_step_launches_k3_three_times_a_layer(dev):
+    """FNO1d (modes 16, width 64, depth 1) at L = 2^18, B = 2: one train
+    step runs K3 for the forward rfft, the irfft's staged fold and the
+    rfft's backward, and no plain version."""
+    from gpu_fft_tpu_torch.models import FNO1d, make_train_step
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    model = FNO1d(modes=16, width=64, depth=1, in_channels=1, device=dev,
+                  generator=torch.Generator().manual_seed(7))
+    step = make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    x = torch.randn(2, 1 << 18, 1, device=dev, generator=g)
+    y = torch.randn(2, 1 << 18, 1, device=dev, generator=g)
+    step(x, y)
+    torch.cuda.synchronize()
+    K.reset_counts()
+    loss = step(x, y)
+    torch.cuda.synchronize()
+    got = _launches()
+    assert {kk: v[0] for kk, v in got.items() if v[0]} == {"stage_a": 3}, got
+    assert all(p == 0 for _, p in got.values()), got
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())

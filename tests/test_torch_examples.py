@@ -2,8 +2,10 @@
 the CPU and print their gates as the JAX package's ``examples/*.py`` do.
 
 Each ``main(device="cpu")`` prints its ``[OK]`` line (``OK`` for
-``training``, as its JAX original) and returns 0; ``simple`` finds the
-reference's 15.04 Hz.  ``python -m`` runs one as a module.
+``training``, ``[OK] antiderivative operator learned`` for ``fno``, as their
+JAX originals) and returns 0; ``simple`` finds the
+reference's 15.04 Hz; ``fno`` trains its FNO1d to the JAX example's gate
+and runs the FNO2d forward.  ``python -m`` runs one as a module.
 """
 
 import contextlib
@@ -19,7 +21,7 @@ import pytest
 from gpu_fft_tpu_torch.examples import NAMES
 
 ROOT = Path(__file__).resolve().parent.parent
-GATE = {"training": "OK"}
+GATE = {"training": "OK", "fno": "[OK] antiderivative operator learned"}
 
 
 def _run(name):
@@ -50,6 +52,13 @@ def test_backends_lists_each_backend():
     assert "TORCH " in out and "TORCH_FFT" in out
     rows = [line for line in out.splitlines() if "roundtrip max error" in line]
     assert len(rows) >= 2 and all(float(r.split()[-1]) < 1e-3 for r in rows)
+
+
+def test_fno_trains_and_runs_the_2d_model():
+    _, out = _run("fno")
+    assert "FNO1d: 30769 parameters, modes=8 width=24 depth=3" in out
+    assert "FNO2d forward: (2, 64, 64, 1) -> (2, 64, 64, 1)" in out
+    assert out.rstrip().endswith("[OK] antiderivative operator learned")
 
 
 def test_example_runs_as_a_module():

@@ -43,7 +43,9 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.ops.rank, gpu_fft_tpu_torch.ops.splines, gpu_fft_tpu_torch.backends.native, "
         "gpu_fft_tpu_torch.examples.simple, gpu_fft_tpu_torch.examples.backends, "
         "gpu_fft_tpu_torch.examples.analysis, gpu_fft_tpu_torch.examples.training, "
-        "gpu_fft_tpu_torch.examples.images, gpu_fft_tpu_torch.examples.filtering\n"
+        "gpu_fft_tpu_torch.examples.images, gpu_fft_tpu_torch.examples.filtering, "
+        "gpu_fft_tpu_torch.compat, gpu_fft_tpu_torch.signal, gpu_fft_tpu_torch.models, "
+        "gpu_fft_tpu_torch.models.fno, gpu_fft_tpu_torch.models.train, gpu_fft_tpu_torch.examples.fno\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"
