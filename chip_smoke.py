@@ -60,8 +60,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    four ndimage Fourier filters on the image's spectrum against
    scipy.ndimage (2e-6) and their ifft2 against numpy; NATIVE (built with
    ``make -C native`` where missing; the phase fails if it does not load)
-   at 1,024 ... 65,536 and B = 16; the six ``gpu_fft_tpu_torch.examples``
-   (with ``fno``) to their OK lines; each call's launches, no plain call,
+   at 1,024 ... 65,536 and B = 16; the eight ``gpu_fft_tpu_torch.examples``
+   (with ``fno`` and ``extensions``) to their OK lines; each call's launches, no plain call,
    then every kernel geometry the phase launched (K3 at B = 512 among
    them) against its plain version;
 3f. the scipy.fft / scipy.signal namespaces and the FNO, counted from 0:
@@ -81,6 +81,27 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    and 20 Adam steps whose loss falls; each call's launches, no plain
    call, every geometry against its plain version; ``python -m
    gpu_fft_tpu_torch.examples.fno`` to its OK line;
+3g. the parallel layer, the mesh train steps, serving and the CLI, counted
+   from 0, on a one-rank NCCL process group (``default_mesh()`` and the
+   (dp, sp) and (dp, tp) meshes of size 1: real collectives and DTensors,
+   the local kernels at full size): ``distributed_fft`` / ``_ifft`` at
+   (2, 2^22) and (1, 2^24); ``fft2_sharded`` / ``ifft2_sharded`` on the
+   panel (K3 once each way at B = 512, the rows' sharding kept);
+   ``fftn_sharded`` 256^3; ``fft_batch_sharded`` / ``ifft_batch_sharded``
+   at (1, 16,384) (K1) and (1, 2^20) (K3); ``fft2_batch_sharded``
+   (8, 512, 512), each against numpy f64 (5*log2(N)*eps); ``welch_sharded``
+   2^20 / 4,096 (1e-4), ``oaconvolve_sharded`` 2^21 * 1,025 (2e-3),
+   ``lfilter_sharded`` butter(4) 2^20 (2e-4 abs) against scipy.signal f64;
+   ``make_data_parallel_step`` on FNO (c) (K3 12 times a step) and
+   ``make_gspmd_step`` (FSDP2, dp = tp = 1) on FNO (a), each step's loss and
+   parameters against the single-device step from the same weights (1e-5),
+   20 steps whose loss falls; every serving kind at (1, 1,024), (1, 4,096),
+   (16, 65,536) and (1, 2^20) exported on the card, written, read and run,
+   bit-equal to the live call with its launches; ``python -m
+   gpu_fft_tpu_torch plan``, ``demo`` and ``serve-check`` as processes (the
+   ``extensions`` example, its serving step included, runs with the other
+   examples in phase 3e); no plain call, every geometry against its plain
+   version;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -105,6 +126,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    on the panel and the image, fft_convolve2d_device, fftn on the volume)
    beside torch.fft's, compat.fft at 4,096 and 2^20 beside torch.fft.fft
    and the FNO train steps (a)-(c) beside the same model on torch.fft;
+   phase 3g's rows: fft2_sharded on the panel beside fft2_device, the
+   data-parallel FNO (c) step beside the single-device step, an artifact's
+   module at (1, 4,096) and (1, 2^20) beside fft_device, and the band's
+   fft_device (1, 1,024 ... 16,384) with K1 / K2 through their operator
+   beside the same entry called directly (the dispatcher's host time);
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -130,6 +156,7 @@ is a JSON object with one entry per kernel.  Details go to
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -202,7 +229,15 @@ FNO_CELLS = {
     "c": dict(dims=1, batch=2, size=1 << 18, in_channels=1, modes=16, width=64, depth=4),
 }
 FNO_STEPS = 20
-EXAMPLE_GATES = {"training": "OK", "fno": "[OK] antiderivative operator learned"}
+EXAMPLE_GATES = {"training": "OK", "fno": "[OK] antiderivative operator learned", "extensions": "OK"}
+# Phase 3g: the parallel layer at world size 1 over NCCL, serving and the CLI.
+DIST_SHAPES = ((2, 1 << 22), (1, 1 << 24))  # distributed_fft / _ifft
+BATCH_SHARDED = ((1, 16384), (1, 1 << 20))  # fft_batch_sharded: K1, K3
+BATCH_2D = (8, 512, 512)
+WELCH_SHARDED = (1 << 20, 4096)  # samples, nperseg
+OACONV_SHARDED = (1 << 21, 1025)  # samples, taps
+LFILTER_SHARDED = 1 << 20
+EXPORT_SHAPES = ((1, 1024), (1, 4096), (16, 65536), (1, 1 << 20))
 
 
 T0 = time.perf_counter()
@@ -363,6 +398,8 @@ def capture_launches(large) -> tuple[dict, object]:
     input shape, real or complex, plan, tile arguments) -> (xr, xi, args,
     kwargs).  The counts are the wrapped kernels' own.  Returns the dict and
     a function that puts the entries back."""
+    import torch
+
     seen = {}
     originals = {name: getattr(large, name) for name in MAIN_PATH_KERNELS}
 
@@ -370,7 +407,7 @@ def capture_launches(large) -> tuple[dict, object]:
         def call(xr, xi, *args, **kw):
             key = (name, tuple(xr.shape), xi is None,
                    *(id(a) if isinstance(a, dict) else a for a in args), *sorted(kw.items()))
-            if key not in seen:
+            if key not in seen and type(xr) is torch.Tensor:  # not a tensor torch.export traces with
                 seen[key] = (xr.clone(), None if xi is None else xi.clone(), args, kw)
             return fn(xr, xi, *args, **kw)
 
@@ -1344,7 +1381,7 @@ def twod_times(report: dict, dev) -> None:
 def counted(per_call: dict, label: str, fn, want: dict):
     """``fn()`` with the launches it made kept under ``per_call[label]``;
     fails on a plain call, or where the kernels that ran and their counts
-    are not ``want``."""
+    are not ``want`` (None: not pinned)."""
     import torch
 
     before = counts()
@@ -1354,7 +1391,7 @@ def counted(per_call: dict, label: str, fn, want: dict):
     if plain:
         fail(f"{label}: {plain} plain kernel versions ran on the card")
     got = {k: v for k, v in per_call[label].items() if v}
-    if got != want:
+    if want is not None and got != {k: v for k, v in want.items() if v}:
         fail(f"{label}: launches {got}, expected {want}")
     return out
 
@@ -1692,6 +1729,349 @@ def namespace_fno_times(report: dict, dev) -> None:
             "the model on torch.fft", 5)
         del model, twin, step, tstep, x, y
         torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def nccl_world(dev):
+    """A one-rank NCCL process group on ``dev`` (store in memory) for the
+    parallel layer, destroyed on the way out."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(torch.cuda.current_device() if dev.index is None else dev.index)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_meshes():
+    """The meshes of phase 3g: ``default_mesh()`` ("dp",) on the card and the
+    (dp, sp) and (dp, tp) meshes, each of size 1."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import gpu_fft_tpu_torch.parallel as tp
+
+    return (tp.default_mesh(), init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "sp")),
+            init_device_mesh("cuda", (1, 1), mesh_dim_names=("dp", "tp")))
+
+
+def parallel_phase(report: dict, dev, rng) -> dict:
+    """Phase 3g: the parallel layer at world size 1 over NCCL (real
+    collectives and DTensors, the local kernels at full size), the mesh
+    train steps, serving artifacts and the CLI,
+    each against numpy / scipy in float64 or the single-device counterpart;
+    each call's launches pinned, no plain call, then every geometry it
+    launched against its plain version.  Returns the launches of the phase
+    (counted from 0)."""
+    import copy
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+    import scipy.fft as sf
+    import scipy.signal as ss
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    import gpu_fft_tpu_torch.parallel as tp
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import large as L
+    from gpu_fft_tpu_torch.models import make_data_parallel_step, make_gspmd_step, make_train_step
+    from gpu_fft_tpu_torch.parallel.distributed import _split_for_mesh
+    from gpu_fft_tpu_torch.utils import serving
+
+    per_call = {}
+
+    def host(a):
+        if hasattr(a, "full_tensor"):
+            a = a.full_tensor()
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    def cerr(re, im, ref):
+        return max(float(np.abs(host(re) - ref.real).max()), float(np.abs(host(im) - ref.imag).max())) \
+            / float(np.abs(ref).max())
+
+    def rerr(got, ref):
+        return float(np.abs(host(got) - ref).max()) / float(np.abs(ref).max())
+
+    def row(label, n, err, limit):
+        record(report, "parallel_path", f"{label} (launches {({k: v for k, v in per_call[label.split(' vs ')[0]].items() if v})})",
+               n, err, limit)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    def once(*shapes):
+        """The launches of one transform_any call per (rows, n)."""
+        want = {}
+        for b, n in shapes:
+            k = band_kernel(b, n)
+            if k:
+                want[k] = want.get(k, 0) + 1
+        return want
+
+    K.reset_counts()
+    geometries, restore = capture_launches(L)
+    with nccl_world(dev):
+        mesh, mesh_sp, mesh_tp = parallel_meshes()
+        print(f"  meshes: {mesh} {mesh_sp} {mesh_tp} (NCCL, world size 1)")
+
+        # The four-step with the all-to-all transpose.
+        for b, n in DIST_SHAPES:
+            x = rng.standard_normal((b, n)).astype(np.float32)
+            xt = tensor(x)
+            n1, n2 = _split_for_mesh(n, 1)
+            want = once((b * n2, n1), (b * n1, n2))
+            lbl = f"distributed_fft ({b}, {n})"
+            yr, yi = counted(per_call, lbl, lambda: tp.distributed_fft(xt, mesh_sp, "sp", "dp"), want)
+            row(f"{lbl} vs numpy f64 (rel)", n, cerr(yr, yi, sf.fft(x.astype(np.float64), axis=-1, workers=-1)),
+                gate(n))
+            lbl = f"distributed_ifft ({b}, {n})"
+            br, bi = counted(per_call, lbl, lambda: tp.distributed_ifft(yr, yi, mesh_sp, "sp", "dp"), want)
+            row(f"{lbl} vs input, roundtrip (rel)", n,
+                max(rerr(br, x), float(np.abs(host(bi)).max()) / float(np.abs(x).max())), gate(n))
+            del xt, yr, yi, br, bi
+
+        # The pencil on phase 3e's panel: K3 on its rows at B = 512, each way.
+        h, w = PANEL
+        x = rng.standard_normal((h, w)).astype(np.float32)
+        xt = tensor(x)
+        ref = sf.fft2(x.astype(np.float64), workers=-1)
+        lbl = f"fft2_sharded {h} x {w}"
+        yr, yi = counted(per_call, lbl, lambda: tp.fft2_sharded(xt, mesh, sp_axis="dp"), {"stage_a": 1})
+        if [str(p) for p in yr.placements] != [str(p) for p in tp._sharding.placements(mesh, {"dp": 0})]:
+            fail(f"{lbl}: output placements {yr.placements}, not the input's rows")
+        row(f"{lbl} vs numpy f64 (rel)", h * w, cerr(yr, yi, ref), gate(h * w))
+        del ref
+        lbl = f"ifft2_sharded {h} x {w}"
+        br, bi = counted(per_call, lbl, lambda: tp.ifft2_sharded(yr, yi, mesh, sp_axis="dp"), {"stage_a": 1})
+        row(f"{lbl} vs input, roundtrip (rel)", h * w,
+            max(rerr(br, x), float(np.abs(host(bi)).max()) / float(np.abs(x).max())), gate(h * w))
+        del xt, yr, yi, br, bi, x
+        v = VOLUME
+        x = rng.standard_normal((v, v, v)).astype(np.float32)
+        lbl = f"fftn_sharded {v}^3"
+        yr, yi = counted(per_call, lbl, lambda: tp.fftn_sharded(tensor(x), mesh, sp_axis="dp"), {})
+        row(f"{lbl} vs numpy f64 (rel)", v ** 3, cerr(yr, yi, sf.fftn(x.astype(np.float64), workers=-1)),
+            gate(v ** 3))
+        del yr, yi
+
+        # Batch sharding: no collective.
+        for b, n in BATCH_SHARDED:
+            x = rng.standard_normal((b, n)).astype(np.float32)
+            want = once((b, n))
+            lbl = f"fft_batch_sharded ({b}, {n})"
+            yr, yi = counted(per_call, lbl, lambda: tp.fft_batch_sharded(tensor(x), mesh), want)
+            row(f"{lbl} vs numpy f64 (rel)", n, cerr(yr, yi, np.fft.fft(x.astype(np.float64), axis=-1)), gate(n))
+            lbl = f"ifft_batch_sharded ({b}, {n})"
+            br, _ = counted(per_call, lbl, lambda: tp.ifft_batch_sharded(yr, yi, mesh), want)
+            row(f"{lbl} vs input, roundtrip (rel)", n, rerr(br, x), gate(n))
+        b, hh, ww = BATCH_2D
+        x = rng.standard_normal(BATCH_2D).astype(np.float32)
+        lbl = f"fft2_batch_sharded {BATCH_2D}"
+        yr, yi = counted(per_call, lbl, lambda: tp.fft2_batch_sharded(tensor(x), mesh), {})
+        row(f"{lbl} vs numpy f64 (rel)", hh * ww, cerr(yr, yi, sf.fft2(x.astype(np.float64), workers=-1)),
+            gate(hh * ww))
+
+        # The sharded estimators: all-reduce, neighbour exchange, state gather.
+        n, seg = WELCH_SHARDED
+        x = rng.standard_normal(n).astype(np.float32)
+        lbl = f"welch_sharded {n} / {seg}"
+        f, pxx = counted(per_call, lbl, lambda: tp.welch_sharded(tensor(x), mesh, nperseg=seg), {})
+        fr, pref = ss.welch(x.astype(np.float64), nperseg=seg)
+        if not np.allclose(f, fr):
+            fail(f"{lbl}: its frequencies differ from scipy's")
+        row(f"{lbl} vs scipy.signal.welch f64 (rel)", seg, rerr(pxx, pref), 1e-4)
+        n, taps = OACONV_SHARDED
+        x = rng.standard_normal(n).astype(np.float32)
+        hk = rng.standard_normal(taps).astype(np.float32)
+        lbl = f"oaconvolve_sharded {n} * {taps}"
+        y = counted(per_call, lbl, lambda: tp.oaconvolve_sharded(tensor(x), tensor(hk), mesh),
+                    {"whole_transform": 1})
+        row(f"{lbl} vs scipy.signal.oaconvolve f64 (rel)", n,
+            rerr(y, ss.oaconvolve(x.astype(np.float64), hk.astype(np.float64))), 2e-3)
+        n = LFILTER_SHARDED
+        x = rng.standard_normal(n).astype(np.float32)
+        bb, aa = ss.butter(4, 0.15)
+        lbl = f"lfilter_sharded butter(4) {n}"
+        y = counted(per_call, lbl, lambda: tp.lfilter_sharded(bb, aa, tensor(x), mesh, "dp"),
+                    {"whole_transform": 1})
+        row(f"{lbl} vs scipy.signal.lfilter f64 (abs)", n,
+            float(np.abs(host(y) - ss.lfilter(bb, aa, x.astype(np.float64))).max()), 2e-4)
+
+        # The mesh train steps against the single-device step from the same
+        # weights: the data-parallel step on FNO (c) (K3 12 times a step), the
+        # FSDP2 step with dp = tp = 1 on FNO (a).
+        report["parallel_fno"] = {}
+        for name, kind in (("c", "data_parallel"), ("a", "gspmd")):
+            cell = FNO_CELLS[name]
+            x_np, y_np = fno_data(cell, seed=ord(name))
+            xs, ys = tensor(x_np), tensor(y_np)
+            model = fno_model(cell, dev, seed=ord(name))
+            twin = copy.deepcopy(model)
+            ref_step = make_train_step(twin, torch.optim.Adam(twin.parameters(), lr=1e-3))
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            if kind == "data_parallel":
+                step = make_data_parallel_step(model, opt, mesh, axis="dp")
+            else:
+                step, shard = make_gspmd_step(model, opt, mesh_tp, dp_axis="dp", tp_axis="tp")
+                shard()
+            want = {"stage_a": 3 * cell["depth"]} if cell["size"] > 65536 else {}
+            losses, worst = [], 0.0
+            for i in range(FNO_STEPS):
+                loss = float(counted(per_call, f"FNO({name}) {kind} step {i}", lambda: step(xs, ys), want))
+                ref_loss = float(ref_step(xs, ys))
+                if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+                    fail(f"FNO({name}) {kind} step {i}: loss {loss} vs the single-device step's {ref_loss}")
+                ref_p = dict(twin.named_parameters())
+                for k, p in model.named_parameters():
+                    pv = p.full_tensor() if hasattr(p, "full_tensor") else p
+                    worst = max(worst, float((pv.detach() - ref_p[k].detach()).abs().max())
+                                / float(ref_p[k].detach().abs().max()))
+                losses.append(loss)
+            lbl = f"FNO({name}) {kind} step"
+            per_call[lbl] = per_call[f"FNO({name}) {kind} step 0"]
+            row(f"{lbl} vs the single-device step, worst parameter over {FNO_STEPS} steps (rel)",
+                cell["size"] ** cell["dims"], worst, 1e-5)
+            print(f"  FNO({name}) {kind}: loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+            report["parallel_fno"][name] = dict(kind=kind, losses=losses, launches=per_call[lbl])
+            if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+                fail(f"FNO({name}) {kind}: the loss did not fall: {losses}")
+            del model, twin, step, ref_step, opt, xs, ys
+            torch.cuda.empty_cache()
+
+        # Serving: every kind at every shape, exported on the card, written,
+        # read back and run; bit-equal to the live call on the same input,
+        # with the same launches (made from inside the artifact).
+        builders = serving._builders()
+        with tempfile.TemporaryDirectory() as tmp:
+            for b, n in EXPORT_SHAPES:
+                for kind in serving.EXPORT_KINDS:
+                    fn, shapes_of = builders[kind]
+                    args = [rng.standard_normal(sh).astype(np.float32) for sh in shapes_of(b, n)]
+                    lbl = f"{kind} ({b}, {n}) live"
+                    live = counted(per_call, lbl, lambda: fn(*[tensor(a) for a in args]), None)
+                    path = os.path.join(tmp, f"{kind}_{b}_{n}.pt2")
+                    size = serving.save_transform(path, kind, b, n)
+                    art = serving.load_transform(path)
+                    lbl = f"{kind} ({b}, {n}) artifact, {size} bytes"
+                    got = counted(per_call, lbl, lambda: serving.exported_call(art, *args),
+                                  per_call[f"{kind} ({b}, {n}) live"])
+                    live = live if isinstance(live, tuple) else (live,)
+                    got = got if isinstance(got, tuple) else (got,)
+                    err = max(float(np.abs(g - host(t)).max()) for g, t in zip(got, live))
+                    row(f"{lbl} vs the live call (abs)", n, err, 0.0)
+                    del art, live, got
+            if not {"whole_transform_packed", "whole_transform", "stage_a"} <= {
+                    k for lbl, got in per_call.items() if "artifact" in lbl for k, v in got.items() if v}:
+                fail("the artifacts did not launch K2, K1 and K3")
+
+            # The command line as a user runs it, each in its own process.
+            art = os.path.join(tmp, "fft_1_4096.pt2")
+            serving.save_transform(art, "fft", 1, 4096)
+            env = {k: v for k, v in os.environ.items() if k != "GPU_FFT_TPU_TORCH_DEVICE"}
+            cli = {"plan": (["plan"], "layout"), "demo": (["demo"], "[OK]"),
+                   "serve-check": (["serve-check", art], "device=cuda")}
+            procs = {name: subprocess.Popen([sys.executable, "-m", "gpu_fft_tpu_torch", *argv], cwd=ROOT, env=env,
+                                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                     for name, (argv, _) in cli.items()}
+            report["cli"] = {}
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                print(f"  python -m gpu_fft_tpu_torch {name}: rc {proc.returncode}")
+                for line in out.splitlines():
+                    print(f"    | {line}")
+                report["cli"][name] = dict(rc=proc.returncode, output=out)
+                if proc.returncode != 0 or cli[name][1] not in out:
+                    fail(f"python -m gpu_fft_tpu_torch {name}: rc {proc.returncode}: {err[-1000:]}")
+
+    restore()
+    launched = {k: c.launches for k, c in K.COUNTS.items() if k in MAIN_PATH_KERNELS}
+    print(f"  launches in phase 3g: {launched}")
+    report.update(parallel_launches=launched, parallel_launches_per_call=per_call)
+    check_geometries(report, geometries, "phase 3g")
+    return launched
+
+
+def parallel_times(report: dict, dev) -> None:
+    """Phase 4's rows for phase 3g, each beside its single-device
+    counterpart in the same call (CUDA events and profiler device time):
+    fft2_sharded on the panel beside fft2_device (the layer's own cost at
+    world size 1: DTensors and two NCCL all-to-alls a part), the
+    data-parallel FNO (c) step beside the single-device step, an artifact's
+    module beside fft_device, and the band's fft_device with the kernel
+    called through its operator beside the same kernel's entry called
+    directly (the dispatcher's host time)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    import gpu_fft_tpu_torch.parallel as tp
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.models import make_data_parallel_step, make_train_step
+    from gpu_fft_tpu_torch.utils import serving
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    def row(label, fn, ref_fn, ref_name, iters=20):
+        ms, ref_ms = cuda_ms(fn, iters=iters, repeats=3), cuda_ms(ref_fn, iters=iters, repeats=3)
+        (dev_ms, top), (ref_dev_ms, _) = device_ms(fn, iters=iters, top=6), device_ms(ref_fn, iters=iters)
+        report["times"].append(dict(what=label, ms=ms, ref_ms=ref_ms, ref_call=ref_name, device_ms=dev_ms,
+                                    ref_device_ms=ref_dev_ms, top_kernels=top))
+        print(f"  {label:44s} events: {ms:.4f} ms {ref_name} {ref_ms:.4f} ms | device: {fmt(dev_ms)}"
+              f" {ref_name} {fmt(ref_dev_ms)}")
+        print(f"    top kernels: {[(k, round(v, 4)) for k, v in top]}")
+
+    with nccl_world(dev):
+        mesh, _, _ = parallel_meshes()
+        h, w = PANEL
+        x = torch.randn(h, w, generator=gen, device=dev)
+        row(f"fft2_sharded {h} x {w} (world 1)", lambda: tp.fft2_sharded(x, mesh, sp_axis="dp"),
+            lambda: gt.fft2_device(x), "fft2_device", iters=5)
+        del x
+        cell = FNO_CELLS["c"]
+        x_np, y_np = fno_data(cell, seed=ord("c"))
+        xs, ys = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+        model = fno_model(cell, dev, seed=ord("c"))
+        twin = copy.deepcopy(model)
+        step = make_data_parallel_step(model, torch.optim.Adam(model.parameters(), lr=1e-3), mesh)
+        ref_step = make_train_step(twin, torch.optim.Adam(twin.parameters(), lr=1e-3))
+        row(f"FNO(c) data-parallel step {tuple(xs.shape)} (world 1)", lambda: step(xs, ys),
+            lambda: ref_step(xs, ys), "make_train_step", iters=5)
+        del model, twin, step, ref_step, xs, ys
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (4096, 1 << 20):
+            path = f"{tmp}/fft_{n}.pt2"
+            serving.save_transform(path, "fft", 1, n)
+            module = serving.load_transform(path).module()
+            x = torch.randn(1, n, generator=gen, device=dev)
+            row(f"artifact fft (1, {n}) module", lambda: module(x), lambda: gt.fft_device(x), "fft_device")
+    for n in (1024, 2048, 4096, 8192, 16384):
+        packed = n <= 1024
+        plan = P.on_device(P.get_whole_packed_plan if packed else P.get_whole_plan, n, -1, None, device=dev)
+        tables = [plan["packed"]] if packed else [plan[k] for k in ("f1r", "f1i", "twr", "twi", "f2r", "f2i")]
+        wrapper = K.whole_transform_packed if packed else K.whole_transform
+        x = torch.randn(1, n, generator=gen, device=dev)
+        op_ms = cuda_ms(lambda: wrapper(x, None, plan))
+        direct_ms = cuda_ms(lambda: K._whole_cuda(x, None, tables, n // 128))
+        fft_ms = cuda_ms(lambda: gt.fft_device(x))
+        fft_dev, _ = device_ms(lambda: gt.fft_device(x))
+        report["times"].append(dict(what=f"band fft_device (1, {n})", ms=fft_ms, device_ms=fft_dev,
+                                    kernel_through_operator_ms=op_ms, kernel_entry_direct_ms=direct_ms,
+                                    dispatcher_ms=op_ms - direct_ms))
+        print(f"  band fft_device (1, {n:5d}) events {fft_ms:.4f} ms device {fmt(fft_dev)} | "
+              f"{'K2' if packed else 'K1'} through its operator {op_ms:.4f} ms, its entry called directly "
+              f"{direct_ms:.4f} ms: the dispatcher adds {(op_ms - direct_ms) * 1e3:.2f} us")
 
 
 def main() -> None:
@@ -2068,6 +2448,12 @@ def main() -> None:
     namespace_launches = namespace_phase(report, dev, rng)
     fno_launches = fno_phase(report, dev)
 
+    # ── Phase 3g: the parallel layer, the mesh steps, serving and the CLI ───
+    stamp("phase 3g")
+    print("phase 3g: the parallel layer at world size 1 over NCCL, the mesh train steps, serving artifacts, "
+          "and the CLI on device='cuda'")
+    parallel_launches = parallel_phase(report, dev, rng)
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -2269,6 +2655,7 @@ def main() -> None:
     filter_times(report, dev)
     twod_times(report, dev)
     namespace_fno_times(report, dev)
+    parallel_times(report, dev)
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
@@ -2367,6 +2754,7 @@ def main() -> None:
     # The main path's launches: fft/ifft and the real-output path together.
     all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
                           + filter_launches[k] + twod_launches[k] + namespace_launches[k] + fno_launches[k]
+                          + parallel_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
     kernels = []
@@ -2378,6 +2766,7 @@ def main() -> None:
             analysis_path_launches=analysis_launches.get(name, 0),
             filter_path_launches=filter_launches.get(name, 0), twod_path_launches=twod_launches.get(name, 0),
             namespace_path_launches=namespace_launches.get(name, 0), fno_path_launches=fno_launches.get(name, 0),
+            parallel_path_launches=parallel_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},

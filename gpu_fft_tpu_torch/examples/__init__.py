@@ -18,7 +18,10 @@ Run one with ``python -m gpu_fft_tpu_torch.examples.<name>``:
 * ``filtering`` — FIR/IIR design and filtering, overlap-add, multirate, a
   2-D convolution and peak picking;
 * ``fno`` — a 1-D Fourier Neural Operator learns the antiderivative
-  operator (80 Adam steps), then a 2-D FNO runs one forward pass.
+  operator (80 Adam steps), then a 2-D FNO runs one forward pass;
+* ``extensions`` — the exact-length transform, fft2, the scipy namespaces,
+  FFTLog, ShortTimeFFT, and an ``rfft`` served from a ``torch.export``
+  artifact (the JAX example's ``OK`` gate).
 """
 
-NAMES = ("simple", "backends", "analysis", "training", "images", "filtering", "fno")
+NAMES = ("simple", "backends", "analysis", "training", "images", "filtering", "fno", "extensions")

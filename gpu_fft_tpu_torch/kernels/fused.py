@@ -17,10 +17,15 @@ Three Pallas kernels of the JAX package sit on the transform path
 :func:`lm_geometry` gives the launch shape of the same whole kernel at
 n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
 
-Each wrapper keeps the JAX signature.  For a tensor on the CPU it runs its
-plain torch version (``*_plain``); for a CUDA tensor it launches the kernel
-or raises.  ``COUNTS[name]`` counts both: ``launches`` where the kernel is
-launched, ``plain_calls`` where the plain version runs.
+Each wrapper keeps the JAX signature and calls one operator of the
+``gpu_fft_tpu_torch`` library (``torch.ops.gpu_fft_tpu_torch.whole_transform``,
+``whole_transform_packed``, ``stage_a``), its tables as a tensor list: the
+CPU kernel of an operator runs the plain torch version (``*_plain``), the
+CUDA kernel launches the Hopper kernel or raises, and a fake kernel gives
+the output shapes, so ``torch.export`` records the operator itself on
+either device.  ``COUNTS[name]`` counts inside the operator's kernels:
+``launches`` where the kernel is launched, ``plain_calls`` where the plain
+version runs.  A tensor on any other device raises in the wrapper.
 """
 
 from __future__ import annotations
@@ -263,54 +268,74 @@ def _whole_args(kernel: str, xr, xi, plan: dict):
     return b, n1
 
 
+_WHOLE_TABLES = ("f1r", "f1i", "twr", "twi", "f2r", "f2i")
+
+
+def _whole_cuda(xr, xi, tables, n1):
+    """K1 (six tables) or K2 (the packed buffer) on CUDA tensors."""
+    b = xr.shape[0]
+    packed = len(tables) == 1
+    kernel = "whole_transform_packed" if packed else "whole_transform"
+    shapes = {"xr": (b, n1 * _N2), "xi": (b, n1 * _N2)}
+    if packed:
+        names = ("packed",)
+        shapes["packed"] = (4 * n1 + 2 * _N2, _N2)
+    else:
+        names = _WHOLE_TABLES
+        shapes.update(f1r=(n1, n1), f1i=(n1, n1), twr=(n1, _N2), twi=(n1, _N2), f2r=(_N2, _N2), f2i=(_N2, _N2))
+    _check(kernel, xr.device, {"xr": xr, "xi": xi, **dict(zip(names, tables))}, shapes)
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xr)
+    lib = _build.library()
+    entry = lib.gft_whole_packed if packed else lib.gft_whole_split
+    err = entry(
+        _ptr(xr), _ptr(xi), *(_ptr(t) for t in tables), _ptr(yr), _ptr(yi), b, n1,
+        *whole_geometry(b, n1, sm_count(xr.device)), _stream(xr.device),
+    )
+    _build.check(err, kernel)
+    COUNTS[kernel].launches += 1
+    return yr, yi
+
+
+def _whole_transform_cpu(xr, xi, tables):
+    COUNTS["whole_transform"].plain_calls += 1
+    return _whole_plain(xr, xi, *tables)
+
+
+def _whole_transform_cuda(xr, xi, tables):
+    return _whole_cuda(xr, xi, tables, tables[0].shape[0])
+
+
+def _whole_transform_packed_cpu(xr, xi, tables):
+    COUNTS["whole_transform_packed"].plain_calls += 1
+    return _whole_plain(xr, xi, *_packed_tables({"packed": tables[0], "n1": xr.shape[1] // _N2}))
+
+
+def _whole_transform_packed_cuda(xr, xi, tables):
+    return _whole_cuda(xr, xi, tables, xr.shape[1] // _N2)
+
+
+def _whole_fake(xr, xi, tables):
+    return torch.empty_like(xr), torch.empty_like(xr)
+
+
 def whole_transform(xr, xi, plan: dict):
     """ONE launch for the whole (B, n) transform (JAX: ``whole_transform``).
 
     ``plan``: :func:`plan.get_whole_plan` tables on ``xr``'s device.  ``xi``
     may be None (real input).  Returns split-complex (B, n), natural order.
     """
-    count = COUNTS["whole_transform"]
-    if _on_cpu(xr, "whole_transform"):
-        count.plain_calls += 1
-        return whole_transform_plain(xr, xi, plan)
-    b, n1 = _whole_args("whole_transform", xr, xi, plan)
-    names = ("f1r", "f1i", "twr", "twi", "f2r", "f2i")
-    shapes = {"xr": (b, n1 * _N2), "xi": (b, n1 * _N2), "f1r": (n1, n1), "f1i": (n1, n1),
-              "twr": (n1, _N2), "twi": (n1, _N2), "f2r": (_N2, _N2), "f2i": (_N2, _N2)}
-    _check("whole_transform", xr.device, {"xr": xr, "xi": xi, **{k: plan[k] for k in names}}, shapes)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xr)
-    lib = _build.library()
-    err = lib.gft_whole_split(
-        _ptr(xr), _ptr(xi), *(_ptr(plan[k]) for k in names),
-        _ptr(yr), _ptr(yi), b, n1, *whole_geometry(b, n1, sm_count(xr.device)), _stream(xr.device),
-    )
-    _build.check(err, "whole_transform")
-    count.launches += 1
-    return yr, yi
+    if not _on_cpu(xr, "whole_transform"):
+        _whole_args("whole_transform", xr, xi, plan)
+    return _OPS.whole_transform(xr, xi, [plan[k] for k in _WHOLE_TABLES])
 
 
 def whole_transform_packed(xr, xi, plan: dict):
     """The whole-transform kernel reading ONE packed table buffer (JAX:
     ``whole_transform_packed``; ``plan``: :func:`plan.get_whole_packed_plan`)."""
-    count = COUNTS["whole_transform_packed"]
-    if _on_cpu(xr, "whole_transform_packed"):
-        count.plain_calls += 1
-        return whole_transform_packed_plain(xr, xi, plan)
-    b, n1 = _whole_args("whole_transform_packed", xr, xi, plan)
-    shapes = {"xr": (b, n1 * _N2), "xi": (b, n1 * _N2), "packed": (4 * n1 + 2 * _N2, _N2)}
-    tensors = {"xr": xr, "xi": xi, "packed": plan["packed"]}
-    _check("whole_transform_packed", xr.device, tensors, shapes)
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xr)
-    lib = _build.library()
-    err = lib.gft_whole_packed(
-        _ptr(xr), _ptr(xi), _ptr(plan["packed"]), _ptr(yr), _ptr(yi), b, n1,
-        *whole_geometry(b, n1, sm_count(xr.device)), _stream(xr.device),
-    )
-    _build.check(err, "whole_transform_packed")
-    count.launches += 1
-    return yr, yi
+    if not _on_cpu(xr, "whole_transform_packed"):
+        _whole_args("whole_transform_packed", xr, xi, plan)
+    return _OPS.whole_transform_packed(xr, xi, [plan["packed"]])
 
 
 # ── K3 / K3-legacy: stage A ──────────────────────────────────────────────────
@@ -357,9 +382,8 @@ def stage_a_geometry(b: int, n1: int, n2: int, ncols: int) -> tuple[int, int, in
     return width, n1 * width // _VALUES, 8 * (n1 * width + n1)
 
 
-def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
-    """Plain torch version of :func:`stage_a`."""
-    r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
+def _stage_a_sliced(xr, xi, tables, r: int, ncols: int, col_tile: int):
+    """Plain stage A on the first ``r`` rows and ``ncols`` columns."""
     t = {"f1r": tables["f1r"][:r], "f1i": tables["f1i"][:r]}
     if "two_r" in tables:
         t.update(
@@ -372,6 +396,12 @@ def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
     return stage_a_torch(
         xr[:, :, :ncols], None if xi is None else xi[:, :, :ncols], t
     )
+
+
+def stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
+    """Plain torch version of :func:`stage_a`."""
+    r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
+    return _stage_a_sliced(xr, xi, tables, r, ncols, col_tile)
 
 
 def stage_a_launch_shape(b: int, n1: int, n2: int, tables, col_tile: int, col_tiles=None,
@@ -390,6 +420,52 @@ def stage_a_launch_shape(b: int, n1: int, n2: int, tables, col_tile: int, col_ti
     return r, ncols, stage_a_geometry(b, n1, n2, ncols)
 
 
+_FACTORED_TABLES = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
+_LEGACY_TABLES = ("f1r", "f1i", "twr", "twi")
+
+
+def _stage_a_tables(tables: list) -> dict:
+    """The operator's table list as a plan dict: six tables are K3's
+    factored twiddle, four K3-legacy's materialized one."""
+    return dict(zip(_FACTORED_TABLES if len(tables) == 6 else _LEGACY_TABLES, tables))
+
+
+def _stage_a_cpu(xr, xi, tables, n1, n2, col_tile, rows, ncols):
+    t = _stage_a_tables(tables)
+    COUNTS["stage_a" if "two_r" in t else "stage_a_legacy"].plain_calls += 1
+    return _stage_a_sliced(xr, xi, t, rows, ncols, col_tile)
+
+
+def _stage_a_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
+    t = _stage_a_tables(tables)
+    factored = "two_r" in t
+    b = xr.shape[0]
+    shapes = {"xr": (b, n1, n2), "xi": (b, n1, n2), "f1r": (n1, n1), "f1i": (n1, n1)}
+    if factored:
+        outer, inner = (n1, n2 // col_tile), (n1, col_tile)
+        shapes.update(two_r=outer, two_i=outer, twi_r=inner, twi_i=inner)
+    else:
+        shapes.update(twr=(n1, n2), twi=(n1, n2))
+    _check("stage_a", xr.device, {"xr": xr, "xi": xi, **t}, shapes)
+    geometry = stage_a_geometry(b, n1, n2, ncols)
+    yr = torch.empty((b, rows, ncols), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    lib = _build.library()
+    ptrs = (_ptr(xr), _ptr(xi), *(_ptr(v) for v in t.values()), _ptr(yr), _ptr(yi))
+    if factored:
+        err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, rows, ncols, *geometry, _stream(xr.device))
+    else:
+        err = lib.gft_stage_a_full(*ptrs, b, n1, n2, rows, ncols, *geometry, _stream(xr.device))
+    _build.check(err, "stage_a")
+    COUNTS["stage_a" if factored else "stage_a_legacy"].launches += 1
+    return yr, yi
+
+
+def _stage_a_fake(xr, xi, tables, n1, n2, col_tile, rows, ncols):
+    out = xr.new_empty((xr.shape[0], rows, ncols))
+    return out, torch.empty_like(out)
+
+
 def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, rows=None):
     """Column DFT + twiddle over a (B, n1, n2) view (JAX: ``stage_a``).
 
@@ -400,31 +476,34 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
     (B, rows or n1, col_tiles * col_tile or n2).  Off the CPU, a shape the
     kernel cannot take raises ValueError before the device is looked at.
     """
-    factored = "two_r" in tables
-    count = COUNTS["stage_a" if factored else "stage_a_legacy"]
+    names = _FACTORED_TABLES if "two_r" in tables else _LEGACY_TABLES
     if xr.device.type == "cpu":
-        count.plain_calls += 1
-        return stage_a_plain(xr, xi, n1, n2, tables, col_tile, col_tiles, rows)
-    b = xr.shape[0]
-    r, ncols, geometry = stage_a_launch_shape(b, n1, n2, tables, col_tile, col_tiles, rows)
-    _on_cpu(xr, "stage_a")  # raises for any device but CUDA
-    shapes = {"xr": (b, n1, n2), "xi": (b, n1, n2), "f1r": (n1, n1), "f1i": (n1, n1)}
-    if factored:
-        names = ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")
-        outer, inner = (n1, n2 // col_tile), (n1, col_tile)
-        shapes.update(two_r=outer, two_i=outer, twi_r=inner, twi_i=inner)
+        r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
     else:
-        names = ("f1r", "f1i", "twr", "twi")
-        shapes.update(twr=(n1, n2), twi=(n1, n2))
-    _check("stage_a", xr.device, {"xr": xr, "xi": xi, **{k: tables[k] for k in names}}, shapes)
-    yr = torch.empty((b, r, ncols), dtype=torch.float32, device=xr.device)
-    yi = torch.empty_like(yr)
-    lib = _build.library()
-    ptrs = (_ptr(xr), _ptr(xi), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi))
-    if factored:
-        err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, r, ncols, *geometry, _stream(xr.device))
-    else:
-        err = lib.gft_stage_a_full(*ptrs, b, n1, n2, r, ncols, *geometry, _stream(xr.device))
-    _build.check(err, "stage_a")
-    count.launches += 1
-    return yr, yi
+        r, ncols, _ = stage_a_launch_shape(xr.shape[0], n1, n2, tables, col_tile, col_tiles, rows)
+        _on_cpu(xr, "stage_a")  # raises for any device but CUDA
+    return _OPS.stage_a(xr, xi, [tables[k] for k in names], n1, n2, col_tile, r, ncols)
+
+
+# ── The operators ────────────────────────────────────────────────────────────
+#
+# Defined with ``torch.library.Library`` (a schema and one Python kernel per
+# dispatch key) rather than ``torch.library.custom_op``, whose autograd
+# wrapper runs Python on every call: the autograd Functions of
+# ``kernels/large.py`` already sit around these operators.
+
+_LIB = torch.library.Library("gpu_fft_tpu_torch", "DEF")
+_SCHEMAS = {
+    "whole_transform": ("(Tensor xr, Tensor? xi, Tensor[] tables) -> (Tensor, Tensor)",
+                        _whole_transform_cpu, _whole_transform_cuda, _whole_fake),
+    "whole_transform_packed": ("(Tensor xr, Tensor? xi, Tensor[] tables) -> (Tensor, Tensor)",
+                               _whole_transform_packed_cpu, _whole_transform_packed_cuda, _whole_fake),
+    "stage_a": ("(Tensor xr, Tensor? xi, Tensor[] tables, int n1, int n2, int col_tile, int rows, int ncols)"
+                " -> (Tensor, Tensor)", _stage_a_cpu, _stage_a_cuda, _stage_a_fake),
+}
+for _name, (_schema, _cpu, _cuda, _fake) in _SCHEMAS.items():
+    _LIB.define(_name + _schema)
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"gpu_fft_tpu_torch::{_name}", _fake, lib=_LIB)
+_OPS = torch.ops.gpu_fft_tpu_torch

@@ -1,10 +1,10 @@
 """Model family built on the library's device transforms.
 
 Port of ``gpu_fft_tpu/models``: Fourier Neural Operators (1-D and 2-D) as
-``torch.nn`` modules, the flax weight carry, and the single-device train
-step on ``torch.optim``.  Imported lazily.  The JAX package's mesh steps
-(``make_data_parallel_step``, ``make_gspmd_step``, ``param_shardings``) are
-not ported: asking for them raises ``AttributeError`` (ROADMAP item 15).
+``torch.nn`` modules, the flax weight carry, the single-device train step
+on ``torch.optim`` and the mesh steps on ``torch.distributed``
+(``make_data_parallel_step``, ``make_gspmd_step``, ``param_shardings``).
+Imported lazily.
 """
 
 from __future__ import annotations
@@ -18,12 +18,14 @@ __all__ = [
     "load_flax_params",
     "mse",
     "make_train_step",
+    "make_data_parallel_step",
+    "make_gspmd_step",
+    "param_shardings",
     "fit",
 ]
 
 _FNO = {"SpectralConv1d", "SpectralConv2d", "FNO1d", "FNO2d", "append_grid", "load_flax_params"}
-_TRAIN = {"mse", "make_train_step", "fit"}
-_MESH = {"make_data_parallel_step", "make_gspmd_step", "param_shardings"}
+_TRAIN = {"mse", "make_train_step", "make_data_parallel_step", "make_gspmd_step", "param_shardings", "fit"}
 
 
 def __getattr__(name):
@@ -35,11 +37,6 @@ def __getattr__(name):
         from . import train
 
         return getattr(train, name)
-    if name in _MESH:
-        raise AttributeError(
-            f"{name} (the JAX package's mesh train steps) is not ported yet: ROADMAP item 15 "
-            "(parallel) brings it on torch.distributed"
-        )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -25,6 +25,7 @@ __all__ = [
     "FusedPlan",
     "balanced_split",
     "clear_device_cache",
+    "describe_plan",
     "from_jax_plan",
     "get_fused_plan",
     "get_irfft_direct_k128_plan",
@@ -340,6 +341,73 @@ def _stage_a_n1(n: int) -> int:
     while n // n1 > FUSED_MAX:
         n1 *= 2
     return n1
+
+
+def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
+    """Explain how a (batch, n) transform will dispatch, by the same
+    predicates :func:`kernels.large.transform_any` reads (JAX:
+    ``gpu_fft_tpu.plan.describe_plan``).
+
+    Pure arithmetic: no table is built and no device is touched.  Unlike
+    the JAX function it names the whole-transform band, where one launch of
+    K2 (``whole_transform_packed``) or K1 (``whole_transform``) does the
+    whole transform; there the JAX one says ``fourstep``.
+
+    >>> describe_plan(256)["path"]
+    'direct'
+    >>> p = describe_plan(1024); (p["path"], p["kernel"])
+    ('whole', 'whole_transform_packed')
+    >>> describe_plan(4096)["kernel"], describe_plan(4096, batch=2)["path"]
+    ('whole_transform', 'fourstep')
+    >>> p = describe_plan(65536, batch=1); (p["layout"], p["split"])
+    ('half-spectrum', (256, 256))
+    >>> p = describe_plan(65536, batch=1, real_input=False); p["layout"]
+    'transpose'
+    >>> p = describe_plan(1 << 20); (p["path"], p["split"], p["stage_b_split"])
+    ('staged', (128, 8192), (64, 128))
+    """
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"describe_plan requires power-of-two n >= 2, got {n}")
+    if n > MAX_N:
+        raise ValueError(f"n={n} exceeds MAX_N={MAX_N}")
+    out: dict = {"n": n, "batch": batch, "real_input": real_input}
+    if n <= FUSED_MAX and whole_kernel_applies(batch, n):
+        packed = n <= get_tuning().whole_packed_n_max
+        out.update(
+            path="whole",
+            engine="K2, one launch" if packed else "K1, one launch",
+            kernel="whole_transform_packed" if packed else "whole_transform",
+            split=(n // 128, 128),
+            layout=None,
+        )
+        return out
+    if n <= DIRECT_MAX:
+        out.update(path="direct", engine="torch matmul", split=(n, 1), layout=None)
+        return out
+    half = real_input and half_spectrum_applies(n)
+    if n <= FUSED_MAX:
+        if half:
+            out.update(path="fourstep", engine="torch four-step", split=balanced_split(n), wide=False,
+                       layout="half-spectrum")
+            return out
+        out.update(
+            path="fourstep",
+            engine="torch four-step",
+            split=fused_split(n, batch),
+            wide=wide_split_applies(batch, n),
+            layout="folded" if use_folded_layout(batch, n) else "transpose",
+        )
+        return out
+    n1 = _stage_a_n1(n)
+    n2 = n // n1
+    out.update(
+        path="staged",
+        engine="K3 stage_a + torch stage B",
+        split=(n1, n2),
+        layout="half-spectrum" if half and stage_b_plannable(n2) else "folded",
+        stage_b_split=(n2 // 128, 128) if stage_b_plannable(n2) else None,
+    )
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -714,3 +714,57 @@ def test_fno1d_long_record_step_launches_k3_three_times_a_layer(dev):
     assert {kk: v[0] for kk, v in got.items() if v[0]} == {"stage_a": 3}, got
     assert all(p == 0 for _, p in got.values()), got
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+# ── The kernel operators, serving and the parallel layer on the card ────────
+
+
+@pytest.mark.parametrize("name,n", [("whole_transform_packed", 1024), ("whole_transform", 4096),
+                                    ("stage_a", 1 << 20)])
+def test_kernel_operators_on_the_card(dev, name, n):
+    """Each ``torch.ops.gpu_fft_tpu_torch`` operator launches its kernel on a
+    CUDA tensor (one launch, no plain call) and agrees with its plain
+    version; a captured CUDA graph replays it."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    if name == "stage_a":
+        plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
+        n1, n2 = plan["n1"], plan["n2"]
+        x = torch.randn(1, n1, n2, device=dev, generator=g)
+        tables = [plan[k] for k in ("f1r", "f1i", "two_r", "two_i", "twi_r", "twi_i")]
+        op = lambda: torch.ops.gpu_fft_tpu_torch.stage_a(x, None, tables, n1, n2, plan["ct"], n1, n2)  # noqa: E731
+        want = K.stage_a_plain(x, None, n1, n2, plan, plan["ct"])
+    else:
+        make = P.get_whole_packed_plan if name == "whole_transform_packed" else P.get_whole_plan
+        plan = P.on_device(make, n, -1, None, device=dev)
+        keys = ("packed",) if name == "whole_transform_packed" else ("f1r", "f1i", "twr", "twi", "f2r", "f2i")
+        x = torch.randn(1, n, device=dev, generator=g)
+        op = lambda: getattr(torch.ops.gpu_fft_tpu_torch, name)(x, None, [plan[k] for k in keys])  # noqa: E731
+        want = getattr(K, name + "_plain")(x, None, plan)
+    K.reset_counts()
+    got = op()
+    torch.cuda.synchronize()
+    assert (K.COUNTS[name].launches, K.COUNTS[name].plain_calls) == (1, 0)
+    _close(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op()
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(captured, want)
+
+
+def test_exported_artifact_runs_on_the_card(dev, tmp_path):
+    """export -> save -> load -> call at (1, 4,096) on the card: K1 runs
+    inside the artifact, bit-equal to the live fft_device."""
+    from gpu_fft_tpu_torch.utils.serving import exported_call, load_transform, save_transform
+
+    path = str(tmp_path / "fft.pt2")
+    save_transform(path, "fft", 1, 4096, device="cuda")
+    art = load_transform(path)
+    x = np.random.default_rng(3).standard_normal((1, 4096)).astype(np.float32)
+    K.reset_counts()
+    yr, yi = exported_call(art, x)
+    assert (K.COUNTS["whole_transform"].launches, K.COUNTS["whole_transform"].plain_calls) == (1, 0)
+    lr, li = gt.fft_device(torch.from_numpy(x).to(dev))
+    np.testing.assert_array_equal(yr, lr.cpu().numpy())
+    np.testing.assert_array_equal(yi, li.cpu().numpy())

@@ -2,10 +2,12 @@
 the CPU and print their gates as the JAX package's ``examples/*.py`` do.
 
 Each ``main(device="cpu")`` prints its ``[OK]`` line (``OK`` for
-``training``, ``[OK] antiderivative operator learned`` for ``fno``, as their
-JAX originals) and returns 0; ``simple`` finds the
+``training`` and ``extensions``, ``[OK] antiderivative operator learned``
+for ``fno``, as their JAX originals) and returns 0; ``simple`` finds the
 reference's 15.04 Hz; ``fno`` trains its FNO1d to the JAX example's gate
-and runs the FNO2d forward.  ``python -m`` runs one as a module.
+and runs the FNO2d forward; ``extensions`` prints what the JAX example's
+test reads, its serving step through the port's artifacts.  ``python -m``
+runs one as a module.
 """
 
 import contextlib
@@ -21,7 +23,7 @@ import pytest
 from gpu_fft_tpu_torch.examples import NAMES
 
 ROOT = Path(__file__).resolve().parent.parent
-GATE = {"training": "OK", "fno": "[OK] antiderivative operator learned"}
+GATE = {"training": "OK", "fno": "[OK] antiderivative operator learned", "extensions": "OK"}
 
 
 def _run(name):
@@ -59,6 +61,16 @@ def test_fno_trains_and_runs_the_2d_model():
     assert "FNO1d: 30769 parameters, modes=8 width=24 depth=3" in out
     assert "FNO2d forward: (2, 64, 64, 1) -> (2, 64, 64, 1)" in out
     assert out.rstrip().endswith("[OK] antiderivative operator learned")
+
+
+def test_extensions_example():
+    """``tests/test_examples.py::test_extensions_example``'s checks."""
+    rc, out = _run("extensions")
+    assert rc == 0
+    assert "60.00 Hz (exact)" in out
+    assert "(3, 17)" in out
+    assert "serving artifact:" in out and "peak bin 5" in out
+    assert "OK" in out and "FAIL" not in out
 
 
 def test_example_runs_as_a_module():

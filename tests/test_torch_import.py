@@ -45,7 +45,10 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.examples.analysis, gpu_fft_tpu_torch.examples.training, "
         "gpu_fft_tpu_torch.examples.images, gpu_fft_tpu_torch.examples.filtering, "
         "gpu_fft_tpu_torch.compat, gpu_fft_tpu_torch.signal, gpu_fft_tpu_torch.models, "
-        "gpu_fft_tpu_torch.models.fno, gpu_fft_tpu_torch.models.train, gpu_fft_tpu_torch.examples.fno\n"
+        "gpu_fft_tpu_torch.models.fno, gpu_fft_tpu_torch.models.train, gpu_fft_tpu_torch.examples.fno, "
+        "gpu_fft_tpu_torch.parallel, gpu_fft_tpu_torch.parallel.mesh, gpu_fft_tpu_torch.parallel.distributed, "
+        "gpu_fft_tpu_torch.parallel.pencil, gpu_fft_tpu_torch.utils.serving, gpu_fft_tpu_torch.__main__, "
+        "gpu_fft_tpu_torch.examples.extensions\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"
@@ -104,6 +107,7 @@ def test_chip_smoke_fails_alone(tmp_path):
         ("gpu_fft_tpu_torch.ops.dsp", 8),
         ("gpu_fft_tpu_torch.ops.filter", 8),
         ("gpu_fft_tpu_torch.ops.multirate", 1),
+        ("gpu_fft_tpu_torch.plan", 6),
     ],
 )
 def test_doctests(module, expected_min):
@@ -112,3 +116,30 @@ def test_doctests(module, expected_min):
 
     res = doctest.testmod(importlib.import_module(module), verbose=False)
     assert res.failed == 0 and res.attempted >= expected_min, res
+
+
+def test_all_holds_the_jax_packages_names():
+    """The port's ``__all__`` holds the JAX package's whole ``__all__``
+    (``__version__``, ``describe_plan``, the serving names and ``utils``
+    among them), each name resolving; so does ``parallel.__all__``."""
+    import gpu_fft_tpu
+    import gpu_fft_tpu.parallel
+
+    import gpu_fft_tpu_torch
+    import gpu_fft_tpu_torch.parallel
+
+    assert set(gpu_fft_tpu.__all__) <= set(gpu_fft_tpu_torch.__all__), \
+        sorted(set(gpu_fft_tpu.__all__) - set(gpu_fft_tpu_torch.__all__))
+    assert all(hasattr(gpu_fft_tpu_torch, n) for n in gpu_fft_tpu_torch.__all__)
+    assert gpu_fft_tpu_torch.__version__ == gpu_fft_tpu.__version__
+    assert set(gpu_fft_tpu.parallel.__all__) <= set(gpu_fft_tpu_torch.parallel.__all__)
+    assert all(hasattr(gpu_fft_tpu_torch.parallel, n) for n in gpu_fft_tpu_torch.parallel.__all__)
+
+
+def test_parallel_is_imported_on_first_use():
+    proc = _run("import sys, gpu_fft_tpu_torch\n"
+                "print('gpu_fft_tpu_torch.parallel' in sys.modules, 'torch.distributed.fsdp' in sys.modules)\n"
+                "gpu_fft_tpu_torch.parallel\n"
+                "print('gpu_fft_tpu_torch.parallel' in sys.modules)\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "False", "True"]

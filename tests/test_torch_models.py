@@ -9,7 +9,9 @@ and five ``torch.optim.Adam`` steps against five optax.adam steps within
 1e-4 * max|param|.  Shapes are the JAX tests': SpectralConv2d on
 (2, 16, 32, 3) with modes 5 / 7, SpectralConv1d on (3, 64, 2) with modes
 9, FNO2d on (2, 16, 16, 1) with width 8 and depth 2, FNO1d on (4, 64, 1).
-The JAX package's mesh steps are ROADMAP item 15 (not ported).
+The mesh steps (``make_data_parallel_step``, ``make_gspmd_step``,
+``param_shardings``) run on a gloo world of 8 CPU ranks against the JAX
+package's on its 8-device virtual mesh.
 """
 
 import jax
@@ -171,11 +173,198 @@ def test_init_follows_flax_and_the_generator():
     assert float(a.lift.bias.abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("name", ["make_data_parallel_step", "make_gspmd_step", "param_shardings"])
-def test_mesh_steps_are_roadmap_item_15(name):
-    with pytest.raises(AttributeError, match="ROADMAP item 15"):
-        getattr(tm, name)
-    assert name not in tm.__all__
+# ── The mesh steps on a gloo world of 8 CPU ranks ───────────────────────────
+#
+# One module-scoped fixture writes the flax weights and the data, spawns the
+# 8 ranks once (init_method a file under pytest's tmp dir) and reads back
+# rank 0's losses and gathered parameters; the parent holds them against
+# gpu_fft_tpu.models.train's steps on the conftest's 8-device virtual mesh
+# (the shapes of tests/test_models.py) and against the port's single-device
+# step, over MESH_STEPS Adam steps (1e-4 of max|param|, losses 1e-5).
+
+MESH_STEPS = 3
+#: case -> (FNO1d modes, width, depth, flax seed, mesh, dp axis, tp axis)
+MESH_CASES = {
+    "dp": (4, 8, 1, 2, (8,), "dp", None),
+    "gspmd_dp_tp": (8, 16, 2, 3, (2, 4), "dp", "tp"),
+    "gspmd_dp": (8, 16, 2, 3, (2, 4), "dp", None),
+    "gspmd_tp": (8, 16, 2, 3, (2, 4), None, "tp"),
+}
+
+
+def _mesh_inputs():
+    x, y = _derivative_problem(np.random.default_rng(1234), 8, 64)
+    params = {}
+    for case, (modes, width, depth, seed, *_rest) in MESH_CASES.items():
+        p = jm.FNO1d(modes=modes, width=width, depth=depth).init(jax.random.PRNGKey(seed), x)
+        params[case] = jax.tree.map(np.asarray, p["params"])
+    return x, y, params
+
+
+class _Rule(torch.nn.Module):
+    """tests/test_models.py's param_shardings tree as parameters."""
+
+    def __init__(self):
+        super().__init__()
+        self.dense = torch.nn.Parameter(torch.zeros(3, 16))
+        self.odd = torch.nn.Parameter(torch.zeros(3, 7))
+        self.tiny = torch.nn.Parameter(torch.zeros(4))
+
+
+def _mesh_rank(rank, init_file, in_path, out_path):
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=8,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        with open(in_path, "rb") as f:
+            x, y, params = pickle.load(f)
+        xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+        out = {}
+        for case, (modes, width, depth, _, shape, dp, tp) in MESH_CASES.items():
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=("dp",) if len(shape) == 1 else ("dp", "tp"))
+            model = tm.load_flax_params(tm.FNO1d(modes=modes, width=width, depth=depth, in_channels=1,
+                                                 device="cpu"), params[case])
+            opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+            if case == "dp":
+                step = tm.make_data_parallel_step(model, opt, mesh, axis="dp")
+            else:
+                step, shard = tm.make_gspmd_step(model, opt, mesh, dp_axis=dp, tp_axis=tp)
+                shard()
+            losses = [float(step(xt, yt)) for _ in range(MESH_STEPS)]
+            got = {}
+            for k, p in model.named_parameters():
+                if isinstance(p, DTensor):
+                    got[k] = (p.full_tensor().detach().numpy(),
+                              [f"Shard({q.dim})" if q.is_shard() else type(q).__name__ for q in p.placements])
+                else:
+                    got[k] = (p.detach().numpy(), None)
+            out[case] = (losses, got)
+        tp_mesh = init_device_mesh("cpu", (8,), mesh_dim_names=("tp",))
+        fno = tm.FNO1d(modes=8, width=16, depth=2, in_channels=1, device="cpu")
+        out["rule"] = {k: repr(v) for m in (fno, _Rule()) for k, v in tm.param_shardings(m, tp_mesh, "tp").items()}
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_world(tmp_path_factory):
+    import multiprocessing
+    import pickle
+
+    tmp = tmp_path_factory.mktemp("gloo_models")
+    inputs = _mesh_inputs()
+    with open(tmp / "in.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, str(tmp / "init"), str(tmp / "in.pkl"), str(tmp / "out.pkl")))
+             for r in range(8)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    with open(tmp / "out.pkl", "rb") as f:
+        return inputs, pickle.load(f)
+
+
+def _jax_mesh_run(case, x, y, params):
+    """The JAX package's mesh step of ``case`` from the same flax weights:
+    (losses, params as the port names them)."""
+    from jax.sharding import Mesh
+
+    modes, width, depth, _, shape, dp, tp = MESH_CASES[case]
+    devs = jax.devices()
+    if len(devs) < 8:
+        pytest.skip("needs 8 virtual devices")
+    mesh = Mesh(np.asarray(devs[:8]).reshape(shape), ("dp",) if len(shape) == 1 else ("dp", "tp"))
+    model = jm.FNO1d(modes=modes, width=width, depth=depth)
+    p = {"params": jax.tree.map(jnp.asarray, params)}
+    opt = optax.adam(1e-3)
+    s = opt.init(p)
+    if case == "dp":
+        step = jtrain.make_data_parallel_step(model.apply, opt, mesh, axis="dp")
+    else:
+        step, shard = jtrain.make_gspmd_step(model.apply, opt, mesh, dp_axis=dp, tp_axis=tp)
+        p, s = shard(p, s)
+    losses = []
+    for _ in range(MESH_STEPS):
+        p, s, loss = step(p, s, x, y)
+        losses.append(float(loss))
+    return losses, _torch_names(jax.tree.map(np.asarray, p["params"]))
+
+
+def _single_device_run(case, x, y, params):
+    modes, width, depth = MESH_CASES[case][:3]
+    model = tm.load_flax_params(tm.FNO1d(modes=modes, width=width, depth=depth, in_channels=1, device="cpu"),
+                                params)
+    step = tm.make_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    losses = [float(step(torch.from_numpy(x), torch.from_numpy(y))) for _ in range(MESH_STEPS)]
+    return losses, {k: p.detach().numpy() for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_mesh_step_matches_jax_and_single_device(mesh_world, case):
+    (x, y, params), out = mesh_world
+    losses, got = out[case]
+    for ref_losses, ref in (_jax_mesh_run(case, x, y, params[case]), _single_device_run(case, x, y, params[case])):
+        for a, b in zip(losses, ref_losses):
+            assert abs(a - b) <= 1e-5 * abs(b), (case, losses, ref_losses)
+        assert got.keys() == ref.keys()
+        for k, (g, _) in got.items():
+            assert np.abs(g - ref[k]).max() <= 1e-4 * np.abs(ref[k]).max(), (case, k)
+    placed = {k: pl for k, (_, pl) in got.items()}
+    if MESH_CASES[case][-1] is not None:  # FSDP over tp: every parameter a DTensor, some on the rule's dim
+        assert all(pl is not None for pl in placed.values()), placed
+        assert any(pl[-1] != "Shard(0)" for pl in placed.values()), placed
+    else:
+        assert all(pl is None for pl in placed.values()), placed
+
+
+def test_param_shardings_rule(mesh_world):
+    """Per parameter, the JAX rule on the flax tree: the port shards the dim
+    that holds flax's last axis (a Linear weight's dim 0) exactly where the
+    JAX layout shards that axis over tp; the tests/test_models.py tree too."""
+    from jax.sharding import Mesh
+
+    _, out = mesh_world
+    rule = out["rule"]
+    devs = jax.devices()
+    if len(devs) < 8:
+        pytest.skip("needs 8 virtual devices")
+    mesh = Mesh(np.asarray(devs[:8]), ("tp",))
+    x = np.zeros((1, 64, 1), np.float32)
+    flax_params = jm.FNO1d(modes=8, width=16, depth=2).init(jax.random.PRNGKey(0), x)["params"]
+    want = {}
+    specs = jtrain.param_shardings(flax_params, mesh, "tp")
+    flat = jax.tree_util.tree_flatten_with_path(specs)[0]
+    for path, sh in flat:
+        name = ".".join(str(getattr(e, "key", e)) for e in path)
+        sharded = "tp" in str(sh.spec)
+        if name.endswith(".kernel"):
+            want[name[: -len("kernel")] + "weight"] = "Shard(dim=0)" if sharded else "Replicate()"
+        else:
+            ndim = len(_flatten(flax_params)[name].shape)
+            want[name] = f"Shard(dim={ndim - 1})" if sharded else "Replicate()"
+    got = {k: v for k, v in rule.items() if k not in ("dense", "odd", "tiny")}
+    assert got == want
+    assert any(v.startswith("Shard") for v in got.values()) and any(v == "Replicate()" for v in got.values())
+    assert (rule["dense"], rule["odd"], rule["tiny"]) == ("Shard(dim=1)", "Replicate()", "Replicate()")
 
 
 def test_all_names_resolve():

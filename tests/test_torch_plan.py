@@ -147,3 +147,68 @@ def test_on_device_caches_tensors_per_device():
     assert isinstance(fp, tplan.FusedPlan) and isinstance(fp.tables["f2r"], torch.Tensor)
     st = tplan.on_device(tplan.get_stage_a_plan, 1 << 17, -1, 512, device="cpu")
     assert isinstance(st["stage_b"]["f1r"], torch.Tensor) and st["stage_b"]["m2"] == 128
+
+
+# ── describe_plan (JAX: gpu_fft_tpu.plan.describe_plan) ─────────────────────
+
+PLAN_SIZES = [2, 256, 512, 1024, 2048, 4096, 16384, 32768, 65536, 1 << 17, 1 << 20, 1 << 22, 1 << 24]
+PLAN_KEYS = ("path", "split", "layout", "wide", "stage_b_split")
+
+
+@pytest.mark.parametrize("real_input", [True, False])
+@pytest.mark.parametrize("b", [1, 2, 16, 64])
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_describe_plan_matches_jax_outside_the_band(n, b, real_input):
+    """Outside the whole-transform band the port's description is the JAX
+    one on path, split, layout, wide and stage_b_split; inside it names the
+    band's kernel where JAX says fourstep."""
+    got = tplan.describe_plan(n, batch=b, real_input=real_input)
+    want = jplan.describe_plan(n, batch=b, real_input=real_input)
+    if tplan.whole_kernel_applies(b, n) and n <= tplan.FUSED_MAX:
+        assert want["path"] == "fourstep"  # the JAX function's missing band
+        assert got["path"] == "whole" and got["split"] == (n // 128, 128) and got["layout"] is None
+        assert got["kernel"] == ("whole_transform_packed" if n <= 1024 else "whole_transform")
+        return
+    assert {k: got.get(k) for k in PLAN_KEYS} == {k: want.get(k) for k in PLAN_KEYS}
+    assert (got["n"], got["batch"], got["real_input"]) == (n, b, real_input)
+
+
+def test_describe_plan_dispatch_map():
+    """``tests/test_plan.py::test_describe_plan_dispatch_map`` on the port;
+    at (1, 16,384) the port names the band (K1) where JAX says folded."""
+    d = tplan.describe_plan
+    assert d(512)["path"] == "direct" and d(512)["engine"] == "torch matmul"
+    p = d(4096, batch=64)
+    assert p["path"] == "fourstep" and p["wide"] and p["split"] == (32, 128)
+    assert p["layout"] == "folded" and p["engine"] == "torch four-step"
+    assert d(65536, batch=1)["layout"] == "half-spectrum"
+    assert d(65536, batch=1, real_input=False)["layout"] == "transpose"
+    assert d(65536, batch=2, real_input=False)["layout"] == "folded"
+    assert (d(16384)["path"], d(16384)["kernel"], d(16384)["layout"]) == ("whole", "whole_transform", None)
+    assert d(16384, batch=2)["layout"] == "folded"
+    s = d(1 << 20)
+    assert s["path"] == "staged" and s["split"] == (128, 8192) and s["engine"] == "K3 stage_a + torch stage B"
+    assert s["layout"] == "half-spectrum"
+    assert d(1 << 20, real_input=False)["layout"] == "folded"
+    assert s["stage_b_split"] == (64, 128)
+    for bad in (100, 0, 1 << 30):
+        with pytest.raises(ValueError):
+            d(bad)
+
+
+@pytest.mark.parametrize("real_input", [True, False])
+@pytest.mark.parametrize("b,n", [(1, 256), (1, 1024), (2, 1024), (1, 4096), (1, 16384), (4, 16384),
+                                 (1, 65536), (1, 1 << 17), (3, 1 << 18)])
+def test_describe_plan_names_the_path_transform_any_takes(b, n, real_input):
+    """The path it names is the one ``transform_any`` runs, read from the
+    kernels' plain-call counts on the CPU."""
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels.large import transform_any
+
+    info = tplan.describe_plan(n, batch=b, real_input=real_input)
+    x = torch.zeros(b, n)
+    K.reset_counts()
+    transform_any(x, None if real_input else torch.zeros(b, n), n, -1)
+    ran = {k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls}
+    want = {"whole": {info.get("kernel"): 1}, "staged": {"stage_a": 1}}.get(info["path"], {})
+    assert ran == want, (info, ran)
