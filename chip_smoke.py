@@ -102,6 +102,20 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``extensions`` example, its serving step included, runs with the other
    examples in phase 3e); no plain call, every geometry against its plain
    version;
+3h. the precision modes (``GPU_FFT_TPU_PRECISION``), each set within the
+   run (``config.PRECISION``) and set back to "full": fft, ifft, rfft and
+   irfft through the ``*_device`` entries at n = 1,024 … 2^22 and at
+   (16, 65,536), each against numpy in float64 (max|d| / max|ref|) within
+   its mode's band (full < 1e-6 and the 5*log2(N)*eps gate, high < 2e-4,
+   fast < 2e-2) and ordered full < high < fast with 1e-6 < high and
+   1e-4 < fast; the counts, set to 0 before each mode: "high" launches
+   none of K1/K2/K3/K1F/K2F/K3F, "fast" launches K2F/K1F/K3F where "full"
+   launches K2/K1/K3 and no fp32 kernel, no plain call in any mode; every
+   K1F/K2F/K3F geometry the mode launched against its plain version
+   (max|d| <= 1e-3 max|plain|: a one-ulp fp32 difference before Z's bf16
+   rounding moves one intermediate by a bf16 ulp) and against float64,
+   where the kernel's error is at most 1.5 times the plain version's; a
+   Parseval gradient at 4,096 and 2^20 in each mode, within its band;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -131,6 +145,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    module at (1, 4,096) and (1, 2^20) beside fft_device, and the band's
    fft_device (1, 1,024 ... 16,384) with K1 / K2 through their operator
    beside the same entry called directly (the dispatcher's host time);
+   phase 3h's rows: K2F, K1F and K3F against their plain versions and their
+   bounds (bf16 operations at the tensor-core peak, bytes at the HBM rate;
+   K2F / K1F beside torch.fft on complex32, cuFFT's half precision), and
+   fft_device in each mode at phase 3h's shapes beside torch.fft.fft in
+   fp32 and on complex32;
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
@@ -238,6 +257,14 @@ WELCH_SHARDED = (1 << 20, 4096)  # samples, nperseg
 OACONV_SHARDED = (1 << 21, 1025)  # samples, taps
 LFILTER_SHARDED = 1 << 20
 EXPORT_SHAPES = ((1, 1024), (1, 4096), (16, 65536), (1, 1 << 20))
+# Phase 3h: the precision modes, flipped within the run.  The JAX package's
+# bands (tests/test_precision.py) and the "fast" kernels of the fp32 ones.
+PRECISION_BANDS = {"full": 1e-6, "high": 2e-4, "fast": 2e-2}
+PRECISION_SHAPES = (*((1, n) for n in (1024, 4096, 16384, 65536, 1 << 20, 1 << 22)), (16, 65536))
+PRECISION_GRAD = (4096, 1 << 20)
+FAST_KERNELS = {"whole_transform_packed": "whole_transform_packed_bf16",
+                "whole_transform": "whole_transform_bf16", "stage_a": "stage_a_bf16"}
+FAST_TOL = 1e-3  # K1F/K2F/K3F vs plain, relative to max|plain|: see phase 3h
 
 
 T0 = time.perf_counter()
@@ -341,6 +368,40 @@ def probe_bound(k: int):
     return bound(1024 * (1 + 2 * k), "fp32", 4 * 1024 * (2 + k))
 
 
+def fast_whole_bound(n: int, complex_: bool):
+    """K2F / K1F, B = 1: ``roofline_row`` with ``precision_passes=1`` (each
+    matmul stage's flops once at the bf16 tensor-core peak: the Karatsuba
+    count, K1F's own and the least of K2F's), x read and the complex output
+    written once at the HBM rate, the elementwise flops at the fp32 peak;
+    the largest wall.  Returns (ms, wall, the launch-latency wall in ms)."""
+    from gpu_fft_tpu_torch.utils.roofline import roofline_row
+
+    walls = roofline_row(1, n, "ifft" if complex_ else "fft", 1.0, chip=h100(), n_kernels=1,
+                         precision_passes=1)["walls_us"]
+    wall = max(("hbm", "matmul", "elementwise"), key=walls.get)
+    return walls[wall] * 1e-3, "bytes" if wall == "hbm" else "operations", walls["latency"] * 1e-3
+
+
+def fast_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int, ncols: int | None = None,
+                       batch: int = 1):
+    """K3F: per kept column ``rows`` x n1 multiply-adds per product (real
+    input Fr x and Fi x; complex the Karatsuba three) at the bf16 peak, plus
+    the fp32 twiddle (its rebuild and the complex product, 12 FLOP an
+    output; 2 more for Karatsuba's combination); x's kept columns (both
+    parts for complex input), F1's bf16 image (four n1 x n1 slots), the two
+    twiddle factors' rows read once, the output written once."""
+    ncols = n2 if ncols is None else ncols
+    products = 3 if complex_ else 2
+    outputs = batch * rows * ncols
+    spec = h100()
+    t_ops = (2 * products * n1 * outputs / (spec.bf16_tflops * 1e12)
+             + (14 if complex_ else 12) * outputs / (spec.vpu_tflops * 1e12)) * 1e3
+    nbytes = (4 * batch * (2 if complex_ else 1) * n1 * ncols + 8 * outputs + 2 * 4 * n1 * n1
+              + 8 * rows * (ncols // ct + ct))
+    t_bytes = nbytes / (spec.hbm_gbps * 1e9) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
     """Warm median over ``repeats`` of the mean time of ``iters`` calls (ms)."""
     import torch
@@ -391,17 +452,18 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str =
     return sum(by_name.values()), [(k[:60], v) for k, v in ranked]
 
 
-def capture_launches(large) -> tuple[dict, object]:
-    """Wraps the dispatch's kernel entries (``large.stage_a``,
-    ``large.whole_transform``, ``large.whole_transform_packed``) so that the
-    first input of every distinct launch geometry is kept, cloned: (kernel,
-    input shape, real or complex, plan, tile arguments) -> (xr, xi, args,
-    kwargs).  The counts are the wrapped kernels' own.  Returns the dict and
-    a function that puts the entries back."""
+def capture_launches(module, names=MAIN_PATH_KERNELS) -> tuple[dict, object]:
+    """Wraps kernel entries of ``module`` (by default the dispatch's
+    ``large.stage_a``, ``large.whole_transform``,
+    ``large.whole_transform_packed``) so that the first input of every
+    distinct launch geometry is kept, cloned: (kernel, input shape, real or
+    complex, plan, tile arguments) -> (xr, xi, args, kwargs).  The counts
+    are the wrapped kernels' own.  Returns the dict and a function that puts
+    the entries back."""
     import torch
 
     seen = {}
-    originals = {name: getattr(large, name) for name in MAIN_PATH_KERNELS}
+    originals = {name: getattr(module, name) for name in names}
 
     def wrap(name, fn):
         def call(xr, xi, *args, **kw):
@@ -414,11 +476,11 @@ def capture_launches(large) -> tuple[dict, object]:
         return call
 
     for name, fn in originals.items():
-        setattr(large, name, wrap(name, fn))
+        setattr(module, name, wrap(name, fn))
 
     def restore():
         for name, fn in originals.items():
-            setattr(large, name, fn)
+            setattr(module, name, fn)
 
     return seen, restore
 
@@ -2074,6 +2136,245 @@ def parallel_times(report: dict, dev) -> None:
               f"{direct_ms:.4f} ms: the dispatcher adds {(op_ms - direct_ms) * 1e3:.2f} us")
 
 
+def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=PRECISION_GRAD) -> dict:
+    """Phase 3h: the three precision modes, each set with ``config.PRECISION``
+    and set back to "full" at the end.  Returns the launches of the "fast"
+    run (counted from 0) and the largest kernel-vs-plain difference of each
+    fast kernel."""
+    import numpy as np
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    six = (*MAIN_PATH_KERNELS, *FAST_KERNELS.values())
+
+    def snapshot():
+        return {k: (K.COUNTS[k].launches, K.COUNTS[k].plain_calls) for k in six}
+
+    def delta(before):
+        after = snapshot()
+        return ({k: after[k][0] - before[k][0] for k in six if after[k][0] - before[k][0]},
+                sum(after[k][1] - before[k][1] for k in six))
+
+    def rel(got, ref):
+        got = [g.detach().cpu().double().numpy() for g in got]
+        return max(float(np.abs(g - r).max()) for g, r in zip(got, ref)) / max(float(np.abs(r).max()) for r in ref)
+
+    # The inputs and their float64 references, the same for every mode.
+    data = {}
+    for b, n in shapes:
+        x = rng.standard_normal((b, n)).astype(np.float32)
+        zr, zi = (rng.standard_normal((b, n)).astype(np.float32) for _ in range(2))
+        sp = np.fft.rfft(x.astype(np.float64), axis=-1)
+        hr, hi = sp.real.astype(np.float32), sp.imag.astype(np.float32)
+        x64 = x.astype(np.float64)
+        fwd = np.fft.fft(x64, axis=-1)
+        inv = np.fft.ifft(zr.astype(np.float64) + 1j * zi.astype(np.float64), axis=-1)
+        half = np.fft.rfft(x64, axis=-1)
+        back = np.fft.irfft(hr.astype(np.float64) + 1j * hi.astype(np.float64), n=n, axis=-1)
+        data[b, n] = (*(torch.from_numpy(a).to(dev) for a in (x, zr, zi, hr, hi)),
+                      {"fft": (fwd.real, fwd.imag), "ifft": (inv.real, inv.imag),
+                       "rfft": (half.real, half.imag), "irfft": (back,)})
+
+    errs: dict = {}
+    launches: dict = {}
+    grads: dict = {}
+    # Every K1F/K2F/K3F geometry the modes launch: its first input, cloned
+    # (the dispatchers of kernels/fused.py call them through the module).
+    seen, restore = capture_launches(K, FAST_KERNELS.values())
+    try:
+        for mode in PRECISION_BANDS:
+            config.PRECISION = mode
+            K.reset_counts()
+            per = launches[mode] = {}
+            plain = 0
+            for (b, n), (x, zr, zi, hr, hi, ref) in data.items():
+                calls = {"fft": lambda: gt.fft_device(x), "ifft": lambda: gt.ifft_device(zr, zi),
+                         "rfft": lambda: gt.rfft_device(x), "irfft": lambda: (gt.irfft_device(hr, hi),)}
+                for op, call in calls.items():
+                    before = snapshot()
+                    out = call()
+                    torch.cuda.synchronize()
+                    per[f"{op} ({b}, {n})"], p = delta(before)
+                    plain += p
+                    errs.setdefault((op, b, n), {})[mode] = rel(out, ref[op])
+            for n in grad_sizes:
+                x = torch.from_numpy(rng.standard_normal((1, n)).astype(np.float32)).to(dev).requires_grad_(True)
+                before = snapshot()
+                yr, yi = gt.fft_device(x)
+                (g,) = torch.autograd.grad((yr * yr + yi * yi).sum(), x)
+                torch.cuda.synchronize()
+                launched, p = delta(before)
+                plain += p
+                want = 2.0 * n * x.detach().cpu().double().numpy()
+                grads[mode, n] = launched
+                record(report, "precision_path", f"grad Parseval n={n} mode={mode} ({launched})", n,
+                       float(np.abs(g.cpu().double().numpy() - want).max() / np.abs(want).max()),
+                       PRECISION_BANDS[mode])
+            print(f"  mode {mode}: launches {per}; plain calls {plain}")
+            if plain:
+                fail(f"phase 3h ran {plain} plain kernel versions on the card under {mode}")
+    finally:
+        config.PRECISION = "full"
+        restore()
+
+    # The bands, the gate and the order of the modes.
+    for (op, b, n), e in errs.items():
+        label = f"{op} ({b}, {n})"
+        for mode, band in PRECISION_BANDS.items():
+            record(report, "precision_path", f"{label} mode={mode} vs numpy f64 (rel)", n, e[mode],
+                   min(band, gate(n)) if mode == "full" else band)
+        ordered = e["full"] < e["high"] < e["fast"] and 1e-6 < e["high"] and 1e-4 < e["fast"]
+        report.setdefault("precision_order", []).append(dict(case=label, **e, ok=ordered))
+        if not ordered:
+            fail(f"{label}: the modes are out of order or not engaged: {e}")
+    print(f"  bands and order: {len(errs)} (op, shape) cases, full < high < fast in each, "
+          f"1e-6 < high and 1e-4 < fast")
+
+    # The counts by mode: "high" runs no kernel; "fast" runs each fp32
+    # kernel's counterpart where "full" runs it, and no fp32 kernel.
+    for label, full in launches["full"].items():
+        if launches["high"][label]:
+            fail(f"{label}: 'high' launched {launches['high'][label]}")
+        want = {FAST_KERNELS[k]: v for k, v in full.items()}
+        if launches["fast"][label] != want or set(full) - set(FAST_KERNELS):
+            fail(f"{label}: 'fast' launched {launches['fast'][label]} where 'full' launched {full}")
+    for n in grad_sizes:
+        want = {FAST_KERNELS[k]: v for k, v in grads["full", n].items()}
+        if grads["high", n] or grads["fast", n] != want:
+            fail(f"grad n={n}: 'high' launched {grads['high', n]}, 'fast' {grads['fast', n]} (want {want})")
+    fast_launches = {k: sum(c.get(k, 0) for c in launches["fast"].values()) for k in FAST_KERNELS.values()}
+    for name, count in fast_launches.items():
+        if count < 1:
+            fail(f"{name} was launched no time by the 'fast' main path")
+    print(f"  launches under 'fast': {fast_launches}; Parseval grads: {grads}")
+
+    # Each geometry against its plain version and against float64.
+    print(f"  {len(seen)} K1F/K2F/K3F geometries launched in phase 3h, each vs its plain version (gate max|d| "
+          f"<= {FAST_TOL} max|plain|) and float64 (kernel error <= 1.5 x the plain version's):")
+    max_err = {k: 0.0 for k in FAST_KERNELS.values()}
+    for (name, shape, real, *_), (gx, gy, args, kw) in seen.items():
+        got = getattr(K, name)(gx, gy, *args, **kw)  # restored: the kernel itself
+        want = getattr(K, name + "_plain")(gx, gy, *args, **kw)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        # float64: the fp32 kernel's plain version on float64 operands.
+        d = lambda t: None if t is None else t.double()  # noqa: E731
+        if name == "stage_a_bf16":
+            n1, n2, tables, col_tile, *rest = args
+            tables64 = {k: d(v) if isinstance(v, torch.Tensor) else v for k, v in tables.items()}
+            truth = K.stage_a_plain(d(gx), d(gy), n1, n2, tables64, col_tile, *rest, **kw)
+        elif name == "whole_transform_bf16":
+            truth = K.whole_transform_plain(d(gx), d(gy), {k: d(v) for k, v in args[0].items()
+                                                           if k.startswith(("f1", "f2", "tw"))})
+        else:
+            truth = K.whole_transform_packed_plain(d(gx), d(gy), {"packed": d(args[0]["packed"]),
+                                                                  "n1": args[0]["n1"]})
+        e64 = [max(float((o.double() - t).abs().max()) for o, t in zip(out, truth)) for out in (got, want)]
+        ok = err <= FAST_TOL * scale and e64[0] <= 1.5 * e64[1]
+        case = f"{shape} {'real' if real else 'complex'} {[a for a in args if not isinstance(a, dict)]} {kw or ''}"
+        report["kernel_checks"].append(dict(kernel=name, case=f"phase 3h {case}", max_abs_err=err, max_abs=scale,
+                                            f64_err=e64[0], plain_f64_err=e64[1], exact=False, ok=ok))
+        print(f"    {name:28s} {case:44s} max|d| {err:.3e} max|plain| {scale:.3e} | vs f64: kernel "
+              f"{e64[0]:.3e} plain {e64[1]:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} {case}: kernel disagrees with its plain version or float64")
+        max_err[name] = max(max_err[name], err)
+        del got, want, truth
+    torch.cuda.synchronize()
+    report["precision_launches"] = launches
+    report["precision_errors"] = {f"{op} ({b}, {n})": e for (op, b, n), e in errs.items()}
+    return {"launches": fast_launches, "max_err": max_err}
+
+
+def precision_times(report: dict, dev, time_pair, randn, shapes=PRECISION_SHAPES) -> None:
+    """Phase 4's rows for phase 3h: K2F / K1F / K3F against their plain
+    versions and bounds (K2F / K1F beside torch.fft on complex32), then
+    fft_device in each mode beside torch.fft.fft in fp32 and on complex32."""
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    def half(fn, t):
+        """torch.fft on complex32 (cuFFT's half precision), or None with the
+        refusal's text where cuFFT refuses the size."""
+        z = t.to(torch.complex32)
+        try:
+            fn(z)
+        except RuntimeError as e:
+            report.setdefault("complex32_refused", {})[str(tuple(t.shape))] = str(e)[:200]
+            return None
+        return lambda: fn(z)
+
+    for name, n in (("whole_transform_packed_bf16", 1024), ("whole_transform_bf16", 4096),
+                    ("whole_transform_bf16", 16384)):
+        make = P.get_whole_packed_plan if "packed" in name else P.get_whole_plan
+        fwd = P.on_device(make, n, -1, None, device=dev)
+        inv = P.on_device(make, n, 1, 1.0 / n, device=dev)
+        x, xi = randn(1, n), randn(1, n)
+        kern, plain = getattr(K, name), getattr(K, name + "_plain")
+        for label, args, z, lib, cplx in (("real fwd", (x, None, fwd), torch.complex(x, torch.zeros_like(x)),
+                                           torch.fft.fft, False),
+                                          ("complex inv 1/n", (x, xi, inv), torch.complex(x, xi),
+                                           torch.fft.ifft, True)):
+            ms, wall, lat = fast_whole_bound(n, cplx)
+            rec = time_pair(f"{name} B=1 n={n} {label}", name, lambda a=args: kern(*a), lambda a=args: plain(*a),
+                            (ms, wall), half(lib, z))
+            rec.update(latency_wall_ms=lat, library="torch.fft on complex32")
+    for n in (1 << 20, 1 << 22):
+        plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
+        n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+        rows = P.stage_a_real_rows(n1)
+        x = randn(1, n1, n2)
+        time_pair(f"stage_a_bf16 n={n} real rows={rows}", "stage_a_bf16",
+                  lambda: K.stage_a_bf16(x, None, n1, n2, plan, ct, rows=rows),
+                  lambda: K.stage_a_bf16_plain(x, None, n1, n2, plan, ct, rows=rows),
+                  fast_stage_a_bound(n1, n2, rows, False, ct))
+        inv = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
+        xi = randn(1, n1, n2)
+        time_pair(f"stage_a_bf16 n={n} complex inv", "stage_a_bf16",
+                  lambda: K.stage_a_bf16(x, xi, n1, n2, inv, ct),
+                  lambda: K.stage_a_bf16_plain(x, xi, n1, n2, inv, ct),
+                  fast_stage_a_bound(n1, n2, n1, True, ct))
+        fold = P.on_device(P.get_stage_a_plan, n, 1, None, device=dev)
+        tiles = -(-(n2 // 2 + 1) // fold["ct"])
+        time_pair(f"stage_a_bf16 n={n} inv col_tiles={tiles}/{n2 // fold['ct']} ct={fold['ct']}", "stage_a_bf16",
+                  lambda: K.stage_a_bf16(x, xi, n1, n2, fold, fold["ct"], col_tiles=tiles),
+                  lambda: K.stage_a_bf16_plain(x, xi, n1, n2, fold, fold["ct"], col_tiles=tiles),
+                  fast_stage_a_bound(n1, n2, n1, True, fold["ct"], ncols=tiles * fold["ct"]))
+        del x, xi
+
+    rows = []
+    try:
+        for b, n in shapes:
+            x = randn(b, n)
+            lib32 = cuda_ms(lambda: torch.fft.fft(x))
+            lib32_dev = device_ms(lambda: torch.fft.fft(x))[0]
+            h = half(torch.fft.fft, torch.complex(x, torch.zeros_like(x)))
+            lib16, lib16_dev = (cuda_ms(h), device_ms(h)[0]) if h else (None, None)
+            for mode in PRECISION_BANDS:
+                config.PRECISION = mode
+                ms = cuda_ms(lambda: gt.fft_device(x))
+                dev_ms, top = device_ms(lambda: gt.fft_device(x))
+                rows.append(dict(what=f"fft_device B={b} n={n} mode={mode}", ms=ms, device_ms=dev_ms,
+                                 torch_fft_ms=lib32, torch_fft_device_ms=lib32_dev, torch_fft_complex32_ms=lib16,
+                                 torch_fft_complex32_device_ms=lib16_dev, top_kernels=top))
+                print(f"  fft_device B={b:<3d} n={n:<8d} {mode:4s} events {ms:.4f} ms device "
+                      f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} | torch.fft fp32 {lib32:.4f} "
+                      f"(device {lib32_dev if lib32_dev is None else round(lib32_dev, 4)}) complex32 "
+                      f"{'refused' if lib16 is None else f'{lib16:.4f}'} (device "
+                      f"{lib16_dev if lib16_dev is None else round(lib16_dev, 4)}) ms")
+            del x
+    finally:
+        config.PRECISION = "full"
+    report["precision_times"] = rows
+
+
 def main() -> None:
     if not (ROOT / "gpu_fft_tpu_torch" / "__init__.py").is_file():
         fail(f"gpu_fft_tpu_torch not found beside {Path(__file__).name}; run from the repo root")
@@ -2454,6 +2755,11 @@ def main() -> None:
           "and the CLI on device='cuda'")
     parallel_launches = parallel_phase(report, dev, rng)
 
+    # ── Phase 3h: the precision modes ───────────────────────────────────────
+    stamp("phase 3h")
+    print("phase 3h: the precision modes full / high / fast on device='cuda' against numpy in float64")
+    precision = precision_phase(report, dev, rng)
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -2656,6 +2962,7 @@ def main() -> None:
     twod_times(report, dev)
     namespace_fno_times(report, dev)
     parallel_times(report, dev)
+    precision_times(report, dev, time_pair, randn)
 
     # ── Phase 5: the second path, the stage-A ablation harnesses ────────────
     stamp("phase 5")
@@ -2666,7 +2973,7 @@ def main() -> None:
     levers_res = ablate_2e20_levers.main(quick=True, out_dir=str(out_dir))
     x6_res = ablate_mosaic_x6.main(quick=True, out_dir=str(out_dir))
     second_launches = {k: c.launches for k, c in {**K.COUNTS, **A.COUNTS}.items()
-                       if k not in MAIN_PATH_KERNELS}
+                       if k not in MAIN_PATH_KERNELS and k not in FAST_KERNELS.values()}
     print(f"  launches in phase 5: {second_launches}")
     report.update(launches_phase5=second_launches, ablate_large=large_res,
                   ablate_2e20_levers=levers_res, ablate_mosaic_x6=x6_res)
@@ -2744,6 +3051,9 @@ def main() -> None:
         "whole_transform": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:424"),
         "stage_a": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:188"),
         "stage_a_legacy": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:153"),
+        "whole_transform_packed_bf16": ("gpu_fft_tpu_torch/csrc/whole_bf16.cu", "gpu_fft_tpu/kernels/fused.py:383"),
+        "whole_transform_bf16": ("gpu_fft_tpu_torch/csrc/whole_bf16.cu", "gpu_fft_tpu/kernels/fused.py:424"),
+        "stage_a_bf16": ("gpu_fft_tpu_torch/csrc/stage_a_bf16.cu", "gpu_fft_tpu/kernels/fused.py:188"),
         "stage_a_manual": ("gpu_fft_tpu_torch/csrc/dense_f32.cuh", "scripts/ablate_2e20_levers.py:188"),
         **{f"stage_a_dot_{v}": ("gpu_fft_tpu_torch/csrc/stage_a_dot.cu", "scripts/ablate_mosaic_x6.py:105")
            for v in A.VARIANTS},
@@ -2756,7 +3066,9 @@ def main() -> None:
                           + filter_launches[k] + twod_launches[k] + namespace_launches[k] + fno_launches[k]
                           + parallel_launches[k]
                        for k in MAIN_PATH_KERNELS},
-                    **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS}}
+                    **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS},
+                    **precision["launches"]}
+    max_err.update(precision["max_err"])
     kernels = []
     for name, (src, rep) in sources.items():
         t = kernel_ms[name]

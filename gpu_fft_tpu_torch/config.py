@@ -25,15 +25,40 @@ MAX_N = 1 << 24
 # (kernels/fused_torch.py), as in the JAX package.
 KARATSUBA = True
 
-# Precision: only "full" exists in the port — IEEE fp32 everywhere with TF32
-# off.  TF32 keeps ~10 mantissa bits (~5e-4 relative error), far outside the
-# 5*log2(N)*eps roundtrip gate (6.1e-6 at n = 1024).
+# Precision mode (``GPU_FFT_TPU_PRECISION``), the JAX package's three:
+#   "full" (default) -- fp32 products everywhere (TF32 off); the only mode
+#                       within the 5*log2(N)*eps roundtrip gate;
+#   "high"           -- the torch engines take bf16x3 products (each operand
+#                       split a = hi + lo in bf16, hi*hi + hi*lo + lo*hi
+#                       summed in fp32); the kernels K1/K2/K3 are not used:
+#                       the band falls through to the engines and stage A
+#                       runs as a torch product (kernels/large.py);
+#   "fast"           -- bf16x1 products (the operands rounded to bf16, fp32
+#                       accumulation) in the engines, and K1/K2/K3 run their
+#                       bf16 tensor-core counterparts K1F/K2F/K3F.
+# TF32 (a 10-bit mantissa) is none of these and stays off in every mode.
+# The mode is read at call time, so setting ``PRECISION`` in a running
+# process switches it for the next call.
 PRECISION = os.environ.get("GPU_FFT_TPU_PRECISION", "full").strip().lower()
-if PRECISION != "full":
-    raise NotImplementedError(
-        f"GPU_FFT_TPU_PRECISION={PRECISION!r}: the PyTorch port implements only 'full' "
-        "(fp32 with TF32 off); 'high' and 'fast' are not ported yet"
+if PRECISION not in ("full", "high", "fast"):
+    raise ValueError(
+        f"GPU_FFT_TPU_PRECISION must be one of full|high|fast, got {PRECISION!r}"
     )
+
+
+def matmul_precision() -> str:
+    """The product the torch engines take in the current mode: ``"fp32"``,
+    ``"bf16x3"`` or ``"bf16x1"`` (JAX: ``matmul_precision``).  An unknown
+    mode raises KeyError."""
+    return {"full": "fp32", "high": "bf16x3", "fast": "bf16x1"}[PRECISION]
+
+
+def mosaic_precision() -> str:
+    """The product the kernels take in the current mode (JAX:
+    ``mosaic_precision``): ``"bf16x1"`` under "fast" (K1F/K2F/K3F), else
+    ``"fp32"`` (K1/K2/K3; the dispatch keeps "high" away from them)."""
+    return "bf16x1" if PRECISION == "fast" else "fp32"
+
 
 DEVICE_ENV_VAR = "GPU_FFT_TPU_TORCH_DEVICE"
 
@@ -53,7 +78,9 @@ def env_backend_name() -> str | None:
 
 
 def apply_precision() -> None:
-    """Pin fp32 matmuls to full IEEE precision (TF32 off) for this process."""
+    """Pin fp32 matmuls to full IEEE precision (TF32 off) for this process,
+    whatever the mode: "high" and "fast" round their operands to bf16
+    explicitly and never go through TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

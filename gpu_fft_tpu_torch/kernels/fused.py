@@ -1,7 +1,9 @@
 """Wrappers of the hand-written Hopper kernels, each beside its plain version.
 
 Three Pallas kernels of the JAX package sit on the transform path
-(``gpu_fft_tpu/kernels/fused.py``); each is a CUDA kernel here (``csrc/``):
+(``gpu_fft_tpu/kernels/fused.py``); each is a CUDA kernel here (``csrc/``),
+and each has a second one for ``GPU_FFT_TPU_PRECISION=fast``, where the JAX
+kernels' dots run at bf16x1 (``config.mosaic_precision()``):
 
 * ``whole_transform`` (K1) and ``whole_transform_packed`` (K2): the whole
   four-step of a B = 1 transform with 1024 <= n <= 16384 in one launch, a
@@ -14,12 +16,23 @@ Three Pallas kernels of the JAX package sit on the transform path
   twiddle it launches K3-legacy, the same radix kernel reading that table
   (counted as ``stage_a_legacy``).
 
+* ``whole_transform_bf16`` (K1F), ``whole_transform_packed_bf16`` (K2F) and
+  ``stage_a_bf16`` (K3F): the same functions as the JAX bodies compute
+  them under "fast", on the bf16 tensor cores (``csrc/whole_bf16.cu``,
+  ``csrc/stage_a_bf16.cu``): four-step products with bf16 operands and fp32
+  accumulation, the twiddle in fp32.  ``whole_transform``,
+  ``whole_transform_packed`` and ``stage_a`` (factored plan) hand over to
+  them when the mode is "fast" at the call; their tables are the plan's
+  fp32 tables rounded to bf16, laid out as the kernels read them
+  (:func:`frag_image`) and kept per plan (:func:`bf16_images`).
+
 :func:`lm_geometry` gives the launch shape of the same whole kernel at
 n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
 
 Each wrapper keeps the JAX signature and calls one operator of the
 ``gpu_fft_tpu_torch`` library (``torch.ops.gpu_fft_tpu_torch.whole_transform``,
-``whole_transform_packed``, ``stage_a``), its tables as a tensor list: the
+``whole_transform_packed``, ``stage_a`` and the three ``*_bf16``), its
+tables as a tensor list: the
 CPU kernel of an operator runs the plain torch version (``*_plain``), the
 CUDA kernel launches the Hopper kernel or raises, and a fake kernel gives
 the output shapes, so ``torch.export`` records the operator itself on
@@ -33,24 +46,34 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
+from .. import config
 from . import _build
-from .fused_torch import stage_a_torch
+from .fused_torch import _stage_a_twiddle, stage_a_torch
 
 __all__ = [
     "COUNTS",
     "DEFAULT_SMS",
+    "bf16_images",
+    "frag_image",
     "lm_geometry",
     "reset_counts",
     "sm_count",
     "stage_a",
+    "stage_a_bf16",
+    "stage_a_bf16_plain",
     "stage_a_geometry",
     "stage_a_launch_shape",
     "stage_a_plain",
     "whole_geometry",
     "whole_slices",
     "whole_transform",
+    "whole_transform_bf16",
+    "whole_transform_bf16_plain",
     "whole_transform_packed",
+    "whole_transform_packed_bf16",
+    "whole_transform_packed_bf16_plain",
     "whole_transform_packed_plain",
     "whole_transform_plain",
 ]
@@ -71,6 +94,9 @@ COUNTS = {
     "whole_transform_packed": LaunchCount(),
     "stage_a": LaunchCount(),
     "stage_a_legacy": LaunchCount(),
+    "whole_transform_bf16": LaunchCount(),
+    "whole_transform_packed_bf16": LaunchCount(),
+    "stage_a_bf16": LaunchCount(),
 }
 
 
@@ -324,7 +350,10 @@ def whole_transform(xr, xi, plan: dict):
 
     ``plan``: :func:`plan.get_whole_plan` tables on ``xr``'s device.  ``xi``
     may be None (real input).  Returns split-complex (B, n), natural order.
+    Under "fast" it is :func:`whole_transform_bf16` (K1F).
     """
+    if _fast():
+        return whole_transform_bf16(xr, xi, plan)
     if not _on_cpu(xr, "whole_transform"):
         _whole_args("whole_transform", xr, xi, plan)
     return _OPS.whole_transform(xr, xi, [plan[k] for k in _WHOLE_TABLES])
@@ -332,7 +361,10 @@ def whole_transform(xr, xi, plan: dict):
 
 def whole_transform_packed(xr, xi, plan: dict):
     """The whole-transform kernel reading ONE packed table buffer (JAX:
-    ``whole_transform_packed``; ``plan``: :func:`plan.get_whole_packed_plan`)."""
+    ``whole_transform_packed``; ``plan``: :func:`plan.get_whole_packed_plan`).
+    Under "fast" it is :func:`whole_transform_packed_bf16` (K2F)."""
+    if _fast():
+        return whole_transform_packed_bf16(xr, xi, plan)
     if not _on_cpu(xr, "whole_transform_packed"):
         _whole_args("whole_transform_packed", xr, xi, plan)
     return _OPS.whole_transform_packed(xr, xi, [plan["packed"]])
@@ -475,7 +507,16 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
     ``rows`` only the first k1 rows.  Returns split-complex
     (B, rows or n1, col_tiles * col_tile or n2).  Off the CPU, a shape the
     kernel cannot take raises ValueError before the device is looked at.
+    Under "fast" a factored plan takes :func:`stage_a_bf16` (K3F); a legacy
+    plan raises NotImplementedError: K3-legacy's bf16 form is not ported.
     """
+    if _fast():
+        if "two_r" not in tables:
+            raise NotImplementedError(
+                "stage_a on a legacy (materialized-twiddle) plan under GPU_FFT_TPU_PRECISION=fast: "
+                "K3-legacy's bf16 form is not ported"
+            )
+        return stage_a_bf16(xr, xi, n1, n2, tables, col_tile, col_tiles, rows)
     names = _FACTORED_TABLES if "two_r" in tables else _LEGACY_TABLES
     if xr.device.type == "cpu":
         r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
@@ -483,6 +524,257 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
         r, ncols, _ = stage_a_launch_shape(xr.shape[0], n1, n2, tables, col_tile, col_tiles, rows)
         _on_cpu(xr, "stage_a")  # raises for any device but CUDA
     return _OPS.stage_a(xr, xi, [tables[k] for k in names], n1, n2, col_tile, r, ncols)
+
+
+# ── K1F / K2F / K3F: the "fast" kernels on the bf16 tensor cores ─────────────
+
+
+def _fast() -> bool:
+    """Whether the kernels take their bf16x1 form now (``config.PRECISION``
+    is read at every call, as the JAX kernels read it at trace time)."""
+    return config.mosaic_precision() == "bf16x1"
+
+
+def _bf(t):
+    """``t`` rounded to bf16 (to nearest even), as fp32: what a DEFAULT dot
+    takes of an fp32 operand."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_dots(fr, fi, fs, fd, ar, ai):
+    """(re, im) of F (ar + i ai) with bf16-rounded operands and fp32
+    products (exact) and sums: real data Fr x and Fi x; complex data the
+    Karatsuba form Fr (ar + ai), Fd ar, Fs ai when ``fs`` is given, else the
+    4-product form.  F (m, k) multiplies (.., k, cols)."""
+    if ai is None:
+        x = _bf(ar)
+        return _bf(fr) @ x, _bf(fi) @ x
+    if fs is not None:
+        k1 = _bf(fr) @ _bf(ar + ai)
+        k2 = _bf(fd) @ _bf(ar)
+        k3 = _bf(fs) @ _bf(ai)
+        return k1 - k3, k1 + k2
+    xr, xi = _bf(ar), _bf(ai)
+    fr, fi = _bf(fr), _bf(fi)
+    return fr @ xr - fi @ xi, fi @ xr + fr @ xi
+
+
+def _whole_bf16_plain(xr, xi, f1, twr, twi, f2):
+    """The whole four-step as the JAX bodies compute it under "fast":
+    P = F1 x, Z = P * TW in fp32, Y = F2 Z^T, each dot on bf16-rounded
+    operands.  ``f1``, ``f2``: (r, i, s, d) with s, d None for K2's
+    4-product form."""
+    b, n = xr.shape
+    n1 = f1[0].shape[0]
+    x = xr.reshape(b, n1, _N2)
+    pr, pi = _bf16_dots(*f1, x, None if xi is None else xi.reshape(b, n1, _N2))
+    zr = pr * twr - pi * twi  # (b, n1, 128) = [k1, c]
+    zi = pr * twi + pi * twr
+    yr, yi = _bf16_dots(*f2, zr.transpose(1, 2), zi.transpose(1, 2))  # (b, 128, n1) = [j, k1]
+    return yr.reshape(b, n), yi.reshape(b, n)
+
+
+_WHOLE_BF16_F1 = ("f1r", "f1i", "f1s", "f1d")
+_WHOLE_BF16_F2 = ("f2r", "f2i", "f2s", "f2d")
+
+
+def whole_transform_bf16_plain(xr, xi, plan: dict):
+    """Plain torch version of :func:`whole_transform_bf16` (K1F)."""
+    return _whole_bf16_plain(xr, xi, [plan[k] for k in _WHOLE_BF16_F1], plan["twr"], plan["twi"],
+                             [plan[k] for k in _WHOLE_BF16_F2])
+
+
+def whole_transform_packed_bf16_plain(xr, xi, plan: dict):
+    """Plain torch version of :func:`whole_transform_packed_bf16` (K2F)."""
+    f1r, f1i, twr, twi, f2r, f2i = _packed_tables(plan)
+    return _whole_bf16_plain(xr, xi, (f1r, f1i, None, None), twr, twi, (f2r, f2i, None, None))
+
+
+def frag_image(*mats: torch.Tensor) -> torch.Tensor:
+    """The bf16 image of (M, K) fp32 matrices as ``csrc/mma_bf16.cuh`` reads
+    an mma.sync m16n8k16 A operand: each rounded to bf16, zero-padded to
+    multiples of 16, then (len(mats), M/16, K/16, 32 lanes, 8 values) with
+    lane 4 g + t holding rows (g, g + 8) x depths (2t, 2t + 1, 2t + 8,
+    2t + 9) in register order."""
+    m, k = mats[0].shape
+    mp, kp = -(-m // 16) * 16, -(-k // 16) * 16
+    out = torch.zeros((len(mats), mp, kp), dtype=torch.bfloat16, device=mats[0].device)
+    for i, a in enumerate(mats):
+        out[i, :m, :k] = a.to(torch.bfloat16)
+    # [slot, mt, h, g, kt, kh, t, e] -> [slot, mt, kt, g, t, kh, h, e]
+    tiles = out.reshape(len(mats), mp // 16, 2, 8, kp // 16, 2, 4, 2)
+    return tiles.permute(0, 1, 4, 3, 6, 5, 2, 7).reshape(len(mats), mp // 16, kp // 16, 32, 8).contiguous()
+
+
+#: The bf16 images of each plan, keyed by (the identity of) one of the
+#: plan's own table tensors, so they live as long as the plan does.
+_IMAGES = WeakIdKeyDictionary()
+
+
+def bf16_images(plan: dict) -> tuple:
+    """The fast kernels' bf16 tables of a plan, built once per plan on the
+    plan's device from its fp32 tables (the same f64 formulas, rounded to
+    bf16 to nearest even, as a DEFAULT dot rounds them): a whole plan gives
+    F1's and F2's :func:`frag_image` (slots r, i, s, d), a packed plan the
+    same for r, i, a stage-A plan F1's.  An image made while ``torch.export``
+    traces (a fake tensor) is not kept."""
+    key = plan["packed"] if "packed" in plan else plan["f1r"]
+    images = _IMAGES.get(key)
+    if images is None:
+        if "packed" in plan:
+            f1r, f1i, _, _, f2r, f2i = _packed_tables(plan)
+            images = (frag_image(f1r, f1i), frag_image(f2r, f2i))
+        elif "f2r" in plan:
+            images = (frag_image(*(plan[k] for k in _WHOLE_BF16_F1)),
+                      frag_image(*(plan[k] for k in _WHOLE_BF16_F2)))
+        else:
+            images = (frag_image(*(plan[k] for k in _WHOLE_BF16_F1)),)
+        if all(type(t) is torch.Tensor for t in images):
+            _IMAGES[key] = images
+    return images
+
+
+def _whole_bf16_tables(kernel: str, xr, xi, plan: dict, packed: bool) -> list:
+    """The operator's table list: on the CPU the plan's fp32 tables (the
+    plain version rounds them), on the card the bf16 images and the fp32
+    twiddle."""
+    if _on_cpu(xr, kernel):
+        if packed:
+            return [plan["packed"]]
+        return [plan[k] for k in (*_WHOLE_BF16_F1, "twr", "twi", *_WHOLE_BF16_F2)]
+    _, n1 = _whole_args(kernel, xr, xi, plan)
+    if n1 > 128:
+        raise ValueError(f"{kernel}: n1 = n/128 must be at most 128 (n <= 16384), got n1={n1}")
+    img1, img2 = bf16_images(plan)
+    twr, twi = _packed_tables(plan)[2:4] if packed else (plan["twr"], plan["twi"])
+    return [img1, img2, twr, twi]
+
+
+def whole_transform_bf16(xr, xi, plan: dict):
+    """K1F: :func:`whole_transform` as the JAX body computes it under
+    "fast" (Karatsuba dots on bf16 operands, fp32 twiddle), one launch on the
+    tensor cores; ``plan``: :func:`plan.get_whole_plan`, n <= 16,384."""
+    tables = _whole_bf16_tables("whole_transform_bf16", xr, xi, plan, False)
+    return _OPS.whole_transform_bf16(xr, xi, tables)
+
+
+def whole_transform_packed_bf16(xr, xi, plan: dict):
+    """K2F: :func:`whole_transform_packed` under "fast" (the stacked
+    4-product dots on bf16 operands); ``plan``:
+    :func:`plan.get_whole_packed_plan`."""
+    tables = _whole_bf16_tables("whole_transform_packed_bf16", xr, xi, plan, True)
+    return _OPS.whole_transform_packed_bf16(xr, xi, tables)
+
+
+def _whole_bf16_cuda(kernel: str, xr, xi, tables, packed: bool):
+    img1, img2, twr, twi = tables
+    b, n = xr.shape
+    n1 = n // _N2
+    slots = 2 if packed else 4
+    m1 = max(n1, 16) // 16
+    _check(kernel, xr.device, {"xr": xr, "xi": xi, "twr": twr, "twi": twi},
+           {"xr": (b, n1 * _N2), "xi": (b, n1 * _N2), "twr": (n1, _N2), "twi": (n1, _N2)})
+    _check(kernel, xr.device, {"img1": img1, "img2": img2},
+           {"img1": (slots, m1, m1, 32, 8), "img2": (slots, 8, 8, 32, 8)}, dtype=torch.bfloat16)
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xr)
+    err = _build.library().gft_whole_bf16(
+        _ptr(xr), _ptr(xi), _ptr(img1), _ptr(img2), _ptr(twr), _ptr(twi), _ptr(yr), _ptr(yi), b, n1,
+        int(packed), _stream(xr.device),
+    )
+    _build.check(err, kernel)
+    COUNTS[kernel].launches += 1
+    return yr, yi
+
+
+def _whole_bf16_cpu(xr, xi, tables):
+    COUNTS["whole_transform_bf16"].plain_calls += 1
+    f1r, f1i, f1s, f1d, twr, twi, f2r, f2i, f2s, f2d = tables
+    return _whole_bf16_plain(xr, xi, (f1r, f1i, f1s, f1d), twr, twi, (f2r, f2i, f2s, f2d))
+
+
+def _whole_packed_bf16_cpu(xr, xi, tables):
+    COUNTS["whole_transform_packed_bf16"].plain_calls += 1
+    return whole_transform_packed_bf16_plain(xr, xi, {"packed": tables[0], "n1": xr.shape[1] // _N2})
+
+
+def _whole_bf16_cuda_split(xr, xi, tables):
+    return _whole_bf16_cuda("whole_transform_bf16", xr, xi, tables, False)
+
+
+def _whole_bf16_cuda_packed(xr, xi, tables):
+    return _whole_bf16_cuda("whole_transform_packed_bf16", xr, xi, tables, True)
+
+
+_STAGE_A_BF16_F1 = ("f1r", "f1i", "f1s", "f1d")
+_TWIDDLE_FACTORS = ("two_r", "two_i", "twi_r", "twi_i")
+
+
+def _stage_a_bf16_sliced(xr, xi, t: dict, r: int, ncols: int, col_tile: int):
+    """Plain K3F on the first ``r`` rows and ``ncols`` columns: the JAX
+    body's dots on bf16-rounded operands, the factored twiddle in fp32."""
+    f = [t[k][:r] for k in _STAGE_A_BF16_F1]
+    sliced = {"f1r": f[0], "two_r": t["two_r"][:r, : ncols // col_tile],
+              "two_i": t["two_i"][:r, : ncols // col_tile], "twi_r": t["twi_r"][:r], "twi_i": t["twi_i"][:r]}
+    twr, twi = _stage_a_twiddle(sliced)
+    pr, pi = _bf16_dots(*f, xr[:, :, :ncols], None if xi is None else xi[:, :, :ncols])
+    return pr * twr - pi * twi, pr * twi + pi * twr
+
+
+def _factored_only(kernel: str, tables) -> None:
+    if "two_r" not in tables:
+        raise ValueError(f"{kernel} takes a factored stage-A plan (plan.get_stage_a_plan)")
+
+
+def stage_a_bf16_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
+    """Plain torch version of :func:`stage_a_bf16` (K3F)."""
+    _factored_only("stage_a_bf16", tables)
+    r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
+    return _stage_a_bf16_sliced(xr, xi, tables, r, ncols, col_tile)
+
+
+def stage_a_bf16(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, rows=None):
+    """K3F: :func:`stage_a` as the JAX body computes it under "fast" (real
+    input Fr x and Fi x, complex the Karatsuba three, x rounded to bf16,
+    fp32 accumulation, the factored twiddle in fp32), on the tensor cores.
+    ``tables``: :func:`plan.get_stage_a_plan`; same arguments and result as
+    :func:`stage_a`.  Off the CPU it needs n1 a multiple of 16 up to 512 and
+    the kept columns a multiple of 32."""
+    _factored_only("stage_a_bf16", tables)
+    r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
+    if _on_cpu(xr, "stage_a_bf16"):
+        names = (*_STAGE_A_BF16_F1, *_TWIDDLE_FACTORS)
+        return _OPS.stage_a_bf16(xr, xi, [tables[k] for k in names], n1, n2, col_tile, r, ncols)
+    if n1 % 16 or not 16 <= n1 <= 512 or ncols % 32 or col_tile % 2:
+        raise ValueError(f"stage_a_bf16 kernel needs n1 a multiple of 16 in [16, 512], the kept columns a "
+                         f"multiple of 32 and an even ct (n1={n1}, columns={ncols}, ct={col_tile})")
+    (img,) = bf16_images(tables)
+    return _OPS.stage_a_bf16(xr, xi, [img, *(tables[k] for k in _TWIDDLE_FACTORS)], n1, n2, col_tile, r, ncols)
+
+
+def _stage_a_bf16_cpu(xr, xi, tables, n1, n2, col_tile, rows, ncols):
+    COUNTS["stage_a_bf16"].plain_calls += 1
+    t = dict(zip((*_STAGE_A_BF16_F1, *_TWIDDLE_FACTORS), tables))
+    return _stage_a_bf16_sliced(xr, xi, t, rows, ncols, col_tile)
+
+
+def _stage_a_bf16_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
+    img, two_r, two_i, twi_r, twi_i = tables
+    b = xr.shape[0]
+    outer, inner = (n1, n2 // col_tile), (n1, col_tile)
+    _check("stage_a_bf16", xr.device,
+           {"xr": xr, "xi": xi, "two_r": two_r, "two_i": two_i, "twi_r": twi_r, "twi_i": twi_i},
+           {"xr": (b, n1, n2), "xi": (b, n1, n2), "two_r": outer, "two_i": outer, "twi_r": inner, "twi_i": inner})
+    _check("stage_a_bf16", xr.device, {"img": img}, {"img": (4, n1 // 16, n1 // 16, 32, 8)}, dtype=torch.bfloat16)
+    yr = torch.empty((b, rows, ncols), dtype=torch.float32, device=xr.device)
+    yi = torch.empty_like(yr)
+    err = _build.library().gft_stage_a_bf16(
+        _ptr(xr), _ptr(xi), _ptr(img), _ptr(two_r), _ptr(two_i), _ptr(twi_r), _ptr(twi_i), _ptr(yr), _ptr(yi),
+        b, n1, n2, col_tile, rows, ncols, _stream(xr.device),
+    )
+    _build.check(err, "stage_a_bf16")
+    COUNTS["stage_a_bf16"].launches += 1
+    return yr, yi
 
 
 # ── The operators ────────────────────────────────────────────────────────────
@@ -500,6 +792,12 @@ _SCHEMAS = {
                                _whole_transform_packed_cpu, _whole_transform_packed_cuda, _whole_fake),
     "stage_a": ("(Tensor xr, Tensor? xi, Tensor[] tables, int n1, int n2, int col_tile, int rows, int ncols)"
                 " -> (Tensor, Tensor)", _stage_a_cpu, _stage_a_cuda, _stage_a_fake),
+    "whole_transform_bf16": ("(Tensor xr, Tensor? xi, Tensor[] tables) -> (Tensor, Tensor)",
+                             _whole_bf16_cpu, _whole_bf16_cuda_split, _whole_fake),
+    "whole_transform_packed_bf16": ("(Tensor xr, Tensor? xi, Tensor[] tables) -> (Tensor, Tensor)",
+                                    _whole_packed_bf16_cpu, _whole_bf16_cuda_packed, _whole_fake),
+    "stage_a_bf16": ("(Tensor xr, Tensor? xi, Tensor[] tables, int n1, int n2, int col_tile, int rows, "
+                     "int ncols) -> (Tensor, Tensor)", _stage_a_bf16_cpu, _stage_a_bf16_cuda, _stage_a_fake),
 }
 for _name, (_schema, _cpu, _cuda, _fake) in _SCHEMAS.items():
     _LIB.define(_name + _schema)

@@ -6,12 +6,25 @@ so here they are torch.matmul / torch.einsum contractions against the plan's
 tables.  Every function takes split-complex fp32 tensors and returns the
 spectrum, or for the real-output inverses the real signal, in natural
 order, on the input's device.
+
+Every product goes through :func:`_mm` or :func:`_contract`, which take
+the product of ``config.matmul_precision()`` at call time, as the JAX
+engines take ``precision=_prec()``: fp32 under "full"; under "high" bf16x3
+(each operand split a = hi + lo in bf16, hi*hi + hi*lo + lo*hi summed in
+fp32, one product over the stacked depth [hi | hi | lo] x [hi; lo; hi]);
+under "fast" bf16x1 (the operands rounded to bf16, fp32 accumulation).  On
+the card a bf16 product is ``torch.mm(..., out_dtype=torch.float32)``; on
+the CPU, which has no such product, an fp32 product of the bf16-valued
+operands, which is the same number: a product of two bf16 values is exact
+in fp32.  No product comes back as bf16.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd import forward_ad
 
+from .. import config
 from ..config import KARATSUBA
 from ..plan import FusedPlan
 
@@ -32,30 +45,119 @@ __all__ = [
 ]
 
 
+def _bf16_operands(a, b, mode: str):
+    """(A, B) whose product is the ``mode`` product of ``a`` (R, K) and
+    ``b`` (K, M): the bf16 roundings, or for bf16x3 the stacked parts
+    [a_hi | a_hi | a_lo] and [b_hi; b_lo; b_hi]."""
+    a_hi, b_hi = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if mode == "bf16x1":
+        return a_hi, b_hi
+    a_lo = (a - a_hi.float()).to(torch.bfloat16)
+    b_lo = (b - b_hi.float()).to(torch.bfloat16)
+    return torch.cat([a_hi, a_hi, a_lo], dim=1), torch.cat([b_hi, b_lo, b_hi], dim=0)
+
+
+def _bf16_product(a, b, mode: str):
+    """The fp32 result of the ``mode`` product of fp32 ``a`` (R, K) and
+    ``b`` (K, M)."""
+    big_a, big_b = _bf16_operands(a, b, mode)
+    if big_a.device.type == "cuda":
+        return torch.mm(big_a, big_b, out_dtype=torch.float32)
+    return big_a.float() @ big_b.float()
+
+
+class _Product(torch.autograd.Function):
+    """A bf16x3 / bf16x1 product whose gradients and tangents are products
+    of the same mode, as JAX transposes a dot at its precision."""
+
+    @staticmethod
+    def forward(a, b, mode):
+        return _bf16_product(a, b, mode)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, b, ctx.mode = inputs
+        ctx.save_for_backward(a, b)
+        ctx.save_for_forward(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = _mm(g, b.t(), ctx.mode) if ctx.needs_input_grad[0] else None
+        gb = _mm(a.t(), g, ctx.mode) if ctx.needs_input_grad[1] else None
+        return ga, gb, None
+
+    @staticmethod
+    def jvp(ctx, ta, tb, _):
+        a, b = ctx.saved_tensors
+        out = None if ta is None else _mm(ta, b, ctx.mode)
+        if tb is not None:
+            out = _mm(a, tb, ctx.mode) if out is None else out + _mm(a, tb, ctx.mode)
+        return out
+
+
+def _tracked(*ts) -> bool:
+    """Whether reverse-mode autograd records these tensors or they carry a
+    forward-mode tangent (``torch.func`` transforms show as one or the
+    other); None entries are skipped."""
+    grad = torch.is_grad_enabled()
+    return any(t is not None and ((grad and t.requires_grad) or forward_ad.unpack_dual(t).tangent is not None)
+               for t in ts)
+
+
+def _mm(a, b, mode: str | None = None):
+    """``a @ b`` for 2-D fp32 operands, in ``mode`` (default: the current
+    ``config.matmul_precision()``)."""
+    mode = config.matmul_precision() if mode is None else mode
+    if mode == "fp32":
+        return a @ b
+    return _Product.apply(a, b, mode) if _tracked(a, b) else _bf16_product(a, b, mode)
+
+
+def _contract(eq: str, x, y):
+    """``torch.einsum(eq, x, y)`` in the current mode, for an equation that
+    contracts exactly one index and shares no other: under "high" and
+    "fast" the operands are laid out as one 2-D product (:func:`_mm`) and
+    the result is permuted to the output order."""
+    mode = config.matmul_precision()
+    if mode == "fp32":
+        return torch.einsum(eq, x, y)
+    ins, out = eq.split("->")
+    sx, sy = ins.split(",")
+    (k,) = [c for c in sx if c in sy]
+    fx = [c for c in sx if c != k]
+    fy = [c for c in sy if c != k]
+    depth = x.shape[sx.index(k)]
+    a = x.permute([sx.index(c) for c in fx] + [sx.index(k)]).reshape(-1, depth)
+    b = y.permute([sy.index(k)] + [sy.index(c) for c in fy]).reshape(depth, -1)
+    z = _mm(a, b, mode).reshape([x.shape[sx.index(c)] for c in fx] + [y.shape[sy.index(c)] for c in fy])
+    return z.permute([(fx + fy).index(c) for c in out])
+
+
 def _ceinsum(eq, ar, ai, t, prefix):
     """Split-complex einsum against the table group ``prefix`` (Karatsuba
     3-product form when KARATSUBA, else the 4-product form)."""
     if KARATSUBA:
-        k1 = torch.einsum(eq, ar + ai, t[prefix + "r"])
-        k2 = torch.einsum(eq, ar, t[prefix + "d"])
-        k3 = torch.einsum(eq, ai, t[prefix + "s"])
+        k1 = _contract(eq, ar + ai, t[prefix + "r"])
+        k2 = _contract(eq, ar, t[prefix + "d"])
+        k3 = _contract(eq, ai, t[prefix + "s"])
         return k1 - k3, k1 + k2
-    rr = torch.einsum(eq, ar, t[prefix + "r"])
-    ii = torch.einsum(eq, ai, t[prefix + "i"])
-    ri = torch.einsum(eq, ar, t[prefix + "i"])
-    ir = torch.einsum(eq, ai, t[prefix + "r"])
+    rr = _contract(eq, ar, t[prefix + "r"])
+    ii = _contract(eq, ai, t[prefix + "i"])
+    ri = _contract(eq, ar, t[prefix + "i"])
+    ir = _contract(eq, ai, t[prefix + "r"])
     return rr - ii, ri + ir
 
 
 def _cmatmul(ar, ai, t, prefix):
     """Split-complex (rows, k) @ (k, m) against the table group ``prefix``."""
     if KARATSUBA:
-        k1 = (ar + ai) @ t[prefix + "r"]
-        k2 = ar @ t[prefix + "d"]
-        k3 = ai @ t[prefix + "s"]
+        k1 = _mm(ar + ai, t[prefix + "r"])
+        k2 = _mm(ar, t[prefix + "d"])
+        k3 = _mm(ai, t[prefix + "s"])
         return k1 - k3, k1 + k2
     fr, fi = t[prefix + "r"], t[prefix + "i"]
-    return ar @ fr - ai @ fi, ar @ fi + ai @ fr
+    return _mm(ar, fr) - _mm(ai, fi), _mm(ar, fi) + _mm(ai, fr)
 
 
 def fused_fft(xr, xi, plan: FusedPlan):
@@ -66,14 +168,14 @@ def fused_fft(xr, xi, plan: FusedPlan):
     t = plan.tables
     if plan.kind == "direct":
         if xi is None:
-            return xr @ t["fr"], xr @ t["fi"]
+            return _mm(xr, t["fr"]), _mm(xr, t["fi"])
         return _cmatmul(xr, xi, t, "f")
 
     n1, n2 = plan.n1, plan.n2
     xtr = xr.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
     if xi is None:
-        pr = xtr @ t["f1r"]
-        pi = xtr @ t["f1i"]
+        pr = _mm(xtr, t["f1r"])
+        pi = _mm(xtr, t["f1i"])
     else:
         xti = xi.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
         pr, pi = _cmatmul(xtr, xti, t, "f1")
@@ -98,8 +200,8 @@ def fused_fft_folded(xr, xi, plan: FusedPlan):
     t = plan.tables
     x3 = xr.reshape(b, n1, n2)  # [b, a, c]
     if xi is None:
-        pr = torch.einsum("bac,ak->bck", x3, t["f1r"])
-        pi = torch.einsum("bac,ak->bck", x3, t["f1i"])
+        pr = _contract("bac,ak->bck", x3, t["f1r"])
+        pi = _contract("bac,ak->bck", x3, t["f1i"])
     else:
         pr, pi = _ceinsum("bac,ak->bck", x3, xi.reshape(b, n1, n2), t, "f1")
     twr, twi = t["twr"], t["twi"]  # (n2, n1) = [c, k1]
@@ -134,8 +236,8 @@ def fused_fft_half(xr, plan: FusedPlan):
     t = plan.tables
     h = n1 // 2 + 1
     xtr = xr.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
-    pr = xtr @ t["f1r"][:, :h]
-    pi = xtr @ t["f1i"][:, :h]
+    pr = _mm(xtr, t["f1r"][:, :h])
+    pi = _mm(xtr, t["f1i"][:, :h])
     p3r = pr.reshape(b, n2, h)
     p3i = pi.reshape(b, n2, h)
     twr = t["twr"][:, :h]
@@ -224,7 +326,7 @@ def _irfft_fold_core(gr, gi, plan: dict):
     zi = gr_m * twi + gi_m * twr
     # Stage 2: contract k1 in [0, n1/2), real part only, natural order out.
     half = n1 // 2
-    out = torch.einsum("bkm,kM->bMm", zr[:, :half], plan["w1r"]) - torch.einsum(
+    out = _contract("bkm,kM->bMm", zr[:, :half], plan["w1r"]) - _contract(
         "bkm,kM->bMm", zi[:, :half], plan["w1i"]
     )
     # The Nyquist column k1 = n1/2: its stage-2 factor is scale * (-1)^m1.
@@ -236,13 +338,13 @@ def irfft_direct_half(xr, xi, plan: dict):
     """Direct real-output inverse from the one-sided (B, h) spectrum: two
     real products against the folded tables (``plan.get_irfft_direct_plan``;
     their zero sin rows ignore DC/Nyquist imaginary parts)."""
-    return xr @ plan["cr"] + xi @ plan["ci"]
+    return _mm(xr, plan["cr"]) + _mm(xi, plan["ci"])
 
 
 def irfft_direct_half_k128(xr, xi, plan: dict):
     """:func:`irfft_direct_half` contracting K = n/2 and adding the Nyquist
     row as a broadcast (``plan.get_irfft_direct_k128_plan``)."""
-    return xr[:, :-1] @ plan["cr"] + xi[:, :-1] @ plan["ci"] + xr[:, -1:] * plan["alt"]
+    return _mm(xr[:, :-1], plan["cr"]) + _mm(xi[:, :-1], plan["ci"]) + xr[:, -1:] * plan["alt"]
 
 
 def stage_b_irfft(yr, yi, n1: int, t: dict):
@@ -305,7 +407,7 @@ def stage_b_irfft_from_half(gr, gi, t: dict):
     # Stage 2: contract q in [0, Q/2), real part only; [b, M, m, K] is the
     # global natural order k = K + n1 * (M * P + m).
     half = q // 2
-    out = torch.einsum("bKqm,qM->bMmK", zr[:, :, :half], t["w1r"]) - torch.einsum(
+    out = _contract("bKqm,qM->bMmK", zr[:, :, :half], t["w1r"]) - _contract(
         "bKqm,qM->bMmK", zi[:, :, :half], t["w1i"]
     )
     # Nyquist (q = Q/2): the real factor scale * (-1)^M times the (b, m, K) slice.
@@ -335,11 +437,11 @@ def stage_a_torch(x3r, x3i, plan: dict):
     None.  W: :func:`_stage_a_twiddle`."""
     f1r, f1i = plan["f1r"], plan["f1i"]
     twr, twi = _stage_a_twiddle(plan)
-    pr = torch.einsum("ka,bac->bkc", f1r, x3r)
-    pi = torch.einsum("ka,bac->bkc", f1i, x3r)
+    pr = _contract("ka,bac->bkc", f1r, x3r)
+    pi = _contract("ka,bac->bkc", f1i, x3r)
     if x3i is not None:
-        pr = pr - torch.einsum("ka,bac->bkc", f1i, x3i)
-        pi = pi + torch.einsum("ka,bac->bkc", f1r, x3i)
+        pr = pr - _contract("ka,bac->bkc", f1i, x3i)
+        pi = pi + _contract("ka,bac->bkc", f1r, x3i)
     return pr * twr - pi * twi, pr * twi + pi * twr
 
 
@@ -362,6 +464,6 @@ def stage_a_torch_transpose(gr, gi, plan: dict):
     gi = torch.nn.functional.pad(gi, pad)
     hr = gr * twr + gi * twi  # conj(W) * g
     hi = gi * twr - gr * twi
-    xr = torch.einsum("ka,bkc->bac", f1r, hr) + torch.einsum("ka,bkc->bac", f1i, hi)
-    xi = torch.einsum("ka,bkc->bac", f1r, hi) - torch.einsum("ka,bkc->bac", f1i, hr)
+    xr = _contract("ka,bkc->bac", f1r, hr) + _contract("ka,bkc->bac", f1i, hi)
+    xi = _contract("ka,bkc->bac", f1r, hi) - _contract("ka,bkc->bac", f1i, hr)
     return xr, xi

@@ -5,12 +5,20 @@ engine is picked by (B, n) with the same predicates as the JAX package
 (plan.py, tuning.py):
 
 * B = 1, 1024 <= n <= 16384: the whole transform in ONE kernel launch —
-  the packed-table variant (K2) up to ``whole_packed_n_max``, else K1;
+  the packed-table variant (K2) up to ``whole_packed_n_max``, else K1
+  (K2F / K1F, their bf16 tensor-core counterparts, under "fast");
 * other n <= FUSED_MAX: the direct DFT or the four-step, as torch
   contractions (kernels/fused_torch.py);
-* n > FUSED_MAX: staged — the stage-A kernel (K3) over the (n1, n2) view,
-  then the row four-step with the digit reversal folded into its output
-  order (or, for forced-small plans, a recursive row transform).
+* n > FUSED_MAX: staged — the stage-A kernel (K3, K3F under "fast") over
+  the (n1, n2) view, then the row four-step with the digit reversal folded
+  into its output order (or, for forced-small plans, a recursive row
+  transform).
+
+Under ``GPU_FFT_TPU_PRECISION=high`` no kernel runs, as in the JAX package,
+whose Mosaic kernels have no bf16x3 form: the band falls through to the
+torch engines, and stage A (and the staged irfft's stage A) runs as the
+torch product ``stage_a_torch``, with no half-row cut.  The mode is read at
+call time (``config.PRECISION``).
 
 :func:`inverse_real` and :func:`inverse_real_half` (``gpu_fft_tpu/kernels/
 large.py``) are the real-output inverses: the Hermitian fold at
@@ -45,8 +53,8 @@ at staged sizes): fold extra axes into B.
 from __future__ import annotations
 
 import torch
-from torch.autograd import forward_ad
 
+from .. import config
 from ..config import DIRECT_MAX, FUSED_MAX
 from ..plan import (
     get_fused_plan,
@@ -70,6 +78,7 @@ from ..plan import (
 from ..tuning import get_tuning
 from .fused import stage_a, whole_transform, whole_transform_packed
 from .fused_torch import (
+    _tracked,
     fused_fft,
     fused_fft_folded,
     fused_fft_half,
@@ -77,6 +86,7 @@ from .fused_torch import (
     irfft_direct_half,
     irfft_direct_half_k128,
     irfft_fold_columns,
+    stage_a_torch,
     stage_a_torch_transpose,
     stage_b,
     stage_b_half,
@@ -97,7 +107,7 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
     dev = xr.device
     if n <= FUSED_MAX:
         b = xr.shape[0]
-        if whole_kernel_applies(b, n):
+        if whole_kernel_applies(b, n) and config.PRECISION != "high":
             return _through(_WholeTransform, _whole, xr, xi, (n, sign, scale))
         if xi is None and half_spectrum_applies(n):
             plan = on_device(get_fused_plan, n, sign, False, scale, device=dev)
@@ -115,15 +125,6 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
 
 
 # ── Autodiff seams ───────────────────────────────────────────────────────────
-
-
-def _tracked(*ts) -> bool:
-    """Whether reverse-mode autograd records these tensors or they carry a
-    forward-mode tangent (``torch.func`` transforms show as one or the
-    other)."""
-    grad = torch.is_grad_enabled()
-    return any(t is not None and ((grad and t.requires_grad) or forward_ad.unpack_dual(t).tangent is not None)
-               for t in ts)
 
 
 def _through(function, body, xr, xi, key):
@@ -146,6 +147,10 @@ def _stage_a_fold(x3r, x3i, key):
     tiles of a (B, n1, n2) view, ``key`` = (n, tiles)."""
     n, tiles = key
     plan = on_device(get_stage_a_plan, n, +1, None, device=x3r.device)
+    if config.PRECISION == "high":
+        yr, yi = stage_a_torch(x3r, x3i, plan)
+        cols = tiles * plan["ct"]
+        return yr[:, :, :cols], yi[:, :, :cols]
     return stage_a(x3r, x3i, plan["n1"], plan["n2"], plan, plan["ct"], col_tiles=tiles)
 
 
@@ -267,10 +272,13 @@ def _staged(xr, xi, key):
     plan = on_device(get_stage_a_plan, n, sign, stage_a_ct_full_range(n), device=xr.device)
     n1, n2 = plan["n1"], plan["n2"]
     half = xi is None and half_spectrum_applies(n) and plan["stage_b"] is not None
-    half_rows = stage_a_real_rows(n1) if half else None
     x3r = xr.reshape(b, n1, n2)
     x3i = None if xi is None else xi.reshape(b, n1, n2)
-    yr, yi = stage_a(x3r, x3i, n1, n2, plan, plan["ct"], rows=half_rows)
+    if config.PRECISION == "high":
+        yr, yi = stage_a_torch(x3r, x3i, plan)
+    else:
+        half_rows = stage_a_real_rows(n1) if half else None
+        yr, yi = stage_a(x3r, x3i, n1, n2, plan, plan["ct"], rows=half_rows)
 
     if plan["stage_b"] is not None:
         if half:

@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import config
 from .config import DIRECT_MAX, FUSED_MAX, MAX_N
 from .kernels.tables import dft_matrix_ext, twiddle_table
 from .tuning import get_tuning
@@ -351,7 +352,10 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
     Pure arithmetic: no table is built and no device is touched.  Unlike
     the JAX function it names the whole-transform band, where one launch of
     K2 (``whole_transform_packed``) or K1 (``whole_transform``) does the
-    whole transform; there the JAX one says ``fourstep``.
+    whole transform; there the JAX one says ``fourstep``.  It follows the
+    precision mode of the call (``precision``): under "fast" the band and
+    stage A name K2F / K1F / K3F, under "high" the band is the four-step
+    and stage A a torch product, as ``transform_any`` runs them.
 
     >>> describe_plan(256)["path"]
     'direct'
@@ -370,13 +374,15 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
         raise ValueError(f"describe_plan requires power-of-two n >= 2, got {n}")
     if n > MAX_N:
         raise ValueError(f"n={n} exceeds MAX_N={MAX_N}")
-    out: dict = {"n": n, "batch": batch, "real_input": real_input}
-    if n <= FUSED_MAX and whole_kernel_applies(batch, n):
+    mode = config.PRECISION
+    fast = "_bf16" if mode == "fast" else ""
+    out: dict = {"n": n, "batch": batch, "real_input": real_input, "precision": mode}
+    if n <= FUSED_MAX and whole_kernel_applies(batch, n) and mode != "high":
         packed = n <= get_tuning().whole_packed_n_max
         out.update(
             path="whole",
-            engine="K2, one launch" if packed else "K1, one launch",
-            kernel="whole_transform_packed" if packed else "whole_transform",
+            engine=("K2" if packed else "K1") + ("F" if fast else "") + ", one launch",
+            kernel=("whole_transform_packed" if packed else "whole_transform") + fast,
             split=(n // 128, 128),
             layout=None,
         )
@@ -402,7 +408,8 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
     n2 = n // n1
     out.update(
         path="staged",
-        engine="K3 stage_a + torch stage B",
+        engine={"full": "K3 stage_a", "fast": "K3F stage_a_bf16", "high": "torch stage_a"}[mode]
+        + " + torch stage B",
         split=(n1, n2),
         layout="half-spectrum" if half and stage_b_plannable(n2) else "folded",
         stage_b_split=(n2 // 128, 128) if stage_b_plannable(n2) else None,

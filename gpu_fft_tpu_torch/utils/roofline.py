@@ -107,8 +107,10 @@ OWN_KERNELS = (
     "copy_min_kernel",
     "dense_f32_kernel",
     "operand_probe_kernel",
+    "stage_a_bf16_kernel",
     "stage_a_dot_wgmma_kernel",
     "stage_a_radix_kernel",
+    "whole_bf16_kernel",
     "whole_kernel",
 )
 _OWN = re.compile(r"\b(" + "|".join(OWN_KERNELS) + r")\b")
@@ -433,12 +435,17 @@ def roofline_row(
     measured_s: float,
     chip: ChipSpec | None = None,
     n_kernels: int | None = None,
+    precision_passes: int | None = None,
 ) -> dict:
     """The least time of a measured configuration and its share of it.
 
     ``t_matmul`` charges each matmul stage its effective passes
     (:data:`EFF_PASSES`) at the bf16 peak; ``t_bytes`` the least bytes at
     the HBM rate; ``t_elementwise`` the elementwise flops at the fp32 peak.
+    ``precision_passes`` (JAX: the same argument) charges the matmul stages
+    of a reduced-precision mode instead: 3 for bf16x3 ("high"), 1 for
+    bf16x1 ("fast"), each stage's flops times the passes at the bf16
+    tensor-core peak; None keeps the calibrated fp32 model.
     Given ``n_kernels`` (:func:`compiled_stats`) and a chip with a measured
     launch floor, ``t_latency = kernel_call_us * n_kernels``.  ``sol`` is
     the largest wall, ``bound`` its name: ``hbm``, ``matmul``,
@@ -448,8 +455,8 @@ def roofline_row(
     cost = transform_cost(b, n, kind)
     walls = {
         "hbm": cost["bytes"] / (chip.hbm_gbps * 1e9),
-        "matmul": sum(f * eff_passes(chip.name, k) for f, k in cost["stages"])
-        / (chip.bf16_tflops * 1e12),
+        "matmul": sum(f * (eff_passes(chip.name, k) if precision_passes is None else precision_passes)
+                      for f, k in cost["stages"]) / (chip.bf16_tflops * 1e12),
         "elementwise": cost["elem_flops"] / (chip.vpu_tflops * 1e12),
     }
     if n_kernels is not None and chip.kernel_call_us is not None:
@@ -465,6 +472,8 @@ def roofline_row(
         "walls_us": {k: v * 1e6 for k, v in walls.items()},
         "chip": chip.name,
     }
+    if precision_passes is not None:
+        row["precision_passes"] = precision_passes
     if n_kernels is not None:
         row["n_kernels"] = n_kernels
         if "latency" in walls:

@@ -768,3 +768,75 @@ def test_exported_artifact_runs_on_the_card(dev, tmp_path):
     lr, li = gt.fft_device(torch.from_numpy(x).to(dev))
     np.testing.assert_array_equal(yr, lr.cpu().numpy())
     np.testing.assert_array_equal(yi, li.cpu().numpy())
+
+
+# ── K1F / K2F / K3F, the "fast" kernels (GPU_FFT_TPU_PRECISION=fast) ─────────
+#
+# Gate: max |kernel - plain| <= 1e-3 * max |plain|.  Both take the same bf16
+# operands and accumulate in fp32 in other orders; a one-ulp fp32 difference
+# in Z before its bf16 rounding (K1F / K2F) can move one intermediate by a
+# bf16 ulp (2^-8).
+FAST_RTOL = 1e-3
+
+
+def _close_fast(got, want):
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    assert err <= FAST_RTOL * scale, f"max|d| {err:.3e} > {FAST_RTOL} * {scale:.3e}"
+
+
+@pytest.mark.parametrize(
+    "name,n",
+    [("whole_transform_bf16", n) for n in (1024, 2048, 4096, 8192, 16384)]
+    + [("whole_transform_packed_bf16", n) for n in (1024, 2048, 4096, 8192, 16384)],
+)
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_whole_bf16_kernel(dev, name, n, b, complex_, signal):
+    make = P.get_whole_packed_plan if "packed" in name else P.get_whole_plan
+    plan = P.on_device(make, n, 1 if complex_ else -1, 1.0 / n if complex_ else None, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n + b)
+    xr = _signal(signal, b, n, g, dev)
+    xi = _signal(signal, b, n, g, dev) if complex_ else None
+    K.reset_counts()
+    got = getattr(K, name)(xr, xi, plan)
+    assert K.COUNTS[name].launches == 1 and K.COUNTS[name].plain_calls == 0
+    _close_fast(got, getattr(K, name + "_plain")(xr, xi, plan))
+
+
+@pytest.mark.parametrize("n,ct", [(1 << 17, 512), (1 << 18, 2048), (1 << 20, 2048), (1 << 20, 512),
+                                  (1 << 22, 2048), (1 << 24, 2048)])
+@pytest.mark.parametrize("kind", ["real_rows", "complex", "complex_col_tiles"])
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_stage_a_bf16_kernel(dev, n, ct, kind, signal):
+    plan = P.on_device(P.get_stage_a_plan, n, -1 if kind == "real_rows" else 1, ct, device=dev)
+    n1, n2 = plan["n1"], plan["n2"]
+    g = torch.Generator(device=dev).manual_seed(n + ct)
+    xr = _signal(signal, n1, n2, g, dev)[None]
+    xi = None if kind == "real_rows" else _signal(signal, n1, n2, g, dev)[None]
+    kw = dict(rows=P.stage_a_real_rows(n1) if kind == "real_rows" else None,
+              col_tiles=-(-(n2 // 2 + 1) // ct) if kind == "complex_col_tiles" else None)
+    K.reset_counts()
+    got = K.stage_a_bf16(xr, xi, n1, n2, plan, ct, **kw)
+    assert K.COUNTS["stage_a_bf16"].launches == 1
+    _close_fast(got, K.stage_a_bf16_plain(xr, xi, n1, n2, plan, ct, **kw))
+
+
+@pytest.mark.parametrize("n,kernel", [(1024, "whole_transform_packed_bf16"), (4096, "whole_transform_bf16"),
+                                      (1 << 20, "stage_a_bf16")])
+def test_fast_mode_launches_its_kernels_on_card(dev, n, kernel, monkeypatch):
+    """Under "fast" the main path launches K2F / K1F / K3F, never K1/K2/K3,
+    within the mode's band; under "high" none of the six."""
+    from gpu_fft_tpu_torch import config
+
+    x = torch.randn(1, n, device=dev, generator=torch.Generator(device=dev).manual_seed(n))
+    ref = np.fft.fft(x.double().cpu().numpy(), axis=-1)
+    for mode, band, want in (("fast", 2e-2, {kernel: 1}), ("high", 2e-4, {})):
+        monkeypatch.setattr(config, "PRECISION", mode)
+        K.reset_counts()
+        yr, yi = gt.fft_device(x)
+        ran = {k: c.launches for k, c in K.COUNTS.items() if c.launches or c.plain_calls}
+        assert ran == want
+        err = max(np.abs(yr.cpu().numpy() - ref.real).max(), np.abs(yi.cpu().numpy() - ref.imag).max())
+        assert 1e-6 < err / np.abs(ref).max() < band

@@ -72,11 +72,20 @@ def test_module_imports_no_jax(path):
             assert root not in ("jax", "jaxlib", "gpu_fft_tpu"), f"{path} imports {name}"
 
 
-def test_other_precision_modes_are_not_ported():
-    env = dict(os.environ, GPU_FFT_TPU_PRECISION="high")
+@pytest.mark.parametrize("mode,want", [("full", "full"), ("high", "high"), ("fast", "fast"), (" Fast ", "fast")])
+def test_package_imports_under_each_precision_mode(mode, want):
+    env = dict(os.environ, GPU_FFT_TPU_PRECISION=mode)
+    proc = _run("import gpu_fft_tpu_torch; from gpu_fft_tpu_torch import config; print(config.PRECISION)", env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == want
+
+
+@pytest.mark.parametrize("mode", ["bogus", "tf32"])
+def test_bogus_precision_mode_is_rejected(mode):
+    env = dict(os.environ, GPU_FFT_TPU_PRECISION=mode)
     proc = _run("import gpu_fft_tpu_torch", env=env)
     assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
+    assert "ValueError" in proc.stderr and "full|high|fast" in proc.stderr
 
 
 def test_chip_smoke_fails_without_a_card():

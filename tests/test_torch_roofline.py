@@ -166,6 +166,26 @@ def test_roofline_row_latency_wall():
     assert "t_latency_us" not in roof.roofline_row(1, 1024, "fft", 5e-6, chip=no_floor, n_kernels=3)
 
 
+@pytest.mark.parametrize("passes", [None, 3, 1])
+def test_roofline_row_precision_passes(passes):
+    """None keeps the calibrated fp32 model; 3 (bf16x3) and 1 (bf16x1)
+    charge each matmul stage's flops times the passes at the bf16 peak
+    (the JAX package's ``precision_passes``)."""
+    row = roof.roofline_row(16, 65536, "fft", 1e-4, chip=H100, precision_passes=passes)
+    stages = roof.transform_cost(16, 65536, "fft")["stages"]
+    if passes is None:
+        want = sum(f * roof.eff_passes("h100", k) for f, k in stages)
+        assert "precision_passes" not in row
+    else:
+        want = sum(f * passes for f, _ in stages)
+        assert row["precision_passes"] == passes
+    assert row["walls_us"]["matmul"] == pytest.approx(want / (H100.bf16_tflops * 1e12) * 1e6)
+    assert row["walls_us"]["hbm"] == pytest.approx(roof.roofline_row(16, 65536, "fft", 1e-4, chip=H100)["walls_us"]["hbm"])
+    if passes is not None:
+        jax_row = jroof.roofline_row(16, 65536, "fft", 1e-4, precision_passes=passes)
+        assert jax_row["flops"] == pytest.approx(row["flops"])
+
+
 def test_detect_chip_is_the_cpu_row_without_a_card():
     assert roof.detect_chip() is roof.CHIPS["cpu-approx"]
 

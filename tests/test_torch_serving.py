@@ -115,6 +115,37 @@ def test_artifact_holds_the_kernel_operator(n, kernel, tmp_path):
     assert {k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls} == {kernel: 1}
 
 
+@pytest.mark.parametrize("mode,n,kernel", [
+    ("fast", 1024, "whole_transform_packed_bf16"), ("fast", 4096, "whole_transform_bf16"),
+    ("fast", 1 << 17, "stage_a_bf16"), ("full", 4096, "whole_transform"), ("high", 4096, None),
+    ("high", 1 << 17, None),
+])
+def test_artifact_holds_the_operator_of_its_mode(mode, n, kernel, tmp_path, monkeypatch):
+    """The mode is traced in, as the JAX package's jit caches trace it: an
+    artifact exported under "fast" holds K2F / K1F / K3F, under "full" K1,
+    under "high" no kernel; it keeps running its own operator after the
+    mode is set back, and its numbers are the live call's of its mode."""
+    from gpu_fft_tpu_torch import config
+
+    monkeypatch.setattr(config, "PRECISION", mode)
+    path = str(tmp_path / "fft.pt2")
+    save_transform(path, "fft", 1, n, device="cpu")
+    x = np.random.default_rng(2).standard_normal((1, n)).astype(np.float32)
+    from gpu_fft_tpu_torch.ops.transform import fft_device
+
+    live = [t.numpy() for t in fft_device(torch.from_numpy(x), device="cpu")]
+    monkeypatch.setattr(config, "PRECISION", "full")
+    exported = load_transform(path)
+    targets = [str(node.target) for node in exported.graph.nodes if node.op == "call_function"]
+    ours = [t for t in targets if t.startswith("gpu_fft_tpu_torch.")]
+    assert ours == ([f"gpu_fft_tpu_torch.{kernel}.default"] if kernel else []), targets
+    K.reset_counts()
+    got = exported_call(exported, x)
+    assert {k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls} == ({kernel: 1} if kernel else {})
+    for g, w in zip(got, live):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_cli_export_and_serve_check(tmp_path, capsys):
     from gpu_fft_tpu_torch.__main__ import main
 
