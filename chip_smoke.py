@@ -17,7 +17,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    reading a materialized twiddle) at every ablate_large shape and in its
    complex, rows and col_tiles forms, S2 at n1 = 32, 128 and 256, and S3 of
    the stage-A ablation harnesses, with S3's error against float64 (gate
-   for f32 and bf16_x6: 5*log2(n1)*eps; bf16_x1 printed);
+   for f32 and bf16_x6: 5*log2(n1)*eps; bf16_x1 printed); K3LF and S2F,
+   the "fast" forms of K3-legacy and S2, at the same shapes (K3LF also at
+   2^20 complex and rows = 72 and 2^22 rows = 72), gate max|d| <= 1e-3
+   max|plain| and, against float64, at most 1.5 times the plain version's
+   error;
 3. the main path through the public API on ``device="cuda"``: the sine ->
    fft -> psd -> dominant frequency -> ifft demo, fft/ifft from n = 1024 to
    2^22, fft_batch and ifft_batch, each checked against numpy in float64 with
@@ -149,12 +153,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    bounds (bf16 operations at the tensor-core peak, bytes at the HBM rate;
    K2F / K1F beside torch.fft on complex32, cuFFT's half precision), and
    fft_device in each mode at phase 3h's shapes beside torch.fft.fft in
-   fp32 and on complex32;
+   fp32 and on complex32; K3LF at 2^20 real and complex, all rows, and at
+   2^22 rows = 72, back to back and with L2 flushed, beside K3-legacy; S2F
+   at 2^20 with n1 = 128 and 256 beside S2 and S3 bf16_x1 (no PyTorch call
+   computes either);
 5. the second path: the three stage-A ablation harnesses
    (``python -m gpu_fft_tpu_torch.scripts.<name>``) in their quick setting;
    the launch counts show K3-legacy, S2 and S3 ran, no row holds an error,
    and every timed levers row (the L4 irfft rows too) agrees with its
-   reference row within 5*log2(2^22)*eps;
+   reference row within 5*log2(2^22)*eps; then, counted from 0 with
+   ``GPU_FFT_TPU_PRECISION=fast`` set in the run, ``ablate_large``,
+   ``ablate_2e20_levers`` (quick) and ``time_stage_a``'s legacy rows: K3LF
+   and S2F ran, K3-legacy, S2 and every plain version did not, no error
+   row, every levers row within twice the "fast" band of its reference and
+   L3 (K3F against S2F) within 1e-3; every K3LF / S2F geometry they
+   launched against its plain version and float64, and more than 1e-4 of
+   max|.| from the fp32 kernel on the same input (the mode was engaged);
 6. the third path, calibration: ``calibrate_latency``, ``calibrate_matmul``,
    ``ablate_whole_packed``, ``ablate_engines`` and ``calibrate_chip`` in
    their quick setting; the launch counts show S1, S4 and S5 (and K1, K2,
@@ -264,7 +278,12 @@ PRECISION_SHAPES = (*((1, n) for n in (1024, 4096, 16384, 65536, 1 << 20, 1 << 2
 PRECISION_GRAD = (4096, 1 << 20)
 FAST_KERNELS = {"whole_transform_packed": "whole_transform_packed_bf16",
                 "whole_transform": "whole_transform_bf16", "stage_a": "stage_a_bf16"}
-FAST_TOL = 1e-3  # K1F/K2F/K3F vs plain, relative to max|plain|: see phase 3h
+FAST_TOL = 1e-3  # K1F/K2F/K3F/K3LF/S2F vs plain, relative to max|plain|: see phase 3h
+# A fast kernel's error against float64 may be at most this many times its
+# plain version's (the same rounded operands; fp32 sums in another order).
+F64_RATIO = 1.5
+# The "fast" forms of the stage-A ablation kernels (phase 5 under "fast").
+FAST_LEGACY_KERNELS = {"stage_a_legacy": "stage_a_legacy_bf16", "stage_a_manual": "stage_a_manual_bf16"}
 
 
 T0 = time.perf_counter()
@@ -382,22 +401,27 @@ def fast_whole_bound(n: int, complex_: bool):
     return walls[wall] * 1e-3, "bytes" if wall == "hbm" else "operations", walls["latency"] * 1e-3
 
 
-def fast_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int, ncols: int | None = None,
-                       batch: int = 1):
-    """K3F: per kept column ``rows`` x n1 multiply-adds per product (real
-    input Fr x and Fi x; complex the Karatsuba three) at the bf16 peak, plus
-    the fp32 twiddle (its rebuild and the complex product, 12 FLOP an
-    output; 2 more for Karatsuba's combination); x's kept columns (both
-    parts for complex input), F1's bf16 image (four n1 x n1 slots), the two
-    twiddle factors' rows read once, the output written once."""
+def fast_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | None, ncols: int | None = None,
+                       batch: int = 1, f_slots: int = 4):
+    """K3F, and with ``ct`` None K3LF and S2F (the materialized table): per
+    kept column ``rows`` x n1 multiply-adds per product (real input Fr x and
+    Fi x; complex the Karatsuba three) at the bf16 peak, plus the fp32
+    twiddle (K3F: its rebuild and the complex product, 12 FLOP an output;
+    the table: the product, 6; 2 more for Karatsuba's combination); x's kept
+    columns (both parts for complex input), F1's bf16 image (``f_slots``
+    n1 x n1 slots: K3F's and K3LF's four, S2F's stacking two), the twiddle
+    read once (K3F: the two factors' rows; the table: its kept rows x
+    columns), the output written once."""
     ncols = n2 if ncols is None else ncols
     products = 3 if complex_ else 2
     outputs = batch * rows * ncols
     spec = h100()
+    twiddle_flop = (12 if ct else 6) + (2 if complex_ else 0)
     t_ops = (2 * products * n1 * outputs / (spec.bf16_tflops * 1e12)
-             + (14 if complex_ else 12) * outputs / (spec.vpu_tflops * 1e12)) * 1e3
-    nbytes = (4 * batch * (2 if complex_ else 1) * n1 * ncols + 8 * outputs + 2 * 4 * n1 * n1
-              + 8 * rows * (ncols // ct + ct))
+             + twiddle_flop * outputs / (spec.vpu_tflops * 1e12)) * 1e3
+    twiddle = rows * (ncols // ct + ct) if ct else rows * ncols
+    nbytes = (4 * batch * (2 if complex_ else 1) * n1 * ncols + 8 * outputs + 2 * f_slots * n1 * n1
+              + 8 * twiddle)
     t_bytes = nbytes / (spec.hbm_gbps * 1e9) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -457,7 +481,9 @@ def capture_launches(module, names=MAIN_PATH_KERNELS) -> tuple[dict, object]:
     ``large.stage_a``, ``large.whole_transform``,
     ``large.whole_transform_packed``) so that the first input of every
     distinct launch geometry is kept, cloned: (kernel, input shape, real or
-    complex, plan, tile arguments) -> (xr, xi, args, kwargs).  The counts
+    complex, plan, tile arguments) -> (xr, xi, args, kwargs).  An entry
+    whose second argument is not a tensor (S2F's tables) keeps it as it
+    is.  The counts
     are the wrapped kernels' own.  Returns the dict and a function that puts
     the entries back."""
     import torch
@@ -470,7 +496,7 @@ def capture_launches(module, names=MAIN_PATH_KERNELS) -> tuple[dict, object]:
             key = (name, tuple(xr.shape), xi is None,
                    *(id(a) if isinstance(a, dict) else a for a in args), *sorted(kw.items()))
             if key not in seen and type(xr) is torch.Tensor:  # not a tensor torch.export traces with
-                seen[key] = (xr.clone(), None if xi is None else xi.clone(), args, kw)
+                seen[key] = (xr.clone(), xi.clone() if isinstance(xi, torch.Tensor) else xi, args, kw)
             return fn(xr, xi, *args, **kw)
 
         return call
@@ -511,6 +537,33 @@ def check_geometries(report: dict, geometries: dict, phase: str) -> None:
             fail(f"{name} {case}: kernel disagrees with its plain version")
         del got, want, gx, gy
     torch.cuda.synchronize()
+
+
+def hold_fast(report: dict, name: str, case: str, got, want, truth) -> float:
+    """Hold a "fast" kernel's output ``got`` against its plain version's
+    ``want`` (gate max|d| <= FAST_TOL max|plain|) and both against ``truth``,
+    the fp32 plain version on float64 operands (the kernel's error at most
+    F64_RATIO times the plain version's); fail on either.  Returns max|d|."""
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    e64 = [max(float((o.double() - t).abs().max()) for o, t in zip(out, truth)) for out in (got, want)]
+    ok = err <= FAST_TOL * scale and e64[0] <= F64_RATIO * e64[1]
+    report["kernel_checks"].append(dict(kernel=name, case=case, max_abs_err=err, max_abs=scale, f64_err=e64[0],
+                                        plain_f64_err=e64[1], exact=False, ok=ok))
+    print(f"    {name:28s} {case:44s} max|d| {err:.3e} max|plain| {scale:.3e} | vs f64: kernel "
+          f"{e64[0]:.3e} plain {e64[1]:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} {case}: kernel disagrees with its plain version or float64")
+    return err
+
+
+def f64(t):
+    """A tensor (or a plan's tensors) in float64; anything else as it is."""
+    import torch
+
+    if isinstance(t, dict):
+        return {k: f64(v) for k, v in t.items()}
+    return t.double() if isinstance(t, torch.Tensor) else t
 
 
 def record(report: dict, key: str, label: str, n: int, err: float, limit: float) -> None:
@@ -2253,40 +2306,164 @@ def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=
 
     # Each geometry against its plain version and against float64.
     print(f"  {len(seen)} K1F/K2F/K3F geometries launched in phase 3h, each vs its plain version (gate max|d| "
-          f"<= {FAST_TOL} max|plain|) and float64 (kernel error <= 1.5 x the plain version's):")
+          f"<= {FAST_TOL} max|plain|) and float64 (kernel error <= {F64_RATIO} x the plain version's):")
     max_err = {k: 0.0 for k in FAST_KERNELS.values()}
     for (name, shape, real, *_), (gx, gy, args, kw) in seen.items():
         got = getattr(K, name)(gx, gy, *args, **kw)  # restored: the kernel itself
         want = getattr(K, name + "_plain")(gx, gy, *args, **kw)
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        scale = max(float(w.abs().max()) for w in want)
         # float64: the fp32 kernel's plain version on float64 operands.
-        d = lambda t: None if t is None else t.double()  # noqa: E731
         if name == "stage_a_bf16":
-            n1, n2, tables, col_tile, *rest = args
-            tables64 = {k: d(v) if isinstance(v, torch.Tensor) else v for k, v in tables.items()}
-            truth = K.stage_a_plain(d(gx), d(gy), n1, n2, tables64, col_tile, *rest, **kw)
+            truth = K.stage_a_plain(f64(gx), f64(gy), *map(f64, args), **kw)
         elif name == "whole_transform_bf16":
-            truth = K.whole_transform_plain(d(gx), d(gy), {k: d(v) for k, v in args[0].items()
-                                                           if k.startswith(("f1", "f2", "tw"))})
+            truth = K.whole_transform_plain(f64(gx), f64(gy), {k: f64(v) for k, v in args[0].items()
+                                                               if k.startswith(("f1", "f2", "tw"))})
         else:
-            truth = K.whole_transform_packed_plain(d(gx), d(gy), {"packed": d(args[0]["packed"]),
-                                                                  "n1": args[0]["n1"]})
-        e64 = [max(float((o.double() - t).abs().max()) for o, t in zip(out, truth)) for out in (got, want)]
-        ok = err <= FAST_TOL * scale and e64[0] <= 1.5 * e64[1]
+            truth = K.whole_transform_packed_plain(f64(gx), f64(gy), {"packed": f64(args[0]["packed"]),
+                                                                      "n1": args[0]["n1"]})
         case = f"{shape} {'real' if real else 'complex'} {[a for a in args if not isinstance(a, dict)]} {kw or ''}"
-        report["kernel_checks"].append(dict(kernel=name, case=f"phase 3h {case}", max_abs_err=err, max_abs=scale,
-                                            f64_err=e64[0], plain_f64_err=e64[1], exact=False, ok=ok))
-        print(f"    {name:28s} {case:44s} max|d| {err:.3e} max|plain| {scale:.3e} | vs f64: kernel "
-              f"{e64[0]:.3e} plain {e64[1]:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{name} {case}: kernel disagrees with its plain version or float64")
-        max_err[name] = max(max_err[name], err)
+        max_err[name] = max(max_err[name], hold_fast(report, name, f"phase 3h {case}", got, want, truth))
         del got, want, truth
     torch.cuda.synchronize()
     report["precision_launches"] = launches
     report["precision_errors"] = {f"{op} ({b}, {n})": e for (op, b, n), e in errs.items()}
     return {"launches": fast_launches, "max_err": max_err}
+
+
+def fast_legacy_checks(report: dict, dev, randn) -> dict:
+    """Phase 2's "fast" stage-A ablation kernels, each against its plain
+    version and float64 (:func:`hold_fast`): K3LF at every ``ablate_large``
+    shape (real input, all rows) and in its complex, rows and col_tiles
+    forms, S2F at n1 = 32, 128 and 256.  Returns the largest max|d| of
+    each."""
+    import torch
+
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import ablation as A
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.scripts import ablate_large
+
+    print(f"  K3LF and S2F vs their plain versions (gate max|d| <= {FAST_TOL} max|plain|) and float64 (kernel "
+          f"error <= {F64_RATIO} x the plain version's):")
+    max_err = dict.fromkeys(FAST_LEGACY_KERNELS.values(), 0.0)
+    cases = [(n, n1, False, None, None) for n, n1s in ablate_large.SWEEPS.items() for n1 in n1s]
+    cases += [(1 << 17, 16, True, None, None), (1 << 17, 128, False, None, 72), (1 << 17, 128, True, 1, None),
+              (1 << 20, 128, True, None, None), (1 << 20, 128, False, None, 72), (1 << 22, 128, False, None, 72)]
+    for n, n1, complex_, tiles, r in cases:
+        plan = P.on_device(ablate_large.make_plan, n, n1, 1 if complex_ else -1, device=dev)
+        n2 = plan["n2"]
+        ct = P.stage_a_col_tile(n1, n2)
+        xr = randn(1, n1, n2)
+        xi = randn(1, n1, n2) if complex_ else None
+        args = (n1, n2, plan, ct, tiles, r)
+        got = K.stage_a_bf16(xr, xi, *args)
+        truth = K.stage_a_plain(f64(xr), f64(xi), *map(f64, args))
+        case = f"n={n} n1={n1} {'complex' if complex_ else 'real'} rows={r} col_tiles={tiles} ct={ct}"
+        err = hold_fast(report, "stage_a_legacy_bf16", case, got, K.stage_a_bf16_plain(xr, xi, *args), truth)
+        max_err["stage_a_legacy_bf16"] = max(max_err["stage_a_legacy_bf16"], err)
+        del xr, xi, got, truth
+    for n, n1 in ((1 << 17, 32), (1 << 20, 128), (1 << 20, 256)):
+        plan = A.manual_tables(P.on_device(ablate_large.make_plan, n, n1, -1, device=dev))
+        x = randn(n1, plan["n2"])
+        case = f"n={n} n1={n1} real {A.manual_bf16_geometry(n1, plan['n2'])}"
+        err = hold_fast(report, "stage_a_manual_bf16", case, A.stage_a_manual_bf16(x, plan),
+                        A.stage_a_manual_bf16_plain(x, plan), A.stage_a_manual_plain(f64(x), f64(plan)))
+        max_err["stage_a_manual_bf16"] = max(max_err["stage_a_manual_bf16"], err)
+        del x
+    torch.cuda.synchronize()
+    return max_err
+
+
+def fast_legacy_phase(report: dict, dev, out_dir: Path) -> dict:
+    """Phase 5 under "fast": the three stage-A harnesses through K3LF and
+    S2F (and K3F, in the levers harness), the mode set with
+    ``config.PRECISION`` and set back to "full", counted from 0.  Fails unless K3LF and S2F ran, K3-legacy, S2 and every
+    plain version did not, no row holds an error, every levers row is within
+    its mode's parity limit and L3's (K3F against S2F, which share rounded
+    operands) within FAST_TOL.  Then every K3LF and S2F geometry the
+    harnesses launched is held against its plain version and float64 and
+    against the fp32 kernel on the same input, from which it must be more
+    than 1e-4 of max|.| away (the mode was engaged).  Returns the phase's
+    launches and the largest kernel-vs-plain difference of each kernel."""
+    import numpy as np
+    import torch
+
+    from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch.kernels import ablation as A
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.scripts import ablate_2e20_levers, ablate_large, time_stage_a
+
+    K.reset_counts()
+    A.reset_counts()
+    seen_k, restore_k = capture_launches(K, ("stage_a_bf16",))
+    seen_s, restore_s = capture_launches(A, ("stage_a_manual_bf16",))
+    timed = {"ms": {}, "max_abs_err": {}, "sweep": []}
+    try:
+        config.PRECISION = "fast"
+        large_res = ablate_large.main(quick=True, out_dir=str(out_dir / "fast"))
+        levers_res = ablate_2e20_levers.main(quick=True, out_dir=str(out_dir / "fast"))
+        time_stage_a.time_legacy(timed, False, dev, torch.Generator(device=dev).manual_seed(0))
+    finally:
+        config.PRECISION = "full"
+        restore_k()
+        restore_s()
+    counted = {**K.COUNTS, **A.COUNTS}
+    launches = {k: c.launches for k, c in counted.items() if c.launches}
+    plain = sum(c.plain_calls for c in counted.values())
+    print(f"  launches in phase 5 under 'fast': {launches}; plain calls {plain}")
+    report.update(launches_phase5_fast=launches, ablate_large_fast=large_res, ablate_2e20_levers_fast=levers_res,
+                  time_stage_a_legacy_fast=timed)
+    if plain:
+        fail(f"phase 5 under 'fast' ran {plain} plain kernel versions on the card")
+    for full, fast in FAST_LEGACY_KERNELS.items():
+        if launches.get(full) or not launches.get(fast):
+            fail(f"phase 5 under 'fast' launched {full} {launches.get(full, 0)} and {fast} {launches.get(fast, 0)} "
+                 f"times")
+    if large_res["mode"] != "fast" or levers_res["mode"] != "fast":
+        fail("a harness did not run under 'fast'")
+    bad = ablate_2e20_levers.unexpected_errors(levers_res)
+    if bad:
+        fail(f"ablate_2e20_levers rows failed under 'fast': {bad}")
+    off = ablate_2e20_levers.parity_failures(levers_res)
+    if off:
+        fail(f"ablate_2e20_levers rows over parity {ablate_2e20_levers.parity_limit('fast'):.3e} under 'fast': {off}")
+    l3 = levers_res["rows"]["L3_stageA_emit_pipeline"]["parity"]
+    print(f"  L3 under 'fast': K3F against S2F parity {l3:.3e} (gate {FAST_TOL})")
+    if not l3 <= FAST_TOL:
+        fail(f"L3 under 'fast': K3F and S2F differ by {l3:.3e} of max|K3F|")
+    times = [e["us"] for e in large_res["entries"]]
+    times += [r["us"] for r in levers_res["rows"].values() if "us" in r]
+    times += list(timed["ms"].values())
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        fail(f"a harness time under 'fast' is not a positive number: {times}")
+
+    legacy = {key: v for key, v in seen_k.items() if "two_r" not in v[2][2]}
+    print(f"  {len(legacy)} K3LF and {len(seen_s)} S2F geometries the harnesses launched, each vs its plain "
+          f"version, float64 and the fp32 kernel (more than 1e-4 of max|.| away):")
+    max_err = dict.fromkeys(FAST_LEGACY_KERNELS.values(), 0.0)
+    engaged = []
+    for (name, shape, *_), (gx, gy, args, kw) in (*legacy.items(), *seen_s.items()):
+        if name == "stage_a_bf16":
+            name = "stage_a_legacy_bf16"
+            got, want = K.stage_a_bf16(gx, gy, *args), K.stage_a_bf16_plain(gx, gy, *args)
+            truth = K.stage_a_plain(f64(gx), f64(gy), *map(f64, args))
+            fp32 = K.stage_a(gx, gy, *args)  # "full": K3-legacy
+            case = f"{shape} {'real' if gy is None else 'complex'} {[a for a in args if not isinstance(a, dict)]}"
+        else:
+            tables = gy
+            got, want = A.stage_a_manual_bf16(gx, tables), A.stage_a_manual_bf16_plain(gx, tables)
+            truth = A.stage_a_manual_plain(f64(gx), f64(tables))
+            fp32 = A.stage_a_manual(gx, tables)  # "full": S2
+            case = f"{shape} real"
+        max_err[name] = max(max_err[name], hold_fast(report, name, f"phase 5 fast {case}", got, want, truth))
+        gap = max(float((g - w).abs().max()) for g, w in zip(got, fp32)) / max(float(w.abs().max()) for w in fp32)
+        engaged.append(dict(kernel=name, case=case, gap_to_fp32=gap))
+        print(f"      {name} {case}: {gap:.3e} of max|fp32 kernel| from the fp32 kernel")
+        if not gap > 1e-4:
+            fail(f"{name} {case}: within {gap:.3e} of the fp32 kernel; the mode was not engaged")
+        del got, want, truth, fp32
+    torch.cuda.synchronize()
+    report["phase5_fast_engaged"] = engaged
+    return {"launches": {k: launches.get(k, 0) for k in FAST_LEGACY_KERNELS.values()}, "max_err": max_err}
 
 
 def precision_times(report: dict, dev, time_pair, randn, shapes=PRECISION_SHAPES) -> None:
@@ -2530,6 +2707,9 @@ def main() -> None:
                 A.stage_a_manual(x, s2_plan), A.stage_a_manual_plain(x, s2_plan))
         del x, s2_plan
         torch.cuda.synchronize()
+
+    # K3LF and S2F, the "fast" forms of K3-legacy and S2 (phase 5 runs them).
+    fast_legacy_err = fast_legacy_checks(report, dev, randn)
 
     # S3 at (128, 8192), the ablate_mosaic_x6 shape; also against float64.
     s3_rng = np.random.default_rng(7)
@@ -2856,11 +3036,41 @@ def main() -> None:
             time_pair(f"stage_a_manual n={n} real", "stage_a_manual",
                       lambda: A.stage_a_manual(x2, legacy), lambda: A.stage_a_manual_plain(x2, legacy),
                       dense_stage_a_bound(n1, n2, n1))
+            # K3LF beside K3-legacy (above) and K3F (phase 3h's rows), back
+            # to back and with L2 flushed; S2F beside S2 and S3 bf16_x1.
+            time_pair(f"stage_a_legacy_bf16 n={n} real all rows", "stage_a_legacy_bf16",
+                      lambda: K.stage_a_bf16(x, None, n1, n2, legacy, lct),
+                      lambda: K.stage_a_bf16_plain(x, None, n1, n2, legacy, lct),
+                      fast_stage_a_bound(n1, n2, n1, False, None), cold="stage_a_bf16")
+            inv_legacy = P.on_device(ablate_large.make_plan, n, n1, 1, device=dev)
+            xi = randn(1, n1, n2)
+            time_pair(f"stage_a_legacy_bf16 n={n} complex all rows", "stage_a_legacy_bf16",
+                      lambda: K.stage_a_bf16(x, xi, n1, n2, inv_legacy, lct),
+                      lambda: K.stage_a_bf16_plain(x, xi, n1, n2, inv_legacy, lct),
+                      fast_stage_a_bound(n1, n2, n1, True, None), cold="stage_a_bf16")
+            del xi
+            time_pair(f"stage_a_manual_bf16 n={n} n1={n1} real", "stage_a_manual_bf16",
+                      lambda: A.stage_a_manual_bf16(x2, legacy), lambda: A.stage_a_manual_bf16_plain(x2, legacy),
+                      fast_stage_a_bound(n1, n2, n1, False, None, f_slots=2))
+            wide = A.manual_tables(P.on_device(ablate_large.make_plan, n, 256, -1, device=dev))
+            x256 = randn(256, n // 256)
+            time_pair(f"stage_a_manual n={n} n1=256 real", "stage_a_manual",
+                      lambda: A.stage_a_manual(x256, wide), lambda: A.stage_a_manual_plain(x256, wide),
+                      dense_stage_a_bound(256, n // 256, 256))
+            time_pair(f"stage_a_manual_bf16 n={n} n1=256 real", "stage_a_manual_bf16",
+                      lambda: A.stage_a_manual_bf16(x256, wide), lambda: A.stage_a_manual_bf16_plain(x256, wide),
+                      fast_stage_a_bound(256, n // 256, 256, False, None, f_slots=2))
+            del x256, wide
         time_pair(f"stage_a_legacy n={n} real rows={rows}", "stage_a_legacy",
                   lambda: K.stage_a(x, None, n1, n2, legacy, lct, rows=rows),
                   lambda: K.stage_a_plain(x, None, n1, n2, legacy, lct, rows=rows),
                   stage_a_bound(n1, n2, rows, False, None), dense=dense_stage_a_bound(n1, n2, rows),
                   cold="stage_a_radix")
+        if n == 1 << 22:
+            time_pair(f"stage_a_legacy_bf16 n={n} real rows={rows}", "stage_a_legacy_bf16",
+                      lambda: K.stage_a_bf16(x, None, n1, n2, legacy, lct, rows=rows),
+                      lambda: K.stage_a_bf16_plain(x, None, n1, n2, legacy, lct, rows=rows),
+                      fast_stage_a_bound(n1, n2, rows, False, None), cold="stage_a_bf16")
         del x
     # K3 on the irfft path's column tiles (complex, sign +1, ct = 512), and
     # at ct = 2,048 beside it (3 of 4 and 9 of 16 tiles at 2^20 and 2^22).
@@ -2973,7 +3183,7 @@ def main() -> None:
     levers_res = ablate_2e20_levers.main(quick=True, out_dir=str(out_dir))
     x6_res = ablate_mosaic_x6.main(quick=True, out_dir=str(out_dir))
     second_launches = {k: c.launches for k, c in {**K.COUNTS, **A.COUNTS}.items()
-                       if k not in MAIN_PATH_KERNELS and k not in FAST_KERNELS.values()}
+                       if k not in (*MAIN_PATH_KERNELS, *FAST_KERNELS.values(), *FAST_LEGACY_KERNELS.values())}
     print(f"  launches in phase 5: {second_launches}")
     report.update(launches_phase5=second_launches, ablate_large=large_res,
                   ablate_2e20_levers=levers_res, ablate_mosaic_x6=x6_res)
@@ -2995,6 +3205,12 @@ def main() -> None:
         if r["variant"] != "bf16_x1" and not r["rel_err"] <= s3_gate:
             fail(f"ablate_mosaic_x6 ct={r['ct']} {r['variant']}: rel_err {r['rel_err']:.3e} over {s3_gate:.3e}")
     print("  harnesses: every row measured and within parity; no error rows")
+
+    # ── Phase 5 under "fast": the same path through K3LF and S2F ────────────
+    stamp("phase 5 fast")
+    print("phase 5, GPU_FFT_TPU_PRECISION=fast: ablate_large, ablate_2e20_levers (quick) and time_stage_a's "
+          "legacy rows through K3LF and S2F")
+    fast_legacy = fast_legacy_phase(report, dev, out_dir)
 
     # ── Phase 6: the third path, the calibration scripts ────────────────────
     stamp("phase 6")
@@ -3055,6 +3271,8 @@ def main() -> None:
         "whole_transform_bf16": ("gpu_fft_tpu_torch/csrc/whole_bf16.cu", "gpu_fft_tpu/kernels/fused.py:424"),
         "stage_a_bf16": ("gpu_fft_tpu_torch/csrc/stage_a_bf16.cu", "gpu_fft_tpu/kernels/fused.py:188"),
         "stage_a_manual": ("gpu_fft_tpu_torch/csrc/dense_f32.cuh", "scripts/ablate_2e20_levers.py:188"),
+        "stage_a_legacy_bf16": ("gpu_fft_tpu_torch/csrc/stage_a_bf16.cu", "gpu_fft_tpu/kernels/fused.py:153"),
+        "stage_a_manual_bf16": ("gpu_fft_tpu_torch/csrc/stage_a_manual_bf16.cu", "scripts/ablate_2e20_levers.py:188"),
         **{f"stage_a_dot_{v}": ("gpu_fft_tpu_torch/csrc/stage_a_dot.cu", "scripts/ablate_mosaic_x6.py:105")
            for v in A.VARIANTS},
         "fused_fft_lm": ("gpu_fft_tpu_torch/csrc/fused_lm.cu", "scripts/ablate_engines.py:111"),
@@ -3067,8 +3285,10 @@ def main() -> None:
                           + parallel_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS},
-                    **precision["launches"]}
+                    **precision["launches"], **fast_legacy["launches"]}
     max_err.update(precision["max_err"])
+    for name, err in fast_legacy["max_err"].items():
+        max_err[name] = max(fast_legacy_err[name], err)
     kernels = []
     for name, (src, rep) in sources.items():
         t = kernel_ms[name]

@@ -6,9 +6,10 @@
 //     _stage_a_complex_kernel, and _tw_block):
 //       Y[b, k1, c] = (sum_a w_n1^(a k1) x[b, a, c]) * two[k1, c / ct] * twi[k1, c % ct]
 //     for k1 < rows and c < ncols, where two (n1, n2/ct) and twi (n1, ct) are
-//     the plan's factored twiddle and ct its column tile (Factored below);
+//     the plan's factored twiddle and ct its column tile (Factored);
 //   * K3-legacy, a materialized (n1, n2) twiddle (:153 / :162): the same sum
-//     times tw[k1 * n2 + c] (Table below, gft_stage_a_full).
+//     times tw[k1 * n2 + c] (Table, gft_stage_a_full).
+// Both sources are twiddle.cuh's.
 //
 // What bounds it on an H100: the bytes.  A radix FFT of a column of n1 = 128
 // costs 5 log2 n1 = 35 FLOP a point.  At 2^20, real input, rows = 72, that
@@ -34,6 +35,7 @@
 // block size n1 W / 8 and the dynamic shared memory, for either source.  A
 // refused launch is returned as an error; nothing falls back.
 #include "radix.cuh"
+#include "twiddle.cuh"
 
 namespace gft {
 namespace {
@@ -42,37 +44,6 @@ namespace {
 struct StageA {
   const float *w1r, *w1i;
   int rows, ncols;
-};
-
-// K3's twiddle: two[k1, c / ct] * twi[k1, c % ct], rebuilt per output.  A
-// column's (c / ct, c % ct) is taken once for all the rows a thread loads
-// (per output, the division cost K3 3-8%).
-struct Factored {
-  const float *two_r, *two_i, *twi_r, *twi_i;
-  int n_outer, ct;
-  struct Col {
-    int co, ci;
-  };
-  __device__ __forceinline__ Col column(int c) const {
-    const int co = c / ct;
-    return {co, c - co * ct};
-  }
-  __device__ __forceinline__ float2 at(int k1, Col c) const {
-    const size_t o = (size_t)k1 * n_outer + c.co, i = (size_t)k1 * ct + c.ci;
-    return cmul(make_float2(__ldg(two_r + o), __ldg(two_i + o)),
-                make_float2(__ldg(twi_r + i), __ldg(twi_i + i)));
-  }
-};
-
-// K3-legacy's twiddle: the materialized (n1, n2) table.
-struct Table {
-  const float *twr, *twi;
-  int n2;
-  __device__ __forceinline__ int column(int c) const { return c; }
-  __device__ __forceinline__ float2 at(int k1, int c) const {
-    const size_t o = (size_t)k1 * n2 + c;
-    return make_float2(__ldg(twr + o), __ldg(twi + o));
-  }
 };
 
 // The twiddle of the outputs of a radix-R pass from 2^lNs over 2^lW columns

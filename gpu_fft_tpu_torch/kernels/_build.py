@@ -51,10 +51,14 @@ _SIGNATURES = {
     # xr, xi, img, two_r, two_i, twi_r, twi_i, yr, yi,
     # batch, n1, n2, ct, rows, ncols, stream
     "gft_stage_a_bf16": [_P] * 9 + [_I] * 6 + [_P],
+    # xr, xi, img, twr, twi, yr, yi, batch, n1, n2, rows, ncols, stream
+    "gft_stage_a_bf16_full": [_P] * 7 + [_I] * 5 + [_P],
     # x, f_t, yr, yi, batch, n1, n2, stream
     "gft_stage_a_dot_f32": [_P] * 4 + [_I] * 3 + [_P],
     # x, f_img, yr, yi, batch, n1, n2, parts, wgs, grid, stream
     "gft_stage_a_dot_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    # x, f_img, twr, twi, yr, yi, n1, n2, wgs, grid, stream
+    "gft_stage_a_manual_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # x, f1r, f1i, twr, twi, f2r, f2s, f2d, yr, yi,
     # batch, n1, n2, cluster, threads, smem_bytes, stream
     "gft_fused_lm": [_P] * 10 + [_I] * 6 + [_P],

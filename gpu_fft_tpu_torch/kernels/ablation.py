@@ -7,7 +7,12 @@ here:
   stage A at B = 1 on real input with a materialized twiddle: the dense
   core of ``csrc/dense_f32.cuh`` on the stacked table of
   :func:`manual_tables`, the twiddle in its epilogue
-  (``csrc/stage_a_manual.cu``; column tile from :func:`manual_geometry`);
+  (``csrc/stage_a_manual.cu``; column tile from :func:`manual_geometry`).
+  Under ``GPU_FFT_TPU_PRECISION=fast``, where the JAX kernel's dots take
+  bf16x1, it is ``stage_a_manual_bf16`` (S2F): S3's bf16 ``wgmma`` core
+  (``csrc/dot_bf16.cuh``) on the same stacking's bf16 image, the twiddle in
+  its epilogue (``csrc/stage_a_manual_bf16.cu``; launch shape from
+  :func:`manual_bf16_geometry`);
 * ``stage_a_dot`` (S3, ``scripts/ablate_mosaic_x6.py:build``): the two
   stage-A dots Yr = Fr x, Yi = Fi x in three precisions, ``f32_highest``
   (a register-tiled product on the CUDA cores, ``csrc/dense_f32.cuh``),
@@ -26,7 +31,18 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused import DEFAULT_SMS, LaunchCount, _check, _on_cpu, _ptr, _stream, sm_count, stage_a_plain
+from .fused import (
+    DEFAULT_SMS,
+    LaunchCount,
+    _bf16_dots,
+    _check,
+    _fast,
+    _on_cpu,
+    _ptr,
+    _stream,
+    sm_count,
+    stage_a_plain,
+)
 
 __all__ = [
     "COUNTS",
@@ -37,6 +53,8 @@ __all__ = [
     "dot_launch_shapes",
     "dot_smem_bytes",
     "dot_tables",
+    "manual_bf16_geometry",
+    "manual_bf16_launch",
     "manual_geometry",
     "manual_launch",
     "manual_launch_shapes",
@@ -46,13 +64,16 @@ __all__ = [
     "stage_a_dot",
     "stage_a_dot_plain",
     "stage_a_manual",
+    "stage_a_manual_bf16",
+    "stage_a_manual_bf16_plain",
     "stage_a_manual_plain",
     "swizzled_image",
 ]
 
 VARIANTS = ("f32_highest", "bf16_x6", "bf16_x1")
 
-COUNTS = {"stage_a_manual": LaunchCount(), **{f"stage_a_dot_{v}": LaunchCount() for v in VARIANTS}}
+COUNTS = {"stage_a_manual": LaunchCount(), "stage_a_manual_bf16": LaunchCount(),
+          **{f"stage_a_dot_{v}": LaunchCount() for v in VARIANTS}}
 
 
 def reset_counts() -> None:
@@ -69,18 +90,22 @@ _PAIR = 32  # output rows a 64-row block of the stacked table holds
 
 def manual_tables(tables: dict) -> dict:
     """``tables`` (a legacy stage-A plan: ``f1r``/``f1i`` (n1, n1), a
-    materialized (n1, n2) ``twr``/``twi``) with S2's stacked table added,
-    built once per plan as :func:`dot_tables` builds ``f_t``: ``f_stack``
-    (n1, 2 n1) fp32, for every 32 output rows k1 their Fr rows then their
-    Fi rows as one 64-row block, transposed so that a block's 64 rows are a
-    run of 16-byte copies.  The kernel's pairs of rows 32 apart are then Re
-    and Im of one output row.  n1 must be a multiple of 32."""
+    materialized (n1, n2) ``twr``/``twi``) with S2's stacked table added in
+    the two forms its kernels read, built once per plan as
+    :func:`dot_tables` builds ``f_t`` and ``f_img``: the stacking is, for
+    every 32 output rows k1, their Fr rows then their Fi rows as one 64-row
+    block, so that rows 32 apart are Re and Im of one output row.
+    ``f_stack`` (n1, 2 n1) fp32 is that stacking transposed, so that a
+    block's 64 rows are a run of 16-byte copies (S2); ``f_img`` is its bf16
+    :func:`swizzled_image`, one part (S2F).  n1 must be a multiple of 32."""
     fr, fi = tables["f1r"], tables["f1i"]
     n1 = fr.shape[0]
     if n1 % _PAIR:
         raise ValueError(f"stage_a_manual: n1={n1} is not a multiple of {_PAIR}")
     blocks = torch.stack([fr.reshape(n1 // _PAIR, _PAIR, n1), fi.reshape(n1 // _PAIR, _PAIR, n1)], dim=1)
-    return {**tables, "f_stack": blocks.reshape(2 * n1, n1).to(torch.float32).t().contiguous()}
+    stack = blocks.reshape(2 * n1, n1).to(torch.float32)
+    return {**tables, "f_stack": stack.t().contiguous(),
+            "f_img": swizzled_image(stack.to(torch.bfloat16)[None])}
 
 
 def manual_launch_shapes(n1: int, n2: int) -> list[int]:
@@ -89,12 +114,17 @@ def manual_launch_shapes(n1: int, n2: int) -> list[int]:
     threads a 64-row block and a tile, one wave).  Raises ValueError for a
     shape the kernel cannot take: n1 a multiple of 32 in [32, 256], n2 of
     64."""
+    _manual_shape("stage_a_manual", n1, n2)
+    return [bn for bn in (64, 128) if n2 % bn == 0]
+
+
+def _manual_shape(kernel: str, n1: int, n2: int) -> None:
+    """S2's and S2F's shapes: n1 a multiple of 32 in [32, 256], n2 of 64."""
     if n1 % 32 or not 32 <= n1 <= 256 or n2 < 64 or n2 % 64:
         raise ValueError(
-            f"stage_a_manual kernel needs n1 in [32, 256] a multiple of 32 and n2 a multiple "
+            f"{kernel} kernel needs n1 in [32, 256] a multiple of 32 and n2 a multiple "
             f"of 64 (n1={n1}, n2={n2})"
         )
-    return [bn for bn in (64, 128) if n2 % bn == 0]
 
 
 def manual_geometry(n1: int, n2: int) -> int:
@@ -121,8 +151,10 @@ def stage_a_manual(x, tables: dict):
     ``tables``: a legacy stage-A plan on ``x``'s device, with ``f1r``/``f1i``
     (n1, n1) and a materialized (n1, n2) ``twr``/``twi``, and for a CUDA
     ``x`` the stacked table of :func:`manual_tables`.  Returns split-complex
-    (n1, n2).
+    (n1, n2).  Under "fast" it is :func:`stage_a_manual_bf16` (S2F).
     """
+    if _fast():
+        return stage_a_manual_bf16(x, tables)
     if _on_cpu(x, "stage_a_manual"):
         COUNTS["stage_a_manual"].plain_calls += 1
         return stage_a_manual_plain(x, tables)
@@ -145,6 +177,64 @@ def manual_launch(x, tables: dict, bn: int):
     )
     _build.check(err, "stage_a_manual")
     COUNTS["stage_a_manual"].launches += 1
+    return yr, yi
+
+
+# ── S2F: S2 under "fast", on the bf16 tensor cores ─────────────────────────
+
+
+def manual_bf16_geometry(n1: int, n2: int, sms: int = DEFAULT_SMS) -> tuple:
+    """S2F's launch shape (wgs, grid), the arguments its C entry takes after
+    the shape: :func:`dot_geometry`'s bf16_x1 rule at B = 1 (S2F is S3's
+    bf16 x1 kernel with another epilogue): at 2^20 all 256 stacked rows a
+    block for n1 = 128, 256 of 512 for n1 = 256.  Raises ValueError for a
+    shape S2 does not take (n1 a multiple of 32 in [32, 256], n2 of 64)."""
+    _manual_shape("stage_a_manual_bf16", n1, n2)
+    return dot_geometry(1, n1, n2, "bf16_x1", sms)
+
+
+def stage_a_manual_bf16_plain(x, tables: dict):
+    """Plain torch version of :func:`stage_a_manual_bf16`: Fr x and Fi x on
+    bf16-rounded operands with fp32 sums, the table twiddle in fp32 (K3LF's
+    plain version at B = 1, all rows and columns)."""
+    pr, pi = _bf16_dots(tables["f1r"], tables["f1i"], None, None, x, None)
+    twr, twi = tables["twr"], tables["twi"]
+    return pr * twr - pi * twi, pr * twi + pi * twr
+
+
+def stage_a_manual_bf16(x, tables: dict):
+    """S2F: :func:`stage_a_manual` as the JAX kernel computes it under "fast"
+    (its dots at bf16x1: Fr, Fi and x rounded to bf16, fp32 accumulation;
+    the twiddle in fp32).  ``tables``: :func:`manual_tables` of a legacy
+    plan on ``x``'s device (the CPU reads only ``f1r``, ``f1i``, ``twr``,
+    ``twi``).  Off the CPU a shape S2 does not take raises ValueError before
+    the device is looked at."""
+    if x.device.type == "cpu":
+        COUNTS["stage_a_manual_bf16"].plain_calls += 1
+        return stage_a_manual_bf16_plain(x, tables)
+    geometry = manual_bf16_geometry(*x.shape, sm_count(x.device))
+    _on_cpu(x, "stage_a_manual_bf16")  # raises for any device but CUDA
+    return manual_bf16_launch(x, tables, geometry)
+
+
+def manual_bf16_launch(x, tables: dict, geometry: tuple):
+    """Launch S2F on a CUDA ``x`` with ``geometry``, one of
+    :func:`dot_launch_shapes` for bf16_x1 at B = 1."""
+    n1, n2 = x.shape
+    if "f_img" not in tables:
+        raise ValueError("stage_a_manual_bf16: the tables lack f_img; build them with manual_tables")
+    _check("stage_a_manual_bf16", x.device, {"x": x, "twr": tables["twr"], "twi": tables["twi"]},
+           {"x": (n1, n2), "twr": (n1, n2), "twi": (n1, n2)})
+    _check("stage_a_manual_bf16", x.device, {"f_img": tables["f_img"]},
+           {"f_img": (2 * n1 // 64, 1, -(-n1 // 64), 64, 64)}, dtype=torch.bfloat16)
+    yr = torch.empty_like(x)
+    yi = torch.empty_like(x)
+    err = _build.library().gft_stage_a_manual_bf16(
+        _ptr(x), _ptr(tables["f_img"]), _ptr(tables["twr"]), _ptr(tables["twi"]), _ptr(yr), _ptr(yi), n1, n2,
+        *geometry, _stream(x.device),
+    )
+    _build.check(err, "stage_a_manual_bf16")
+    COUNTS["stage_a_manual_bf16"].launches += 1
     return yr, yi
 
 

@@ -17,12 +17,13 @@ kernels' dots run at bf16x1 (``config.mosaic_precision()``):
   (counted as ``stage_a_legacy``).
 
 * ``whole_transform_bf16`` (K1F), ``whole_transform_packed_bf16`` (K2F) and
-  ``stage_a_bf16`` (K3F): the same functions as the JAX bodies compute
-  them under "fast", on the bf16 tensor cores (``csrc/whole_bf16.cu``,
-  ``csrc/stage_a_bf16.cu``): four-step products with bf16 operands and fp32
-  accumulation, the twiddle in fp32.  ``whole_transform``,
-  ``whole_transform_packed`` and ``stage_a`` (factored plan) hand over to
-  them when the mode is "fast" at the call; their tables are the plan's
+  ``stage_a_bf16`` (K3F, and K3-legacy-fast, K3LF, on a legacy plan,
+  counted as ``stage_a_legacy_bf16``): the same functions as the JAX
+  bodies compute them under "fast", on the bf16 tensor cores
+  (``csrc/whole_bf16.cu``, ``csrc/stage_a_bf16.cu``): products with bf16
+  operands and fp32 accumulation, the twiddle in fp32.  ``whole_transform``,
+  ``whole_transform_packed`` and ``stage_a`` (either plan layout) hand over
+  to them when the mode is "fast" at the call; their tables are the plan's
   fp32 tables rounded to bf16, laid out as the kernels read them
   (:func:`frag_image`) and kept per plan (:func:`bf16_images`).
 
@@ -97,6 +98,7 @@ COUNTS = {
     "whole_transform_bf16": LaunchCount(),
     "whole_transform_packed_bf16": LaunchCount(),
     "stage_a_bf16": LaunchCount(),
+    "stage_a_legacy_bf16": LaunchCount(),
 }
 
 
@@ -414,9 +416,11 @@ def stage_a_geometry(b: int, n1: int, n2: int, ncols: int) -> tuple[int, int, in
     return width, n1 * width // _VALUES, 8 * (n1 * width + n1)
 
 
-def _stage_a_sliced(xr, xi, tables, r: int, ncols: int, col_tile: int):
-    """Plain stage A on the first ``r`` rows and ``ncols`` columns."""
-    t = {"f1r": tables["f1r"][:r], "f1i": tables["f1i"][:r]}
+def _sliced_tables(tables, r: int, ncols: int, col_tile: int) -> dict:
+    """The first ``r`` rows of a plan's F1 group and twiddle, the twiddle
+    over the first ``ncols`` columns (a factored one: its first
+    ``ncols / col_tile`` outer columns)."""
+    t = {k: tables[k][:r] for k in ("f1r", "f1i", "f1s", "f1d") if k in tables}
     if "two_r" in tables:
         t.update(
             two_r=tables["two_r"][:r, : ncols // col_tile],
@@ -425,8 +429,13 @@ def _stage_a_sliced(xr, xi, tables, r: int, ncols: int, col_tile: int):
         )
     else:
         t.update(twr=tables["twr"][:r, :ncols], twi=tables["twi"][:r, :ncols])
+    return t
+
+
+def _stage_a_sliced(xr, xi, tables, r: int, ncols: int, col_tile: int):
+    """Plain stage A on the first ``r`` rows and ``ncols`` columns."""
     return stage_a_torch(
-        xr[:, :, :ncols], None if xi is None else xi[:, :, :ncols], t
+        xr[:, :, :ncols], None if xi is None else xi[:, :, :ncols], _sliced_tables(tables, r, ncols, col_tile)
     )
 
 
@@ -507,15 +516,10 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
     ``rows`` only the first k1 rows.  Returns split-complex
     (B, rows or n1, col_tiles * col_tile or n2).  Off the CPU, a shape the
     kernel cannot take raises ValueError before the device is looked at.
-    Under "fast" a factored plan takes :func:`stage_a_bf16` (K3F); a legacy
-    plan raises NotImplementedError: K3-legacy's bf16 form is not ported.
+    Under "fast" it is :func:`stage_a_bf16`: K3F on a factored plan, K3LF
+    on a legacy one.
     """
     if _fast():
-        if "two_r" not in tables:
-            raise NotImplementedError(
-                "stage_a on a legacy (materialized-twiddle) plan under GPU_FFT_TPU_PRECISION=fast: "
-                "K3-legacy's bf16 form is not ported"
-            )
         return stage_a_bf16(xr, xi, n1, n2, tables, col_tile, col_tiles, rows)
     names = _FACTORED_TABLES if "two_r" in tables else _LEGACY_TABLES
     if xr.device.type == "cpu":
@@ -708,72 +712,90 @@ def _whole_bf16_cuda_packed(xr, xi, tables):
 
 _STAGE_A_BF16_F1 = ("f1r", "f1i", "f1s", "f1d")
 _TWIDDLE_FACTORS = ("two_r", "two_i", "twi_r", "twi_i")
+_TWIDDLE_TABLE = ("twr", "twi")
 
 
 def _stage_a_bf16_sliced(xr, xi, t: dict, r: int, ncols: int, col_tile: int):
-    """Plain K3F on the first ``r`` rows and ``ncols`` columns: the JAX
-    body's dots on bf16-rounded operands, the factored twiddle in fp32."""
-    f = [t[k][:r] for k in _STAGE_A_BF16_F1]
-    sliced = {"f1r": f[0], "two_r": t["two_r"][:r, : ncols // col_tile],
-              "two_i": t["two_i"][:r, : ncols // col_tile], "twi_r": t["twi_r"][:r], "twi_i": t["twi_i"][:r]}
+    """Plain K3F / K3LF on the first ``r`` rows and ``ncols`` columns: the
+    JAX body's dots on bf16-rounded operands, the twiddle in fp32."""
+    sliced = _sliced_tables(t, r, ncols, col_tile)
     twr, twi = _stage_a_twiddle(sliced)
-    pr, pi = _bf16_dots(*f, xr[:, :, :ncols], None if xi is None else xi[:, :, :ncols])
+    pr, pi = _bf16_dots(*(sliced[k] for k in _STAGE_A_BF16_F1), xr[:, :, :ncols],
+                        None if xi is None else xi[:, :, :ncols])
     return pr * twr - pi * twi, pr * twi + pi * twr
 
 
-def _factored_only(kernel: str, tables) -> None:
-    if "two_r" not in tables:
-        raise ValueError(f"{kernel} takes a factored stage-A plan (plan.get_stage_a_plan)")
+def _f1_group(kernel: str, tables) -> None:
+    missing = [k for k in _STAGE_A_BF16_F1 if k not in tables]
+    if missing:
+        raise ValueError(f"{kernel} needs the plan's F1 group {_STAGE_A_BF16_F1}; missing {missing}")
 
 
 def stage_a_bf16_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=None):
-    """Plain torch version of :func:`stage_a_bf16` (K3F)."""
-    _factored_only("stage_a_bf16", tables)
+    """Plain torch version of :func:`stage_a_bf16` (K3F / K3LF)."""
+    _f1_group("stage_a_bf16", tables)
     r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
     return _stage_a_bf16_sliced(xr, xi, tables, r, ncols, col_tile)
 
 
 def stage_a_bf16(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, rows=None):
-    """K3F: :func:`stage_a` as the JAX body computes it under "fast" (real
-    input Fr x and Fi x, complex the Karatsuba three, x rounded to bf16,
-    fp32 accumulation, the factored twiddle in fp32), on the tensor cores.
-    ``tables``: :func:`plan.get_stage_a_plan`; same arguments and result as
-    :func:`stage_a`.  Off the CPU it needs n1 a multiple of 16 up to 512 and
-    the kept columns a multiple of 32."""
-    _factored_only("stage_a_bf16", tables)
+    """K3F / K3LF: :func:`stage_a` as the JAX body computes it under "fast"
+    (real input Fr x and Fi x, complex the Karatsuba three, x rounded to
+    bf16, fp32 accumulation, the twiddle in fp32), on the tensor cores.
+    ``tables``: :func:`plan.get_stage_a_plan` (factored twiddle, K3F) or a
+    legacy plan with the F1 group and a materialized (n1, n2) ``twr``/``twi``
+    pair (K3LF, counted as ``stage_a_legacy_bf16``); same arguments and
+    result as :func:`stage_a`.  Off the CPU it needs n1 a multiple of 16 up
+    to 512, the kept columns a multiple of 32 and n2 and a factored ct even;
+    another shape raises ValueError before the device is looked at."""
+    _f1_group("stage_a_bf16", tables)
     r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
-    if _on_cpu(xr, "stage_a_bf16"):
-        names = (*_STAGE_A_BF16_F1, *_TWIDDLE_FACTORS)
-        return _OPS.stage_a_bf16(xr, xi, [tables[k] for k in names], n1, n2, col_tile, r, ncols)
-    if n1 % 16 or not 16 <= n1 <= 512 or ncols % 32 or col_tile % 2:
+    names = _TWIDDLE_FACTORS if "two_r" in tables else _TWIDDLE_TABLE
+    if xr.device.type == "cpu":
+        return _OPS.stage_a_bf16(xr, xi, [tables[k] for k in (*_STAGE_A_BF16_F1, *names)], n1, n2, col_tile, r,
+                                 ncols)
+    if n1 % 16 or not 16 <= n1 <= 512 or ncols % 32 or n2 % 2 or ("two_r" in tables and col_tile % 2):
         raise ValueError(f"stage_a_bf16 kernel needs n1 a multiple of 16 in [16, 512], the kept columns a "
-                         f"multiple of 32 and an even ct (n1={n1}, columns={ncols}, ct={col_tile})")
+                         f"multiple of 32, n2 and a factored ct even (n1={n1}, n2={n2}, columns={ncols}, "
+                         f"ct={col_tile})")
+    _on_cpu(xr, "stage_a_bf16")  # raises for any device but CUDA
     (img,) = bf16_images(tables)
-    return _OPS.stage_a_bf16(xr, xi, [img, *(tables[k] for k in _TWIDDLE_FACTORS)], n1, n2, col_tile, r, ncols)
+    return _OPS.stage_a_bf16(xr, xi, [img, *(tables[k] for k in names)], n1, n2, col_tile, r, ncols)
 
 
 def _stage_a_bf16_cpu(xr, xi, tables, n1, n2, col_tile, rows, ncols):
-    COUNTS["stage_a_bf16"].plain_calls += 1
-    t = dict(zip((*_STAGE_A_BF16_F1, *_TWIDDLE_FACTORS), tables))
+    """The operator's CPU kernel: the F1 group then four twiddle factors
+    (K3F) or the two planes of a table (K3LF)."""
+    names = _TWIDDLE_FACTORS if len(tables) == 8 else _TWIDDLE_TABLE
+    COUNTS["stage_a_bf16" if len(tables) == 8 else "stage_a_legacy_bf16"].plain_calls += 1
+    t = dict(zip((*_STAGE_A_BF16_F1, *names), tables))
     return _stage_a_bf16_sliced(xr, xi, t, rows, ncols, col_tile)
 
 
 def _stage_a_bf16_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
-    img, two_r, two_i, twi_r, twi_i = tables
+    """The operator's CUDA kernel: [img, two_r, two_i, twi_r, twi_i] launches
+    K3F, [img, twr, twi] K3LF."""
+    img, *tw = tables
+    factored = len(tw) == 4
     b = xr.shape[0]
-    outer, inner = (n1, n2 // col_tile), (n1, col_tile)
-    _check("stage_a_bf16", xr.device,
-           {"xr": xr, "xi": xi, "two_r": two_r, "two_i": two_i, "twi_r": twi_r, "twi_i": twi_i},
-           {"xr": (b, n1, n2), "xi": (b, n1, n2), "two_r": outer, "two_i": outer, "twi_r": inner, "twi_i": inner})
+    if factored:
+        outer, inner = (n1, n2 // col_tile), (n1, col_tile)
+        shapes = dict(two_r=outer, two_i=outer, twi_r=inner, twi_i=inner)
+    else:
+        shapes = dict(twr=(n1, n2), twi=(n1, n2))
+    _check("stage_a_bf16", xr.device, {"xr": xr, "xi": xi, **dict(zip(shapes, tw))},
+           {"xr": (b, n1, n2), "xi": (b, n1, n2), **shapes})
     _check("stage_a_bf16", xr.device, {"img": img}, {"img": (4, n1 // 16, n1 // 16, 32, 8)}, dtype=torch.bfloat16)
     yr = torch.empty((b, rows, ncols), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
-    err = _build.library().gft_stage_a_bf16(
-        _ptr(xr), _ptr(xi), _ptr(img), _ptr(two_r), _ptr(two_i), _ptr(twi_r), _ptr(twi_i), _ptr(yr), _ptr(yi),
-        b, n1, n2, col_tile, rows, ncols, _stream(xr.device),
-    )
+    lib = _build.library()
+    ptrs = (_ptr(xr), _ptr(xi), _ptr(img), *(_ptr(t) for t in tw), _ptr(yr), _ptr(yi))
+    if factored:
+        err = lib.gft_stage_a_bf16(*ptrs, b, n1, n2, col_tile, rows, ncols, _stream(xr.device))
+    else:
+        err = lib.gft_stage_a_bf16_full(*ptrs, b, n1, n2, rows, ncols, _stream(xr.device))
     _build.check(err, "stage_a_bf16")
-    COUNTS["stage_a_bf16"].launches += 1
+    COUNTS["stage_a_bf16" if factored else "stage_a_legacy_bf16"].launches += 1
     return yr, yi
 
 

@@ -19,7 +19,8 @@ patching a plan builder and clearing the plan caches (the builder's own and
   L3  stage A alone: S2 ``stage_a_manual`` (materialized twiddle; on the
       TPU F1 resident with the column tiles pipelined by hand, here one
       dense product of ``csrc/dense_f32.cuh``) against the shipped K3
-      (factored twiddle) at the same shape.
+      (factored twiddle) at the same shape; under "fast" S2F (the bf16
+      ``wgmma`` product of ``csrc/stage_a_manual_bf16.cu``) against K3F.
   L4  the ct rule across staged sizes (2^17 … 2^22), forward rows and
       ``irfft_device`` rows, each held against the ct = 512 row of its n
       and kind.  The staged real-output inverse (from 2^18) reads
@@ -28,13 +29,16 @@ patching a plan builder and clearing the plan caches (the builder's own and
 
 Every timed row carries ``parity``, max|row - reference| / max|reference|,
 the reference being L0 (L1, L2), the shipped K3 (L3) or the ct = 512 row of
-the same n (L4); :func:`parity_failures` lists the rows above the accuracy
-gate.
+the same n (L4); :func:`parity_failures` lists the rows above the mode's
+:func:`parity_limit`.
+
+It runs in the precision mode of the process (``GPU_FFT_TPU_PRECISION``),
+as the JAX script does, and the results name it.
 
 A row that raises is recorded with its error and the run goes on, as in the
 JAX script.  Unlike it, the port starts from an empty result set each run.
 
-Usage: python -m gpu_fft_tpu_torch.scripts.ablate_2e20_levers [--quick]
+Usage: [GPU_FFT_TPU_PRECISION=fast] python -m gpu_fft_tpu_torch.scripts.ablate_2e20_levers [--quick]
 Writes ``chiprun_out/ablate_2e20_levers_results.json``.
 """
 
@@ -52,11 +56,23 @@ N = 1 << 20
 # 5 * log2(n) * eps at the largest n swept (2^22): two fp32 transforms of
 # the same input by different plans agree within the accuracy gate.
 PARITY_LIMIT = 5 * 22 * float(np.finfo(np.float32).eps)
+# The JAX package's bands of the reduced modes (tests/test_precision.py):
+# each transform is within its band of the truth, so two plans' results
+# are within twice the band of each other.
+BANDS = {"high": 2e-4, "fast": 2e-2}
+
+
+def parity_limit(mode: str = "full") -> float:
+    """The parity a row may reach in ``mode``: :data:`PARITY_LIMIT` under
+    "full", twice the mode's band under "high" and "fast", where a plan
+    that re-blocks a stage rounds other operands to bf16."""
+    return PARITY_LIMIT if mode == "full" else 2 * BANDS[mode]
 
 
 def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     import gpu_fft_tpu_torch.kernels.large as large_mod
     import gpu_fft_tpu_torch.plan as plan_mod
+    from gpu_fft_tpu_torch import config
     from gpu_fft_tpu_torch.config import apply_precision
     from gpu_fft_tpu_torch.kernels.ablation import manual_tables, stage_a_manual
     from gpu_fft_tpu_torch.kernels.fused import stage_a as stage_a_grid
@@ -68,7 +84,8 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     dev = torch.device("cuda")
     out = Path(out_dir) / "ablate_2e20_levers_results.json"
     out.parent.mkdir(parents=True, exist_ok=True)
-    results: dict = {"device": torch.cuda.get_device_name(dev), "quick": quick, "rows": {}}
+    results: dict = {"device": torch.cuda.get_device_name(dev), "quick": quick, "mode": config.PRECISION,
+                     "rows": {}}
     rows = results["rows"]
     rng = np.random.default_rng(7)
     x0 = torch.from_numpy(rng.standard_normal((1, N)).astype(np.float32)).to(dev)
@@ -183,8 +200,8 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
         tb = us_of(stage_a_manual_step, x0)
         rows["L3_stageA_shipped_grid"] = {"us": ta, "parity": 0.0}
         rows["L3_stageA_emit_pipeline"] = {"us": tb, "parity": par}
-        print(f"L3 stage-A shipped K3:        {ta:8.2f} us", flush=True)
-        print(f"L3 stage-A S2 manual pipeline: {tb:8.2f} us  par={par:.1e}", flush=True)
+        print(f"L3 stage-A shipped K3 ({config.PRECISION}):        {ta:8.2f} us", flush=True)
+        print(f"L3 stage-A S2 manual pipeline ({config.PRECISION}): {tb:8.2f} us  par={par:.1e}", flush=True)
     except Exception as e:
         record_error("L3_stageA_emit_pipeline", e)
     save()
@@ -234,10 +251,12 @@ def unexpected_errors(results: dict) -> dict:
 
 
 def parity_failures(results: dict) -> dict:
-    """Timed rows whose parity is above :data:`PARITY_LIMIT` (or not a number)."""
+    """Timed rows whose parity is above the :func:`parity_limit` of the
+    results' mode ("full" where they name none), or not a number."""
+    limit = parity_limit(results.get("mode", "full"))
     return {
         k: v.get("parity") for k, v in results["rows"].items()
-        if "us" in v and not v.get("parity", float("nan")) <= PARITY_LIMIT
+        if "us" in v and not v.get("parity", float("nan")) <= limit
     }
 
 

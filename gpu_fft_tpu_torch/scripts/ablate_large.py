@@ -14,7 +14,14 @@ interleaved on the card:
 Also times the full automatic path at n = 131,072.  Times are device times
 per call from :func:`..utils.profiling.chained_step_stats` (CUDA graphs).
 
-Usage: python -m gpu_fft_tpu_torch.scripts.ablate_large [--quick]
+It runs in the precision mode of the process (``GPU_FFT_TPU_PRECISION``),
+as the JAX script does: under "fast" the kernel engine is K3-legacy-fast
+(``stage_a_bf16`` on the legacy plan, bf16 tensor cores) and the torch
+engines take bf16x1 products.  The results name the mode, and the first
+kernel row of each n is held against numpy in float64 within the mode's
+:data:`ACCURACY_LIMIT`.
+
+Usage: [GPU_FFT_TPU_PRECISION=fast] python -m gpu_fft_tpu_torch.scripts.ablate_large [--quick]
 Writes ``chiprun_out/ablate_large_results.json``.
 """
 
@@ -27,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import config
 from .. import plan as plan_mod
 from ..config import apply_precision
 from ..kernels.fused import stage_a
@@ -41,6 +49,10 @@ SWEEPS = {
     1 << 20: [32, 64, 128, 256],
     1 << 22: [128, 256, 512],
 }
+#: A staged transform's error against numpy in float64, max|d| / max|ref|,
+#: by mode: "full" well inside fp32's 5 log2(n) eps; "high" and "fast" the
+#: JAX package's bands (tests/test_precision.py).
+ACCURACY_LIMIT = {"full": 1e-4, "high": 2e-4, "fast": 2e-2}
 
 
 def make_plan(n: int, n1: int, sign: int) -> dict:
@@ -78,7 +90,8 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     apply_precision()
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    results = {"device": torch.cuda.get_device_name(dev), "quick": quick, "entries": []}
+    mode = config.PRECISION
+    results = {"device": torch.cuda.get_device_name(dev), "quick": quick, "mode": mode, "entries": []}
     rounds, reps = (1, 2) if quick else (2, 3)
     timing = dict(k1=5, k2=25, min_span_s=0.01) if quick else dict(k1=10, k2=110, min_span_s=0.05)
 
@@ -106,11 +119,12 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
                     fn = lambda xx, p=plan, e=engine: staged_fft(xx, p, e)  # noqa: E731
                     if rnd == 0 and n1 == n1s[0] and engine == "kernel":
                         err = accuracy(fn, n)
-                        if not err < 1e-4:
-                            raise RuntimeError(f"staged_fft n={n} n1={n1}: error {err:.3e} >= 1e-4")
+                        if not err < ACCURACY_LIMIT[mode]:
+                            raise RuntimeError(f"staged_fft n={n} n1={n1} mode={mode}: error {err:.3e} >= "
+                                               f"{ACCURACY_LIMIT[mode]}")
                     st = time_step(fn, x, n)
                     results["entries"].append(
-                        {"group": "staged", "n": n, "n1": n1, "engine": engine, "round": rnd,
+                        {"group": "staged", "n": n, "n1": n1, "engine": engine, "mode": mode, "round": rnd,
                          "us": st.median_s * 1e6, "iqr_us": st.iqr_s * 1e6, "suspect": st.suspect}
                     )
                     print(
@@ -123,7 +137,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     # Full automatic path at 131072 (for the real-input selection table).
     x = torch.from_numpy(rng.standard_normal((1, 131072)).astype(np.float32)).to(dev)
     st = time_step(lambda xx: transform_any(xx, None, 131072, -1), x, 131072)
-    results["entries"].append({"group": "auto", "n": 131072, "us": st.median_s * 1e6})
+    results["entries"].append({"group": "auto", "n": 131072, "mode": mode, "us": st.median_s * 1e6})
     print(f"auto n=131072: {st.median_s * 1e6:.2f} us", flush=True)
     plan_mod.clear_device_cache()
 

@@ -14,6 +14,12 @@ plain version (max|d| <= 1e-5 max|plain|, the error under
 ``max_abs_err``).  Run it once per checkout, in turns (A B B A), on one
 card in one run: times from two runs do not compare.
 
+It times the kernels of the process's precision mode, and the JSON line
+names it (``mode``): under ``GPU_FFT_TPU_PRECISION=fast`` ``stage_a`` runs
+K3F (K3LF on a legacy plan) and ``stage_a_manual`` S2F, each checked
+against its bf16 plain version within :data:`FAST_TOL`; ``--sweep`` times
+the fp32 kernels' launch shapes in either mode.
+
 ``--legacy`` also times the kernels of stage A on a materialized twiddle,
 on the ``ablate_large`` plans: K3-legacy (``stage_a`` on such a plan) at
 2^20 on real input with all rows and with the real path's 72, at 2^22 with
@@ -42,6 +48,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+
+#: A "fast" kernel against its plain version, relative to max|plain|: both
+#: round the same operands to bf16 and sum in fp32 in other orders.
+FAST_TOL = 1e-3
 
 #: Profiles that recorded no matching kernel since the script started.  The
 #: profiler on an H100 now and then records no kernel at all, several times
@@ -110,17 +120,26 @@ def append_record(name: str, rec: dict) -> None:
         f.write(json.dumps({**rec, "empty_profiles": EMPTY_PROFILES}) + "\n")
 
 
+def fast_mode() -> bool:
+    """Whether the imported port runs its "fast" kernels now."""
+    from gpu_fft_tpu_torch import config
+
+    return getattr(config, "PRECISION", "full") == "fast"
+
+
 def checked_ms(fn, plain, match: str = "") -> tuple[float, float]:
     """(device ms of ``fn`` as :func:`kernel_ms` gives it, max|fn() - plain()|);
-    raises if one launch is off its plain version by more than 1e-5 max|plain|."""
+    raises if one launch is off its plain version by more than 1e-5
+    max|plain| (:data:`FAST_TOL` under "fast")."""
     import torch
 
     got, want = fn(), plain()
     torch.cuda.synchronize()
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
-    if not err <= 1e-5 * scale:
-        raise RuntimeError(f"kernel off its plain version: max|d| {err:.3e} > 1e-5 x {scale:.3e}")
+    tol = FAST_TOL if fast_mode() else 1e-5
+    if not err <= tol * scale:
+        raise RuntimeError(f"kernel off its plain version: max|d| {err:.3e} > {tol} x {scale:.3e}")
     return kernel_ms(fn, match), err
 
 
@@ -173,13 +192,19 @@ def time_legacy(rec: dict, sweep: bool, dev, gen) -> None:
     at every column tile into ``rec["sweep"]`` with ``sweep``).  K3-legacy
     is timed twice: back to back, where at 2^20 its inputs (21-25 MB) stay
     in L2 between calls, and with L2 flushed before each call (the key's
-    suffix ``L2 flushed``), which is what its share of the HBM bound reads."""
+    suffix ``L2 flushed``), which is what its share of the HBM bound reads.
+    Under "fast" the same rows time K3LF and S2F against their bf16 plain
+    versions."""
     import torch
 
     from gpu_fft_tpu_torch import plan as P
     from gpu_fft_tpu_torch.kernels import ablation as A
     from gpu_fft_tpu_torch.kernels import fused as K
     from gpu_fft_tpu_torch.scripts.ablate_large import make_plan
+
+    fast = fast_mode()
+    stage_a_plain = K.stage_a_bf16_plain if fast else K.stage_a_plain
+    manual_plain = A.stage_a_manual_bf16_plain if fast else A.stage_a_manual_plain
 
     flush = l2_flush(dev)
     for n, rows, complex_ in ((1 << 20, None, False), (1 << 20, 72, False), (1 << 22, 72, False),
@@ -200,7 +225,7 @@ def time_legacy(rec: dict, sweep: bool, dev, gen) -> None:
 
         for k, fn in ((key, run), (f"{key} L2 flushed", run_cold)):
             rec["ms"][k], rec["max_abs_err"][k] = checked_ms(
-                fn, lambda: K.stage_a_plain(xr, xi, 128, n2, plan, ct, rows=rows), "stage_a")
+                fn, lambda: stage_a_plain(xr, xi, 128, n2, plan, ct, rows=rows), "stage_a")
             print(k, rec["ms"][k], flush=True)
         del xr, xi
     for n1 in (128, 256):
@@ -208,7 +233,7 @@ def time_legacy(rec: dict, sweep: bool, dev, gen) -> None:
         x = torch.randn(n1, plan["n2"], generator=gen, device=dev)
         key = f"manual n={1 << 20} n1={n1}"
         rec["ms"][key], rec["max_abs_err"][key] = checked_ms(
-            lambda: A.stage_a_manual(x, plan), lambda: A.stage_a_manual_plain(x, plan))
+            lambda: A.stage_a_manual(x, plan), lambda: manual_plain(x, plan))
         print(key, rec["ms"][key], flush=True)
         want = A.stage_a_manual_plain(x, plan)
         for i, bn in enumerate(tiles if sweep else ()):
@@ -229,6 +254,7 @@ def main() -> None:
     open_tree(args.tree)
     import torch
 
+    from gpu_fft_tpu_torch import config
     from gpu_fft_tpu_torch import plan as P
     from gpu_fft_tpu_torch.config import apply_precision
     from gpu_fft_tpu_torch.kernels import _build
@@ -239,8 +265,9 @@ def main() -> None:
     apply_precision()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rec = {"label": args.label, "tree": args.tree, "card": card_line(),
-           "module": K.__file__, "ms": {}, "max_abs_err": {}, "sweep": []}
+    rec = {"label": args.label, "tree": args.tree, "card": card_line(), "module": K.__file__,
+           "mode": getattr(config, "PRECISION", "full"), "ms": {}, "max_abs_err": {}, "sweep": []}
+    stage_a_plain = K.stage_a_bf16_plain if fast_mode() else K.stage_a_plain
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
@@ -250,7 +277,7 @@ def main() -> None:
         for key, xi_, r in ((f"n={n} real rows={rows}", None, rows), (f"n={n} complex", xi, None)):
             rec["ms"][key], rec["max_abs_err"][key] = checked_ms(
                 lambda: K.stage_a(xr, xi_, n1, n2, plan, ct, rows=r),
-                lambda: K.stage_a_plain(xr, xi_, n1, n2, plan, ct, rows=r), "stage_a")
+                lambda: stage_a_plain(xr, xi_, n1, n2, plan, ct, rows=r), "stage_a")
         for xi_, r in ((None, rows), (xi, n1)) if args.sweep else ():
             rec["sweep"] += sweep_widths(_build.library(), K, plan, xr, xi_, r)
     if args.legacy:

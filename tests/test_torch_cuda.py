@@ -823,6 +823,72 @@ def test_stage_a_bf16_kernel(dev, n, ct, kind, signal):
     _close_fast(got, K.stage_a_bf16_plain(xr, xi, n1, n2, plan, ct, **kw))
 
 
+LEGACY_CASES = [(1 << 17, 16, False, None, None), (1 << 17, 16, True, None, 16),
+                (1 << 17, 128, False, None, 72), (1 << 17, 128, True, 1, None),
+                (1 << 20, 128, False, None, None), (1 << 20, 256, True, 2, 136),
+                (1 << 22, 128, False, None, 72), (1 << 22, 512, True, None, None)]
+
+
+@pytest.mark.parametrize("n,n1,complex_,tiles,rows", LEGACY_CASES)
+@pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
+def test_stage_a_legacy_bf16_kernel(dev, n, n1, complex_, tiles, rows, signal, monkeypatch):
+    """K3LF: ``stage_a`` on a legacy plan under "fast" launches it (and no
+    other kernel), within 1e-3 of its plain version."""
+    from gpu_fft_tpu_torch import config
+
+    plan = P.on_device(legacy_plan, n, n1, 1 if complex_ else -1, device=dev)
+    n2 = plan["n2"]
+    ct = P.stage_a_col_tile(n1, n2)
+    g = torch.Generator(device=dev).manual_seed(n1)
+    xr = _signal(signal, n1, n2, g, dev)[None]
+    xi = _signal(signal, n1, n2, g, dev)[None] if complex_ else None
+    monkeypatch.setattr(config, "PRECISION", "fast")
+    K.reset_counts()
+    got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows)
+    assert {k: c.launches for k, c in K.COUNTS.items() if c.launches or c.plain_calls} == {"stage_a_legacy_bf16": 1}
+    _close_fast(got, K.stage_a_bf16_plain(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows))
+
+
+@pytest.mark.parametrize("n,n1", [(1 << 17, 128), (1 << 20, 128), (1 << 20, 256), (1 << 17, 32), (1 << 13, 128),
+                                  (64 * 512, 64), (96 * 192, 96)])
+def test_stage_a_manual_bf16_kernel(dev, n, n1, monkeypatch):
+    """S2F: ``stage_a_manual`` under "fast" launches it (not S2), within
+    1e-3 of its plain version, at every launch shape S3's bf16 x1 rule
+    considers (the shipped one first); n1 = 64 and 96 take 128 and 64
+    stacked rows a block, 96 a last depth chunk of 32."""
+    from gpu_fft_tpu_torch import config
+
+    plan = A.manual_tables(P.on_device(legacy_plan, n, n1, -1, device=dev))
+    n2 = plan["n2"]
+    x = torch.randn(n1, n2, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    want = A.stage_a_manual_bf16_plain(x, plan)
+    monkeypatch.setattr(config, "PRECISION", "fast")
+    A.reset_counts()
+    _close_fast(A.stage_a_manual(x, plan), want)
+    assert A.COUNTS["stage_a_manual_bf16"].launches == 1 and A.COUNTS["stage_a_manual"].launches == 0
+    for geometry in A.dot_launch_shapes(1, n1, n2, "bf16_x1", A.sm_count(dev)):
+        _close_fast(A.manual_bf16_launch(x, plan, geometry), want)
+
+
+def test_fast_legacy_kernels_refuse_before_the_launch(dev, monkeypatch):
+    """A shape K3LF or S2F cannot take raises ValueError on the card and
+    launches nothing; S2F without its image raises too."""
+    from gpu_fft_tpu_torch import config
+
+    monkeypatch.setattr(config, "PRECISION", "fast")
+    plan = P.on_device(legacy_plan, 24 * 64, 24, -1, device=dev)
+    K.reset_counts()
+    A.reset_counts()
+    with pytest.raises(ValueError, match="n1 a multiple of 16"):
+        K.stage_a(torch.zeros(1, 24, 64, device=dev), None, 24, 64, plan, 64)
+    with pytest.raises(ValueError, match="stage_a_manual_bf16 kernel needs"):
+        A.stage_a_manual(torch.zeros(48, 4096, device=dev), {})
+    s2 = P.on_device(legacy_plan, 1 << 17, 128, -1, device=dev)
+    with pytest.raises(ValueError, match="f_img"):
+        A.stage_a_manual(torch.zeros(128, 1024, device=dev), s2)
+    assert all(c.launches == 0 for c in (*K.COUNTS.values(), *A.COUNTS.values()))
+
+
 @pytest.mark.parametrize("n,kernel", [(1024, "whole_transform_packed_bf16"), (4096, "whole_transform_bf16"),
                                       (1 << 20, "stage_a_bf16")])
 def test_fast_mode_launches_its_kernels_on_card(dev, n, kernel, monkeypatch):

@@ -373,21 +373,26 @@ def test_stage_a_bf16_plain_matches_the_jax_body(n, case):
     assert _rel(fp32, ref) > 1e-4
 
 
-def test_stage_a_bf16_takes_only_factored_plans(mode):
-    legacy = {"f1r": torch.zeros(16, 16), "f1i": torch.zeros(16, 16), "twr": torch.zeros(16, 64),
-              "twi": torch.zeros(16, 64)}
-    x = torch.zeros(1, 16, 64)
-    with pytest.raises(ValueError, match="factored"):
-        K.stage_a_bf16(x, None, 16, 64, legacy, 64)
-    with pytest.raises(ValueError, match="factored"):
-        K.stage_a_bf16_plain(x, None, 16, 64, legacy, 64)
-    # Under "fast" a legacy plan has no kernel of its mode (K3-legacy's
-    # bf16 form is not ported); under "full" it runs K3-legacy.
+def test_stage_a_on_a_legacy_plan_runs_k3lf_under_fast_and_k3_legacy_under_full(mode):
+    """A legacy (materialized-twiddle) plan: "fast" runs K3LF (counted as
+    ``stage_a_legacy_bf16``, the bf16 plain version on the CPU), "full"
+    runs K3-legacy; ``stage_a_bf16`` and its plain version take the plan
+    as they take a factored one."""
+    from gpu_fft_tpu_torch.scripts.ablate_large import make_plan
+
+    legacy = tplan.on_device(make_plan, 16 * 64, 16, -1, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal((1, 16, 64)).astype(np.float32))
+    want = K.stage_a_bf16_plain(x, None, 16, 64, legacy, 64)
+    assert all(torch.equal(g, w) for g, w in zip(K.stage_a_bf16(x, None, 16, 64, legacy, 64), want))
     mode("fast")
-    with pytest.raises(NotImplementedError, match="K3-legacy"):
-        K.stage_a(x, None, 16, 64, legacy, 64)
+    K.reset_counts()
+    got = K.stage_a(x, None, 16, 64, legacy, 64)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert K.COUNTS["stage_a_legacy_bf16"].plain_calls == 1 and K.COUNTS["stage_a_legacy"].plain_calls == 0
     mode("full")
+    K.reset_counts()
     assert K.stage_a(x, None, 16, 64, legacy, 64)[0].shape == (1, 16, 64)
+    assert K.COUNTS["stage_a_legacy"].plain_calls == 1 and K.COUNTS["stage_a_legacy_bf16"].plain_calls == 0
 
 
 def test_frag_image_is_the_mma_register_order():
@@ -422,6 +427,12 @@ def test_bf16_images_are_built_once_per_plan():
     assert p1.shape == (2, 1, 1, 32, 8) and p2.shape == (2, 8, 8, 32, 8)
     (s1,) = K.bf16_images(staged)
     assert s1.shape == (4, 8, 8, 32, 8)
+    from gpu_fft_tpu_torch.scripts.ablate_large import make_plan
+
+    legacy = tplan.on_device(make_plan, 1 << 17, 64, -1, device="cpu")
+    (l1,) = K.bf16_images(legacy)
+    assert K.bf16_images(legacy)[0] is l1 and l1.shape == (4, 4, 4, 32, 8)
+    assert torch.equal(K.frag_image(legacy["f1d"])[0], l1[3])
 
 
 # ── Gradients ────────────────────────────────────────────────────────────────

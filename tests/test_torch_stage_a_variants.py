@@ -312,6 +312,20 @@ def test_lever_errors_allow_only_the_unported_irfft_rows():
     ]
 
 
+@pytest.mark.parametrize("mode,limit", [(None, t_levers.PARITY_LIMIT), ("full", t_levers.PARITY_LIMIT),
+                                        ("high", 4e-4), ("fast", 4e-2)])
+def test_lever_parity_limit_follows_the_results_mode(mode, limit):
+    """The gate is the fp32 one under "full" (and where the results name no
+    mode); twice the JAX package's band under "high" and "fast", where the
+    re-blocked plans round other operands to bf16."""
+    assert t_levers.parity_limit(mode or "full") == limit
+    rows = {"L0_shipped": {"us": 1.0, "parity": 0.0},
+            "L2_m32x256": {"us": 1.0, "parity": limit / 2},
+            "L3_stageA_emit_pipeline": {"us": 1.0, "parity": limit * 2}}
+    results = {"rows": rows} if mode is None else {"mode": mode, "rows": rows}
+    assert sorted(t_levers.parity_failures(results)) == ["L3_stageA_emit_pipeline"]
+
+
 def test_lever_parity_failures_flag_rows_over_the_gate_or_without_parity():
     limit = t_levers.PARITY_LIMIT
     rows = {
@@ -334,6 +348,10 @@ def _meta_calls():
     return {
         "stage_a_legacy": lambda: K.stage_a(torch.empty(1, 16, 64, device="meta"), None, 16, 64, legacy, 32),
         "stage_a_manual": lambda: A.stage_a_manual(torch.empty(128, 1024, device="meta"), legacy),
+        "stage_a_legacy_bf16": lambda: K.stage_a_bf16(torch.empty(1, 16, 64, device="meta"), None, 16, 64,
+                                                      {**legacy, **dict.fromkeys(("f1r", "f1i", "f1s", "f1d"))},
+                                                      32),
+        "stage_a_manual_bf16": lambda: A.stage_a_manual_bf16(torch.empty(128, 1024, device="meta"), legacy),
         **{
             f"stage_a_dot_{v}": (lambda v=v: A.stage_a_dot(torch.empty(1, 32, 64, device="meta"), {}, v))
             for v in A.VARIANTS
