@@ -118,8 +118,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    K1F/K2F/K3F geometry the mode launched against its plain version
    (max|d| <= 1e-3 max|plain|: a one-ulp fp32 difference before Z's bf16
    rounding moves one intermediate by a bf16 ulp) and against float64,
-   where the kernel's error is at most 1.5 times the plain version's; a
-   Parseval gradient at 4,096 and 2^20 in each mode, within its band;
+   where the kernel's error is at most 1.5 times the plain version's, and
+   so every geometry the K1F / K2F launch rule picks at n = 1,024 ...
+   16,384 for B = 1 and 3, real and complex input; a Parseval gradient at
+   4,096 and 2^20 in each mode, within its band;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -151,7 +153,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    beside the same entry called directly (the dispatcher's host time);
    phase 3h's rows: K2F, K1F and K3F against their plain versions and their
    bounds (bf16 operations at the tensor-core peak, bytes at the HBM rate;
-   K2F / K1F beside torch.fft on complex32, cuFFT's half precision), and
+   K2F / K1F beside torch.fft on complex32, cuFFT's half precision, the
+   kernels' device times the median of 5 profiles with min and max), and
    fft_device in each mode at phase 3h's shapes beside torch.fft.fft in
    fp32 and on complex32; K3LF at 2^20 real and complex, all rows, and at
    2^22 rows = 72, back to back and with L2 flushed, beside K3-legacy; S2F
@@ -2324,9 +2327,50 @@ def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=
         max_err[name] = max(max_err[name], hold_fast(report, name, f"phase 3h {case}", got, want, truth))
         del got, want, truth
     torch.cuda.synchronize()
+    max_err.update(fast_whole_geometries(report, dev, rng, max_err))
     report["precision_launches"] = launches
     report["precision_errors"] = {f"{op} ({b}, {n})": e for (op, b, n), e in errs.items()}
     return {"launches": fast_launches, "max_err": max_err}
+
+
+def fast_whole_geometries(report: dict, dev, rng, max_err: dict) -> dict:
+    """Every K1F / K2F geometry of the launch rule (``whole_bf16_geometry``
+    and ``whole_bf16_split``) at n = 1,024 ... 16,384, B = 1 and 3, real
+    forward and complex inverse, against its plain version and float64
+    (:func:`hold_fast`).  Returns the largest max|d| of each kernel, with
+    ``max_err``'s."""
+    import torch
+
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    out = {k: max_err.get(k, 0.0) for k in ("whole_transform_bf16", "whole_transform_packed_bf16")}
+    print(f"  every K1F / K2F geometry of the launch rule (B = 1 and 3, real and complex) vs its plain version "
+          f"and float64:")
+    for name in out:
+        packed = "packed" in name
+        make = P.get_whole_packed_plan if packed else P.get_whole_plan
+        for n in (1024, 2048, 4096, 8192, 16384):
+            n1 = n // 128
+            for complex_ in (False, True):
+                plan = P.on_device(make, n, 1 if complex_ else -1, 1.0 / n if complex_ else None, device=dev)
+                for b in (1, 3):
+                    xr = torch.from_numpy(rng.standard_normal((b, n)).astype("float32")).to(dev)
+                    xi = torch.from_numpy(rng.standard_normal((b, n)).astype("float32")).to(dev) if complex_ else None
+                    got = getattr(K, name)(xr, xi, plan)
+                    want = getattr(K, name + "_plain")(xr, xi, plan)
+                    if packed:
+                        truth = K.whole_transform_packed_plain(f64(xr), f64(xi), {"packed": f64(plan["packed"]),
+                                                                                  "n1": n1})
+                    else:
+                        truth = K.whole_transform_plain(f64(xr), f64(xi), {k: f64(v) for k, v in plan.items()
+                                                                           if k.startswith(("f1", "f2", "tw"))})
+                    geo = K.whole_bf16_geometry(b, n1, complex_, K.sm_count(dev), packed)
+                    case = (f"B={b} n={n} {'complex' if complex_ else 'real'} geometry {geo} "
+                            f"split {K.whole_bf16_split(n1, geo[0])}")
+                    out[name] = max(out[name], hold_fast(report, name, case, got, want, truth))
+    torch.cuda.synchronize()
+    return out
 
 
 def fast_legacy_checks(report: dict, dev, randn) -> dict:
@@ -2501,7 +2545,7 @@ def precision_times(report: dict, dev, time_pair, randn, shapes=PRECISION_SHAPES
                                            torch.fft.ifft, True)):
             ms, wall, lat = fast_whole_bound(n, cplx)
             rec = time_pair(f"{name} B=1 n={n} {label}", name, lambda a=args: kern(*a), lambda a=args: plain(*a),
-                            (ms, wall), half(lib, z))
+                            (ms, wall), half(lib, z), profiles=5)
             rec.update(latency_wall_ms=lat, library="torch.fft on complex32")
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
@@ -2950,15 +2994,27 @@ def main() -> None:
 
     flush_buf = torch.ones(64 << 20, device=dev)  # 256 MiB, five times the H100's L2
 
-    def time_pair(label, name, kern_fn, plain_fn, bnd, lib_fn=None, dense=None, cold=None):
+    def time_pair(label, name, kern_fn, plain_fn, bnd, lib_fn=None, dense=None, cold=None, profiles=1):
         """Kernel, plain version and (where one exists) the library call:
         event and profiler times, and the kernel's share of its bound (and
         of ``dense``, the dense products' bound, where given).  With
         ``cold`` (a part of the kernel's profiled name) the kernel's device
         time is also taken with L2 flushed before each call (a read of
-        ``flush_buf``), and the shares read that time."""
+        ``flush_buf``), and the shares read that time.  With ``profiles`` >
+        1 the kernel's device time is the median of that many profiles,
+        its min and max recorded beside."""
         k_ms, p_ms = cuda_ms(kern_fn), cuda_ms(plain_fn)
-        (k_dev, _), (p_dev, _) = device_ms(kern_fn), device_ms(plain_fn)
+        spread = {}
+
+        def dev_time(fn, key):
+            samples = [t for t in (device_ms(fn)[0] for _ in range(profiles)) if t is not None]
+            if profiles > 1:
+                spread[key] = dict(median=statistics.median(samples) if samples else None,
+                                   min=min(samples, default=None), max=max(samples, default=None),
+                                   profiles=len(samples))
+            return statistics.median(samples) if samples else None
+
+        k_dev, p_dev = dev_time(kern_fn, "device_ms_spread"), device_ms(plain_fn)[0]
         lib_ms, lib_dev = (cuda_ms(lib_fn), device_ms(lib_fn)[0]) if lib_fn else (None, None)
         cold_dev = device_ms(lambda: (flush_buf.sum(), kern_fn()), match=cold)[0] if cold else None
         shared = cold_dev if cold else k_dev
@@ -2968,6 +3024,7 @@ def main() -> None:
                    library_ms=lib_ms, library_device_ms=lib_dev)
         if cold:
             rec.update(cold_device_ms=cold_dev)
+        rec.update(spread)
         if dense:
             rec.update(dense_bound_ms=dense[0], dense_bound_by=dense[1],
                        share_of_dense_bound=None if shared is None else dense[0] / shared)
@@ -2975,6 +3032,9 @@ def main() -> None:
         print(f"  {label:44s} events: kernel {k_ms:.4f} ms plain {p_ms:.4f} ms"
               + (f" library {lib_ms:.4f} ms" if lib_fn else "")
               + f" | device: kernel {fmt(k_dev)} plain {fmt(p_dev)}"
+              + ("" if "device_ms_spread" not in spread else
+                 f" (median of {spread['device_ms_spread']['profiles']}, {fmt(spread['device_ms_spread']['min'])}"
+                 f" - {fmt(spread['device_ms_spread']['max'])})")
               + (f" library {fmt(lib_dev)}" if lib_fn else "")
               + (f" kernel, L2 flushed, {fmt(cold_dev)}" if cold else "")
               + f" | bound {bnd[0] * 1e3:.2f} us ({bnd[1]})"

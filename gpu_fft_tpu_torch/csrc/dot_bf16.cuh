@@ -48,6 +48,8 @@
 
 #include <cstdint>
 
+#include "tma.cuh"
+
 namespace gft {
 namespace dot_bf16 {
 
@@ -55,10 +57,6 @@ constexpr int BN = 64;   // x columns per tile (the wgmma N)
 constexpr int KA = 64;   // depth of a 128-byte swizzle atom (bf16)
 constexpr int ROW = 128; // bytes of an atom row
 constexpr int SLD = BN + 8;  // padded row of the staging tile (floats)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // K-major operand, 128-byte swizzle: rows of 128 bytes, 8-row groups
 // 1,024 bytes apart (SBO), the leading offset unused (1).
@@ -101,23 +99,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
-}
-
-// A bulk (TMA) copy of `bytes` from global `src` to shared `dst`; the
-// barrier at `bar` counts the bytes as they land.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void wait_phase0(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -167,11 +148,9 @@ stage_a_dot_wgmma_kernel(const float* __restrict__ x, const unsigned char* __res
   const uint32_t bar = smem_u32(&fbar);
   const uint32_t run = kchunks * KA * ROW;  // bytes of one (group, part)
   if (t == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(WGS * PARTS * run)
-                 : "memory");
+    mbar_init(bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bar, WGS * PARTS * run);
     for (int i = 0; i < WGS * PARTS; ++i) {
       const int g = rb * WGS + i / PARTS, p = i % PARTS;
       bulk_load(smem_u32(fs) + i * run, fimg + (size_t)(g * img_parts + p) * run, run, bar);

@@ -10,6 +10,10 @@
 // lies in shared memory as [column][depth], depth contiguous, so each B
 // register is one 32-bit read.
 //
+// A kernel that keeps a table on chip holds the NS slots a form reads, in
+// the order table(0 .. NS - 1) of the image's slots; product q reads its
+// held slot sidx(q) (warp_tile_smem).
+//
 // A complex product takes one of three forms, each a set of real products
 // P_q = A_slot(q) x B_operand(q) and a combination:
 //   REAL2  real data x:       P0 = Fr x, P1 = Fi x;          (P0, P1)
@@ -42,7 +46,10 @@ template <>
 struct Form<REAL2> {
   static constexpr int NQ = 2;  // products
   static constexpr int NB = 1;  // bf16 operands of the data
+  static constexpr int NS = 2;  // table slots read: r, i
   __device__ __forceinline__ static int slot(int q) { return q == 0 ? SLOT_R : SLOT_I; }
+  __device__ __forceinline__ static int table(int s) { return s; }
+  __device__ __forceinline__ static int sidx(int q) { return q; }
   __device__ __forceinline__ static int operand(int) { return 0; }
   __device__ __forceinline__ static void fill(float re, float, __nv_bfloat16 (&o)[NB]) {
     o[0] = __float2bfloat16_rn(re);
@@ -54,7 +61,10 @@ template <>
 struct Form<KARA3> {
   static constexpr int NQ = 3;
   static constexpr int NB = 3;  // xr + xi, xr, xi
+  static constexpr int NS = 3;  // r, d, s
   __device__ __forceinline__ static int slot(int q) { return q == 0 ? SLOT_R : q == 1 ? SLOT_D : SLOT_S; }
+  __device__ __forceinline__ static int table(int s) { return slot(s); }
+  __device__ __forceinline__ static int sidx(int q) { return q; }
   __device__ __forceinline__ static int operand(int q) { return q; }
   __device__ __forceinline__ static void fill(float re, float im, __nv_bfloat16 (&o)[NB]) {
     o[0] = __float2bfloat16_rn(re + im);
@@ -70,7 +80,10 @@ template <>
 struct Form<FOUR4> {
   static constexpr int NQ = 4;
   static constexpr int NB = 2;  // xr, xi
+  static constexpr int NS = 2;  // r, i
   __device__ __forceinline__ static int slot(int q) { return (q & 1) ? SLOT_I : SLOT_R; }
+  __device__ __forceinline__ static int table(int s) { return s; }
+  __device__ __forceinline__ static int sidx(int q) { return q & 1; }
   __device__ __forceinline__ static int operand(int q) { return q >> 1; }
   __device__ __forceinline__ static void fill(float re, float im, __nv_bfloat16 (&o)[NB]) {
     o[0] = __float2bfloat16_rn(re);
@@ -155,6 +168,42 @@ __device__ __forceinline__ void warp_tile(float (&acc)[Form<F>::NQ][NT][4], cons
 #pragma unroll
         for (int q = 0; q < P::NQ; ++q) mma16816(acc[q][j], a[q], b[P::operand(q)][0], b[P::operand(q)][1]);
       }
+    }
+  }
+}
+
+// warp_tile with A held in shared memory: the NS slots of the form, each
+// `slot_stride` uint4s apart, [mt][kt][lane] with KTS depth tiles, so that a
+// fragment is one conflict-free 16-byte read a lane; every one of the NT
+// column tiles is kept, and the depth loop unrolls.
+template <int F, int NT, int KTS>
+__device__ __forceinline__ void warp_tile_smem(float (&acc)[Form<F>::NQ][NT][4], const uint4* a_sm, int slot_stride,
+                                               int mt, const __nv_bfloat16* bsm, int bstride, int ld, int n0,
+                                               int lane) {
+  using P = Form<F>;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int q = 0; q < P::NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < KTS; ++kt) {
+    uint4 a[P::NS];
+#pragma unroll
+    for (int s = 0; s < P::NS; ++s) a[s] = a_sm[s * slot_stride + (mt * KTS + kt) * 32 + lane];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* col = bsm + (n0 + 8 * j + g) * ld + 16 * kt + 2 * t;
+      uint32_t b[P::NB][2];
+#pragma unroll
+      for (int o = 0; o < P::NB; ++o) {
+        b[o][0] = *reinterpret_cast<const uint32_t*>(col + o * bstride);
+        b[o][1] = *reinterpret_cast<const uint32_t*>(col + o * bstride + 8);
+      }
+#pragma unroll
+      for (int q = 0; q < P::NQ; ++q) mma16816(acc[q][j], a[P::sidx(q)], b[P::operand(q)][0], b[P::operand(q)][1]);
     }
   }
 }

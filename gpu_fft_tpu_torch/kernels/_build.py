@@ -46,8 +46,9 @@ _SIGNATURES = {
     "gft_stage_a_full": [_P] * 8 + [_I] * 8 + [_P],
     # x, f_stack, twr, twi, yr, yi, n1, n2, bn, stream
     "gft_stage_a_manual": [_P] * 6 + [_I] * 3 + [_P],
-    # xr, xi, img1, img2, twr, twi, yr, yi, batch, n1, packed, stream
-    "gft_whole_bf16": [_P] * 8 + [_I] * 3 + [_P],
+    # xr, xi, img1, img2, twr, twi, yr, yi,
+    # batch, n1, packed, cluster, threads, smem_bytes, stream
+    "gft_whole_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # xr, xi, img, two_r, two_i, twi_r, twi_i, yr, yi,
     # batch, n1, n2, ct, rows, ncols, stream
     "gft_stage_a_bf16": [_P] * 9 + [_I] * 6 + [_P],

@@ -25,7 +25,9 @@ kernels' dots run at bf16x1 (``config.mosaic_precision()``):
   ``whole_transform_packed`` and ``stage_a`` (either plan layout) hand over
   to them when the mode is "fast" at the call; their tables are the plan's
   fp32 tables rounded to bf16, laid out as the kernels read them
-  (:func:`frag_image`) and kept per plan (:func:`bf16_images`).
+  (:func:`frag_image`) and kept per plan (:func:`bf16_images`).  K1F / K2F
+  spread a row over 8 blocks with its tables on chip by bulk copies; launch
+  shape from :func:`whole_bf16_geometry` and :func:`whole_bf16_split`.
 
 :func:`lm_geometry` gives the launch shape of the same whole kernel at
 n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
@@ -44,6 +46,7 @@ version runs.  A tensor on any other device raises in the wrapper.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -77,6 +80,11 @@ __all__ = [
     "whole_transform_packed_bf16_plain",
     "whole_transform_packed_plain",
     "whole_transform_plain",
+    "whole_bf16_geometry",
+    "whole_bf16_slices",
+    "whole_bf16_smem_bytes",
+    "whole_bf16_split",
+    "whole_bf16_traffic",
 ]
 
 _N2 = 128  # row length of the whole-transform (n1, 128) view
@@ -670,6 +678,134 @@ def whole_transform_packed_bf16(xr, xi, plan: dict):
     return _OPS.whole_transform_packed_bf16(xr, xi, tables)
 
 
+#: K1F / K2F's blocks a row at B = 1, by n1: the fastest of
+#: ``scripts/time_whole.py --fast``'s sweep (K1F and K2F, real forward and
+#: complex inverse alike, with the split of :func:`whole_bf16_split`; H100
+#: 80GB HBM3 at 700 W).
+_BF16_B1_CLUSTER = {8: 8, 16: 8, 32: 8, 64: 8, 128: 8}
+#: (table slots read, bf16 data operands) of each product form
+#: (``csrc/mma_bf16.cuh``): real input Fr x, Fi x; Karatsuba; 4-product.
+_BF16_FORMS = {"real2": (2, 1), "kara3": (3, 3), "four4": (2, 2)}
+_BF16_MAX_THREADS = 512
+_SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory, bytes
+
+
+def _bf16_forms(complex_: bool, packed: bool) -> tuple[str, str]:
+    """Stage 1's and stage 2's product forms of K1F (``packed`` False) or
+    K2F."""
+    second = "four4" if packed else "kara3"
+    return (second if complex_ else "real2"), second
+
+
+def _bf16_mode(n1: int, cluster: int) -> str:
+    """How the C blocks of a row of K1F / K2F share the work
+    (``csrc/whole_bf16.cuh``'s ``Layout``): "local" (n1 <= 16 or C = 1: no
+    cluster, every block runs stage 1 on all columns itself), "broadcast"
+    (n1 = 32: x, F1 and the twiddle multicast to the cluster, every block
+    runs stage 1 on all columns) or "exchange" (n1 >= 64: stage 1 split by
+    columns, Z's columns sent to the blocks of their k1).  The fastest of
+    ``time_whole --fast``'s sweep at each n1 (H100 80GB HBM3, 700 W)."""
+    if cluster == 1 or n1 <= 16:
+        return "local"
+    return "broadcast" if n1 == 32 else "exchange"
+
+
+def whole_bf16_split(n1: int, cluster: int) -> int:
+    """The parts V that stage 2 of K1F / K2F splits k1 into: block r takes
+    the rows j of part r // V of C / V and the columns k1 of part r % V.
+    The exchange takes the most that keep k1 tiles of 16, so that each
+    block's Z columns go only to the blocks of their k1 (at n = 16,384, 10.5
+    KB a block through distributed shared memory instead of 84 KB); the
+    other modes hold all of Z in every block."""
+    return min(cluster, n1 // 16) if _bf16_mode(n1, cluster) == "exchange" else 1
+
+
+def whole_bf16_slices(n1: int, cluster: int) -> list[tuple[range, range, range]]:
+    """What block ``r`` of a row owns in K1F / K2F: the x columns c of its
+    stage 1 (all 128 but with the exchange, each block computing the same
+    Z), and the rows j and columns k1 of its stage 2 (so the outputs
+    ``j * n1 + k1``)."""
+    v = whole_bf16_split(n1, cluster)
+    w = _N2 // cluster if _bf16_mode(n1, cluster) == "exchange" else _N2
+    jr, kr = _N2 * v // cluster, n1 // v
+    return [(range(r * w, r * w + w) if w < _N2 else range(_N2), range(r // v * jr, (r // v + 1) * jr),
+             range(r % v * kr, (r % v + 1) * kr)) for r in range(cluster)]
+
+
+def _bf16_block(n1: int, cluster: int, complex_: bool, packed: bool) -> tuple[int, int]:
+    """(threads, dynamic shared memory bytes) of one K1F / K2F block, as
+    ``csrc/whole_bf16.cuh``'s ``Layout`` has them.  Warps: one a unit of
+    stage 1 (16 rows k1 x 16 columns c) or of stage 2 (16 rows j x 16
+    columns k1, 8 at n1 = 8), at least 4.  Shared memory, bf16: F1's held
+    slots (n1 padded to 16), the block's rows of F2's, x's operands for its
+    stage-1 columns (rows of n1p + 8; the exchange stages its Z columns
+    there, rows of columns + 8), Z's for its k1 and all 128 columns (rows
+    of 136; the broadcast lands x's fp32 planes there first) and the
+    broadcast's fp32 twiddle (rows of 136)."""
+    f1, f2 = _bf16_forms(complex_, packed)
+    (s1, o1), (s2, o2) = _BF16_FORMS[f1], _BF16_FORMS[f2]
+    mode, v = _bf16_mode(n1, cluster), whole_bf16_split(n1, cluster)
+    n1p, ld, bcast = max(n1, 16), _N2 + 8, mode == "broadcast"
+    cols = _N2 // cluster if mode == "exchange" else _N2
+    jr, kr, nt2 = _N2 * v // cluster, n1 // v, 1 if n1 < 16 else 2
+    units1, units2 = n1p // 16 * (cols // 16), jr // 16 * (kr // (8 * nt2))
+    end = (s1 * n1p * n1p + s2 * jr * _N2
+           + max(o1 * cols * (n1p + 8), o2 * n1 * (cols + 8) if mode == "exchange" else 0)
+           + max(o2 * kr * ld, 2 * (2 if complex_ else 1) * n1 * _N2 if bcast else 0) + (4 * n1 * ld if bcast else 0))
+    return 32 * max(units1, units2, 4), 2 * end
+
+
+def whole_bf16_smem_bytes(n1: int, cluster: int, complex_: bool, packed: bool = False) -> int:
+    """Dynamic shared memory of one K1F / K2F block (:func:`_bf16_block`)."""
+    return _bf16_block(n1, cluster, complex_, packed)[1]
+
+
+def whole_bf16_traffic(n1: int, cluster: int, complex_: bool, packed: bool = False) -> list[dict]:
+    """Bytes each block of a row of K1F / K2F reads: from L2 by source (x and
+    the twiddle in fp32, the tables' bf16 images; ``f1`` / ``f2`` are the bulk
+    copies the block issues, a multicast one landing in every block it
+    names), and from its peers' shared memory (``peers``: Z's columns of its
+    k1 that other blocks computed).  With the exchange or the broadcast the
+    sums over the blocks are each source's bytes once: no byte of x, F1, F2
+    or the twiddle leaves L2 twice within a row; without them (n1 <= 16, or
+    C = 1) every block reads x, F1 and the twiddle itself."""
+    mode, v = _bf16_mode(n1, cluster), whole_bf16_split(n1, cluster)
+    f1, f2 = _bf16_forms(complex_, packed)
+    (s1, _), (s2, o2) = _BF16_FORMS[f1], _BF16_FORMS[f2]
+    planes, n1p, shared = 2 if complex_ else 1, max(n1, 16), mode != "local"
+    w = _N2 // cluster if shared else _N2  # the x and twiddle columns (broadcast: its C-th) it reads
+    jr, kr = _N2 * v // cluster, n1 // v
+    return [{"x": 4 * planes * n1 * w, "twiddle": 8 * n1 * w, "f1": 2 * s1 * n1p * n1p // (cluster if shared else 1),
+             "f2": 2 * s2 * jr * _N2 // v, "peers": 2 * o2 * kr * (_N2 - w) if mode == "exchange" else 0}
+            for _ in range(cluster)]
+
+
+def _bf16_fits(n1: int, cluster: int, complex_: bool, packed: bool) -> tuple[int, int] | None:
+    """(threads, smem_bytes) of a cluster whose blocks fit, else None."""
+    threads, smem = _bf16_block(n1, cluster, complex_, packed)
+    return (threads, smem) if threads <= _BF16_MAX_THREADS and smem <= _SMEM_LIMIT else None
+
+
+@functools.lru_cache(maxsize=None)
+def whole_bf16_geometry(b: int, n1: int, complex_: bool, sms: int = DEFAULT_SMS,
+                        packed: bool = False) -> tuple[int, int, int]:
+    """(cluster, threads, smem_bytes) of K1F (K2F with ``packed``) for B =
+    ``b`` rows of n = 128 * n1 points: ``cluster`` blocks a row (a thread-block
+    cluster in the broadcast and the exchange, :func:`_bf16_mode`), each of
+    ``threads`` threads, one warp a unit of the larger stage.  At B = 1 the
+    cluster is the swept fastest; a larger batch halves it while the grid
+    holds more blocks than the card has SMs (``sms``), down to the least
+    cluster whose blocks fit 512 threads and the shared memory.  Kept per
+    argument tuple: a call costs a lookup."""
+    if n1 not in _BF16_B1_CLUSTER:
+        raise ValueError(f"whole_bf16 kernel: n1 must be a power of two in [8, 128], got {n1}")
+    fits = [c for c in (1, 2, 4, 8) if _bf16_fits(n1, c, complex_, packed)]
+    cluster = max(_BF16_B1_CLUSTER[n1], fits[0])
+    while cluster > fits[0] and b * cluster > sms:
+        cluster //= 2
+    return (cluster, *_bf16_fits(n1, cluster, complex_, packed))
+
+
 def _whole_bf16_cuda(kernel: str, xr, xi, tables, packed: bool):
     img1, img2, twr, twi = tables
     b, n = xr.shape
@@ -680,11 +816,12 @@ def _whole_bf16_cuda(kernel: str, xr, xi, tables, packed: bool):
            {"xr": (b, n1 * _N2), "xi": (b, n1 * _N2), "twr": (n1, _N2), "twi": (n1, _N2)})
     _check(kernel, xr.device, {"img1": img1, "img2": img2},
            {"img1": (slots, m1, m1, 32, 8), "img2": (slots, 8, 8, 32, 8)}, dtype=torch.bfloat16)
+    cluster, threads, smem = whole_bf16_geometry(b, n1, xi is not None, sm_count(xr.device), packed)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
     err = _build.library().gft_whole_bf16(
         _ptr(xr), _ptr(xi), _ptr(img1), _ptr(img2), _ptr(twr), _ptr(twi), _ptr(yr), _ptr(yi), b, n1,
-        int(packed), _stream(xr.device),
+        int(packed), cluster, threads, smem, _stream(xr.device),
     )
     _build.check(err, kernel)
     COUNTS[kernel].launches += 1

@@ -2,7 +2,9 @@
 (remez), and the gammatone auditory filter.
 
 Port of ``gpu_fft_tpu/ops/fir_optimal.py``: a copy of that pure-numpy f64
-module (only this docstring differs).  Host-side one-time design work; the
+module.  Only this docstring and ``remez``'s default ``fs`` differ: 1.0,
+scipy's (the JAX module's 2.0 designs another filter from the same band
+edges; ``firls`` keeps 2.0, scipy's there).  Host-side one-time design work; the
 filters run on the FFT path (``ops/filter.py``).  ``firls`` solves the
 normal equations with Gauss–Legendre band integrals; ``remez`` is the
 Chebyshev multiple-exchange on a dense cosine grid with barycentric error
@@ -92,7 +94,7 @@ def _pm_grid(edges, R: int, grid_density: int):
 
 
 def remez(numtaps: int, bands, desired, *, weight=None, type: str = "bandpass",
-          maxiter: int = 25, grid_density: int = 16, fs: float = 2.0):
+          maxiter: int = 25, grid_density: int = 16, fs: float = 1.0):
     """Equiripple FIR via the Remez multiple exchange
     (``scipy.signal.remez``): finds the unique weighted-Chebyshev-optimal
     linear-phase filter.  ``type``: 'bandpass' (symmetric), 'differentiator'

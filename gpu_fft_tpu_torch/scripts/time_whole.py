@@ -1,9 +1,10 @@
 """Device time of the whole-transform kernel (K1, K2, and S1, the same
-kernel at n2 = 64, 128 or 256) by cluster size, and against earlier builds,
-on one card.
+kernel at n2 = 64, 128 or 256) and of its "fast" form (K1F, K2F) by cluster
+size, and against earlier builds, on one card.
 
     python -m gpu_fft_tpu_torch.scripts.time_whole [--quick] [--no-sweep]
         [--baseline SRC.cu] [--baseline-lm SRC.cu]
+        [--fast] [--baseline-bf16 SRC.cu]
 
 1. Sweep (left out with ``--no-sweep``): K1 at B = 1 for n = 1,024 …
    65,536, and at B = 16 and 64 for n = 4,096 and 16,384, real forward and
@@ -23,10 +24,24 @@ on one card.
    ``lm_geometry``) against a ``fused_lm.cu`` with the C interface that had
    no geometry arguments, built the same way, at the seven ``LM_CASES``, in
    turns, beside ``torch.fft.fft``.
+4. With ``--fast``, the sweep is K1F's and K2F's instead (``csrc/
+   whole_bf16.cu``): B = 1 for n = 1,024 … 16,384 and B = 16 and 64 for
+   4,096 and 16,384, real forward and complex inverse, at every cluster size
+   C in {1, 2, 4, 8} whose blocks fit (``fused._bf16_fits``; the mode and
+   stage 2's split follow from n1 and C), each launch checked against the
+   plain version (max|d| <= FAST_TOL max|plain|, the gate of
+   ``chip_smoke.py``'s FAST_TOL); ``fused._BF16_B1_CLUSTER`` is its fastest
+   C at B = 1.
+5. A/B, with ``--baseline-bf16``: the shipped K1F / K2F (the geometry of
+   ``whole_bf16_geometry``) against a ``whole_bf16.cu`` whose C interface has
+   no geometry arguments (before the redesign), built the same way, at K2F
+   n = 1,024 and K1F 4,096 and 16,384, real forward and complex inverse, in
+   turns (new, old, old, new), beside the fp32 K2 / K1 on the same inputs and
+   ``torch.fft`` on complex32 (cuFFT's half precision).
 
 Times: ``device_ms``, the profiler's device time of the kernels whose name
-holds ``whole_kernel`` (``fused_lm_kernel`` for the earlier S1; all kernels
-for ``torch.fft``), median of the profiles (5 of 50 calls; 3 of 20 with
+holds ``whole_kernel`` (``fused_lm_kernel`` for the earlier S1,
+``whole_bf16_kernel`` for K1F / K2F; all kernels for ``torch.fft``), median of the profiles (5 of 50 calls; 3 of 20 with
 ``--quick``), null where the profiler records no such kernel (it may miss
 launches made by a library it did not see load); and ``graph_ms``, the time
 per call of the same calls captured into one CUDA graph and replayed
@@ -51,6 +66,11 @@ AB_CASES = (("whole_transform_packed", 1024), ("whole_transform", 4096), ("whole
 #: S1's shapes: ``ablate_engines``' and the uneven split (1, 32,768).
 LM_CASES = ((1, 4096), (1, 16384), (1, 65536), (16, 4096), (16, 65536), (64, 4096), (1, 32768))
 TOL = 1e-5
+FAST_TOL = 1e-3  # K1F / K2F vs their plain version, relative to max|plain|
+BF16_SWEEP = ((1024, 1), (2048, 1), (4096, 1), (8192, 1), (16384, 1), (4096, 16), (4096, 64), (16384, 16),
+              (16384, 64))
+BF16_AB_CASES = (("whole_transform_packed_bf16", 1024), ("whole_transform_bf16", 4096),
+                 ("whole_transform_bf16", 16384))
 
 
 def device_ms(fn, match: str | None, calls: int, profiles: int) -> float | None:
@@ -132,7 +152,8 @@ def ab_times(fns: dict, match: dict, calls: int, profiles: int) -> tuple[dict, d
 
 
 def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | None = None,
-         sweep: bool = True, out_dir: str = "chiprun_out") -> dict:
+         sweep: bool = True, out_dir: str = "chiprun_out", fast: bool = False,
+         baseline_bf16: str | None = None) -> dict:
     import torch
 
     from ..config import apply_precision
@@ -149,7 +170,8 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
-    res: dict = {"card": card, "quick": quick, "sweep": [], "lm_sweep": [], "ab": [], "lm_ab": []}
+    res: dict = {"card": card, "quick": quick, "sweep": [], "lm_sweep": [], "ab": [], "lm_ab": [],
+                 "bf16_sweep": [], "bf16_ab": []}
     out = Path(out_dir) / "time_whole.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -168,7 +190,7 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
         xi = torch.randn(b, n, generator=gen, device=dev) if complex_ else None
         return plan, xr, xi
 
-    def checked(row, launch, want, scale):
+    def checked(row, launch, want, scale, tol=TOL, match="whole_kernel"):
         """Launch once, record the error against the plain version, then
         the times; a refused launch is recorded with its error."""
         try:
@@ -178,12 +200,50 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
             row["error"] = str(e)
         else:
             row["max_abs_err"] = max(float((g - w).abs().max()) for g, w in zip(launch(), want))
-            row["ok"] = row["max_abs_err"] <= TOL * scale
-            row["device_ms"] = device_ms(launch, "whole_kernel", calls, profiles)
+            row["ok"] = row["max_abs_err"] <= tol * scale
+            row["device_ms"] = device_ms(launch, match, calls, profiles)
             row["graph_ms"] = graph_ms(launch, calls, 2 * profiles)
 
-    # ── 1. Cluster sweeps (K1, S1) ───────────────────────────────────────
-    k1_sweep = ((n, b) for n in SWEEP_N for b in SWEEP_B.get(n, (1,))) if sweep else ()
+    def bf16_args(name, plan):
+        """(img1, img2, twr, twi) of K1F / K2F for ``plan``."""
+        img1, img2 = K.bf16_images(plan)
+        tw = K._packed_tables(plan)[2:4] if "packed" in name else (plan["twr"], plan["twi"])
+        return img1, img2, *tw
+
+    # ── 1. Cluster sweeps (K1, S1; with --fast K1F, K2F) ─────────────────
+    for n, b in BF16_SWEEP if sweep and fast else ():
+        n1 = n // 128
+        for name in ("whole_transform_packed_bf16", "whole_transform_bf16"):
+            packed = "packed" in name
+            for complex_ in (False, True):
+                plan, xr, xi = case(n, complex_, packed, b)
+                want = getattr(K, name + "_plain")(xr, xi, plan)
+                scale = max(float(w.abs().max()) for w in want)
+                yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+                args = bf16_args(name, plan)
+                rule = K.whole_bf16_geometry(b, n1, complex_, K.sm_count(dev), packed)[0]
+                for c in (1, 2, 4, 8):
+                    fit = K._bf16_fits(n1, c, complex_, packed)
+                    if fit is None:
+                        continue
+                    row = {"kernel": name, "b": b, "n": n, "kind": "complex inv" if complex_ else "real fwd",
+                           "cluster": c, "mode": K._bf16_mode(n1, c), "split": K.whole_bf16_split(n1, c),
+                           "threads": fit[0], "smem_bytes": fit[1], "rule": rule == c}
+
+                    def launch(xr=xr, xi=xi, args=args, yr=yr, yi=yi, c=c, fit=fit, b=b, packed=packed):
+                        err = lib.gft_whole_bf16(
+                            xr.data_ptr(), None if xi is None else xi.data_ptr(), *(t.data_ptr() for t in args),
+                            yr.data_ptr(), yi.data_ptr(), b, n1, int(packed), c, *fit, stream())
+                        if err:
+                            raise RuntimeError(lib.gft_error_string(err).decode())
+                        return yr, yi
+
+                    checked(row, launch, want, scale, FAST_TOL, "whole_bf16_kernel")
+                    res["bf16_sweep"].append(row)
+                    print(json.dumps(row), flush=True)
+                    out.write_text(json.dumps(res, indent=1))
+
+    k1_sweep = ((n, b) for n in SWEEP_N for b in SWEEP_B.get(n, (1,))) if sweep and not fast else ()
     for n, b in k1_sweep:
         n1 = n // 128
         for complex_ in (False, True):
@@ -220,7 +280,7 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
         x = torch.randn(b, n, generator=gen, device=dev)
         return t, x, torch.empty_like(x), torch.empty_like(x)
 
-    for b, n in LM_CASES if sweep else ():
+    for b, n in LM_CASES if sweep and not fast else ():
         t, x, yr, yi = lm_case(b, n)
         n1, n2 = t["n1"], t["n2"]
         want = E.fused_fft_lm_plain(x, t)
@@ -326,6 +386,53 @@ def main(quick: bool = False, baseline: str | None = None, baseline_lm: str | No
             res["lm_ab"].append(row)
             print(json.dumps(row), flush=True)
             out.write_text(json.dumps(res, indent=1))
+
+    # ── 4. A/B of K1F / K2F against the design before the redesign ───────
+    if baseline_bf16:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        old = build_baseline(Path(baseline_bf16), {"gft_whole_bf16": [p] * 8 + [i] * 3 + [p]})
+        for name, n in BF16_AB_CASES:
+            n1 = n // 128
+            packed = "packed" in name
+            for complex_ in (False, True):
+                plan, xr, xi = case(n, complex_, packed)
+                yr, yi = torch.empty_like(xr), torch.empty_like(xr)
+                args = bf16_args(name, plan)
+                xp = None if xi is None else xi.data_ptr()
+
+                def new(xr=xr, xi=xi, plan=plan, name=name):
+                    return getattr(K, name)(xr, xi, plan)
+
+                def prev(xr=xr, xp=xp, args=args, yr=yr, yi=yi, packed=packed, n1=n1):
+                    err = old.gft_whole_bf16(xr.data_ptr(), xp, *(t.data_ptr() for t in args), yr.data_ptr(),
+                                             yi.data_ptr(), 1, n1, int(packed), stream())
+                    if err:
+                        raise RuntimeError(f"baseline launch failed: error {err}")
+
+                def fp32(xr=xr, xi=xi, plan=plan, name=name):
+                    return getattr(K, name.replace("_bf16", ""))(xr, xi, plan)
+
+                z = torch.complex(xr, torch.zeros_like(xr) if xi is None else xi).to(torch.complex32)
+
+                def half(z=z, complex_=complex_):
+                    return torch.fft.ifft(z) if complex_ else torch.fft.fft(z)
+
+                prev()
+                got, want = new(), getattr(K, name + "_plain")(xr, xi, plan)
+                scale = max(float(w.abs().max()) for w in want)
+                errs = {"new": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+                        "baseline": max(float((g - w).abs().max()) for g, w in zip((yr, yi), want))}
+                t, g = ab_times({"new": new, "baseline": prev},
+                                {"new": "whole_bf16_kernel", "baseline": "whole_bf16_kernel"}, calls, profiles)
+                row = {"kernel": name, "n": n, "kind": "complex inv 1/n" if complex_ else "real fwd",
+                       "geometry": K.whole_bf16_geometry(1, n1, complex_, K.sm_count(dev), packed),
+                       "device_ms": t, "graph_ms": g,
+                       "fp32_device_ms": device_ms(fp32, "whole_kernel", calls, profiles),
+                       "torch_fft_complex32_device_ms": device_ms(half, None, calls, profiles),
+                       "max_abs_err": errs, "ok": max(errs.values()) <= FAST_TOL * scale}
+                res["bf16_ab"].append(row)
+                print(json.dumps(row), flush=True)
+                out.write_text(json.dumps(res, indent=1))
     out.write_text(json.dumps(res, indent=1))
     print(f"wrote {out}")
     return res
@@ -337,5 +444,8 @@ if __name__ == "__main__":
     ap.add_argument("--no-sweep", action="store_true", help="leave out the cluster sweeps")
     ap.add_argument("--baseline", help="an earlier whole_transform.cu to time against")
     ap.add_argument("--baseline-lm", help="an earlier fused_lm.cu (no geometry arguments) to time against")
+    ap.add_argument("--fast", action="store_true", help="sweep K1F / K2F instead of K1 / S1")
+    ap.add_argument("--baseline-bf16", help="an earlier whole_bf16.cu (no geometry arguments) to time against")
     args = ap.parse_args()
-    main(quick=args.quick, baseline=args.baseline, baseline_lm=args.baseline_lm, sweep=not args.no_sweep)
+    main(quick=args.quick, baseline=args.baseline, baseline_lm=args.baseline_lm, sweep=not args.no_sweep,
+         fast=args.fast, baseline_bf16=args.baseline_bf16)

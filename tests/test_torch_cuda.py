@@ -753,6 +753,30 @@ def test_kernel_operators_on_the_card(dev, name, n):
     _close(captured, want)
 
 
+@pytest.mark.parametrize("n,kernel", [(1024, "whole_transform_packed_bf16"), (4096, "whole_transform_bf16"),
+                                      (16384, "whole_transform_bf16")])
+def test_fast_artifact_runs_its_kernel_on_the_card(dev, n, kernel, tmp_path, monkeypatch):
+    """An artifact exported on the card under "fast" records K2F / K1F and
+    launches it (with its launch rule's geometry), bit-equal to the live
+    fft_device of that mode."""
+    from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch.utils.serving import exported_call, load_transform, save_transform
+
+    monkeypatch.setattr(config, "PRECISION", "fast")
+    path = str(tmp_path / "fft.pt2")
+    save_transform(path, "fft", 1, n, device="cuda")
+    art = load_transform(path)
+    targets = [str(node.target) for node in art.graph.nodes if node.op == "call_function"]
+    assert [t for t in targets if t.startswith("gpu_fft_tpu_torch.")] == [f"gpu_fft_tpu_torch.{kernel}.default"]
+    x = np.random.default_rng(n).standard_normal((1, n)).astype(np.float32)
+    K.reset_counts()
+    yr, yi = exported_call(art, x)
+    assert (K.COUNTS[kernel].launches, K.COUNTS[kernel].plain_calls) == (1, 0)
+    lr, li = gt.fft_device(torch.from_numpy(x).to(dev))
+    np.testing.assert_array_equal(yr, lr.cpu().numpy())
+    np.testing.assert_array_equal(yi, li.cpu().numpy())
+
+
 def test_exported_artifact_runs_on_the_card(dev, tmp_path):
     """export -> save -> load -> call at (1, 4,096) on the card: K1 runs
     inside the artifact, bit-equal to the live fft_device."""

@@ -39,15 +39,28 @@ COPIES = {"ops/lti.py": (jlti, tlti), "ops/fir_optimal.py": (jfo, tfo), "ops/pea
           "ops/rank.py": (jrank, trank), "utils/signal.py": (jsig, tsig)}
 
 
-def _body(path):
+#: The port's recorded divergences from a copied module: (function, keyword
+#: argument) -> (the port's default, the JAX module's).  ``remez`` takes
+#: scipy's default sampling rate, 1.0, where the JAX module has 2.0.
+DIVERGENCES = {"ops/fir_optimal.py": {("remez", "fs"): (1.0, 2.0)}}
+
+
+def _body(path, divergences=None):
+    """The module's AST without its docstring; each listed keyword default
+    is checked to be the port's and set back to the JAX module's."""
     tree = ast.parse((ROOT / path).read_text())
     tree.body = tree.body[1:]  # the module docstring
+    for (fn, kw), (ours, theirs) in (divergences or {}).items():
+        (node,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == fn]
+        (i,) = [i for i, a in enumerate(node.args.kwonlyargs) if a.arg == kw]
+        assert node.args.kw_defaults[i].value == ours
+        node.args.kw_defaults[i] = ast.Constant(theirs)
     return ast.dump(tree)
 
 
 @pytest.mark.parametrize("path", sorted(COPIES))
 def test_copy_is_the_jax_module_but_its_docstring(path):
-    assert _body(f"gpu_fft_tpu_torch/{path}") == _body(f"gpu_fft_tpu/{path}")
+    assert _body(f"gpu_fft_tpu_torch/{path}", DIVERGENCES.get(path)) == _body(f"gpu_fft_tpu/{path}")
     jmod, tmod = COPIES[path]
     assert tmod.__all__ == jmod.__all__
 
@@ -109,9 +122,9 @@ CASES = {
     "fir_optimal": [
         ("firls", (31, [0, 0.2, 0.3, 1.0], [1, 1, 0, 0]), {}),
         ("firls", (21, [0, 100, 150, 500], [1, 1, 0, 0]), {"weight": [1, 10], "fs": 1000}),
-        ("remez", (41, [0, 0.1, 0.2, 0.5], [1, 0]), {}),
-        ("remez", (30, [0.05, 0.45], [1]), {"type": "hilbert"}),
-        ("remez", (25, [0, 0.45], [1]), {"type": "differentiator"}),
+        ("remez", (41, [0, 0.1, 0.2, 0.5], [1, 0]), {"fs": 2.0}),
+        ("remez", (30, [0.05, 0.45], [1]), {"type": "hilbert", "fs": 2.0}),
+        ("remez", (25, [0, 0.45], [1]), {"type": "differentiator", "fs": 2.0}),
         ("gammatone", (440.0, "fir"), {"fs": 16000.0}),
         ("gammatone", (1000.0, "iir"), {"fs": 16000.0}),
     ],
@@ -164,6 +177,20 @@ MODULES = {"lti": (jlti, tlti), "fir_optimal": (jfo, tfo), "peaks": (jpk, tpk), 
 def test_outputs_are_bit_equal(module, name, args, kw):
     jmod, tmod = MODULES[module]
     _same(getattr(tmod, name)(*args, **kw), getattr(jmod, name)(*args, **kw))
+
+
+def test_remez_default_is_scipys():
+    """At the default sampling rate the port designs scipy's filter (fs = 1:
+    band edges in cycles a sample); the JAX module's default (fs = 2) reads
+    the same edges as half-cycles and diverges.  Gate 2e-4 of max|scipy|:
+    the two exchange iterations stop on their own grids, 5.04e-5 (1.0e-4 of
+    max|h| = 0.50) apart."""
+    want = ss.remez(51, [0, 0.2, 0.3, 0.5], [1, 0])
+    got = tfo.remez(51, [0, 0.2, 0.3, 0.5], [1, 0])
+    assert abs(np.abs(want).max() - 0.5) < 0.05
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * np.abs(want).max())
+    assert np.abs(jfo.remez(51, [0, 0.2, 0.3, 0.5], [1, 0]) - want).max() > 1.0  # the JAX default's filter
+    _same(got, tfo.remez(51, [0, 0.2, 0.3, 0.5], [1, 0], fs=1.0))
 
 
 def test_lti_classes_are_bit_equal():
