@@ -19,9 +19,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    the stage-A ablation harnesses, with S3's error against float64 (gate
    for f32 and bf16_x6: 5*log2(n1)*eps; bf16_x1 printed); K3LF and S2F,
    the "fast" forms of K3-legacy and S2, at the same shapes (K3LF also at
-   2^20 complex and rows = 72 and 2^22 rows = 72), gate max|d| <= 1e-3
-   max|plain| and, against float64, at most 1.5 times the plain version's
-   error;
+   2^20 complex and rows = 72, 2^22 rows = 72, n1 = 256 complex with rows =
+   136 on two column tiles, and n1 = 512 complex, whose F streams), gate
+   max|d| <= 1e-3 max|plain| and, against float64, at most 1.5 times the
+   plain version's error;
 3. the main path through the public API on ``device="cuda"``: the sine ->
    fft -> psd -> dominant frequency -> ifft demo, fft/ifft from n = 1024 to
    2^22, fft_batch and ifft_batch, each checked against numpy in float64 with
@@ -120,8 +121,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    rounding moves one intermediate by a bf16 ulp) and against float64,
    where the kernel's error is at most 1.5 times the plain version's, and
    so every geometry the K1F / K2F launch rule picks at n = 1,024 ...
-   16,384 for B = 1 and 3, real and complex input; a Parseval gradient at
-   4,096 and 2^20 in each mode, within its band;
+   16,384 for B = 1 and 3, real and complex input, and every geometry the
+   K3F rule picks at 2^17 ... 2^24 (B = 1; B = 3 up to 2^20) on real input
+   with the real rows, complex input and the irfft fold's column tiles, and
+   on the 2-D panel's B = 512; a Parseval gradient at 4,096 and 2^20 in
+   each mode, within its band;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -154,7 +158,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    phase 3h's rows: K2F, K1F and K3F against their plain versions and their
    bounds (bf16 operations at the tensor-core peak, bytes at the HBM rate;
    K2F / K1F beside torch.fft on complex32, cuFFT's half precision, the
-   kernels' device times the median of 5 profiles with min and max), and
+   kernels' device times the median of 5 profiles with min and max; K3F
+   at 2^20 and 2^22, real rows, complex and the irfft tiles, also with L2
+   flushed, with its geometry, beside this phase's K3 rows), and
    fft_device in each mode at phase 3h's shapes beside torch.fft.fft in
    fp32 and on complex32; K3LF at 2^20 real and complex, all rows, and at
    2^22 rows = 72, back to back and with L2 flushed, beside K3-legacy; S2F
@@ -405,16 +411,16 @@ def fast_whole_bound(n: int, complex_: bool):
 
 
 def fast_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | None, ncols: int | None = None,
-                       batch: int = 1, f_slots: int = 4):
+                       batch: int = 1):
     """K3F, and with ``ct`` None K3LF and S2F (the materialized table): per
     kept column ``rows`` x n1 multiply-adds per product (real input Fr x and
     Fi x; complex the Karatsuba three) at the bf16 peak, plus the fp32
     twiddle (K3F: its rebuild and the complex product, 12 FLOP an output;
     the table: the product, 6; 2 more for Karatsuba's combination); x's kept
-    columns (both parts for complex input), F1's bf16 image (``f_slots``
-    n1 x n1 slots: K3F's and K3LF's four, S2F's stacking two), the twiddle
-    read once (K3F: the two factors' rows; the table: its kept rows x
-    columns), the output written once."""
+    columns (both parts for complex input), the n1 x n1 bf16 tables the
+    products read (real input Fr and Fi, S2's stacking; complex Fr, Fd, Fs),
+    the twiddle read once (K3F: the two factors' rows; the table: its kept
+    rows x columns), the output written once."""
     ncols = n2 if ncols is None else ncols
     products = 3 if complex_ else 2
     outputs = batch * rows * ncols
@@ -423,7 +429,7 @@ def fast_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | No
     t_ops = (2 * products * n1 * outputs / (spec.bf16_tflops * 1e12)
              + twiddle_flop * outputs / (spec.vpu_tflops * 1e12)) * 1e3
     twiddle = rows * (ncols // ct + ct) if ct else rows * ncols
-    nbytes = (4 * batch * (2 if complex_ else 1) * n1 * ncols + 8 * outputs + 2 * f_slots * n1 * n1
+    nbytes = (4 * batch * (2 if complex_ else 1) * n1 * ncols + 8 * outputs + 2 * products * n1 * n1
               + 8 * twiddle)
     t_bytes = nbytes / (spec.hbm_gbps * 1e9) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -2328,6 +2334,7 @@ def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=
         del got, want, truth
     torch.cuda.synchronize()
     max_err.update(fast_whole_geometries(report, dev, rng, max_err))
+    max_err.update(fast_stage_a_geometries(report, dev, rng, max_err))
     report["precision_launches"] = launches
     report["precision_errors"] = {f"{op} ({b}, {n})": e for (op, b, n), e in errs.items()}
     return {"launches": fast_launches, "max_err": max_err}
@@ -2373,12 +2380,55 @@ def fast_whole_geometries(report: dict, dev, rng, max_err: dict) -> dict:
     return out
 
 
+def fast_stage_a_geometries(report: dict, dev, rng, max_err: dict) -> dict:
+    """Every K3F geometry the launch rule (``stage_a_bf16_geometry``) picks at
+    the main path's shapes: 2^17 ... 2^24 at B = 1, and at B = 3 up to 2^20
+    (from 2^21 on a row has more column tiles than the card has SMs, so B =
+    3 takes B = 1's geometry), each with real input and the real path's
+    rows, complex input with all rows and the irfft fold's first
+    ceil((n2/2 + 1) / ct) column tiles; and the 2-D panel's B = 512 x 2^17;
+    each against its plain version and float64 (:func:`hold_fast`).
+    Returns the largest max|d|, with ``max_err``'s."""
+    import torch
+
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    out = max_err.get("stage_a_bf16", 0.0)
+    print("  every K3F geometry of the launch rule at the main path's shapes vs its plain version and float64:")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    # B = 3 where it changes the grid (fewer column tiles than SMs at B = 1).
+    cases = [(1, n) for n in (1 << 17, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24)]
+    cases += [(3, n) for n in (1 << 17, 1 << 18, 1 << 19, 1 << 20)] + [PANEL]
+    for b, n in cases:
+        for kind in ("real", "complex", "irfft"):
+            if b == PANEL[0] and kind == "irfft":
+                continue
+            plan = P.on_device(P.get_stage_a_plan, n, -1 if kind == "real" else 1,
+                               None if kind == "irfft" else P.stage_a_ct_full_range(n), device=dev)
+            n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+            rows = P.stage_a_real_rows(n1) if kind == "real" else None
+            tiles = -(-(n2 // 2 + 1) // ct) if kind == "irfft" else None
+            xr = torch.randn(b, n1, n2, generator=gen, device=dev)
+            xi = None if kind == "real" else torch.randn(b, n1, n2, generator=gen, device=dev)
+            r, ncols = K._stage_a_extent(n1, n2, plan, ct, tiles, rows)
+            geo = K.stage_a_bf16_geometry(b, n1, n2, r, ncols, xi is not None, K.sm_count(dev))
+            args = (n1, n2, plan, ct, tiles, rows)
+            truth = K.stage_a_plain(f64(xr), f64(xi), *map(f64, args))
+            case = f"B={b} n={n} {kind} rows={r} ncols={ncols} ct={ct} geometry {geo}"
+            out = max(out, hold_fast(report, "stage_a_bf16", case, K.stage_a_bf16(xr, xi, *args),
+                                     K.stage_a_bf16_plain(xr, xi, *args), truth))
+            del xr, xi, truth
+    torch.cuda.synchronize()
+    return {"stage_a_bf16": out}
+
+
 def fast_legacy_checks(report: dict, dev, randn) -> dict:
     """Phase 2's "fast" stage-A ablation kernels, each against its plain
     version and float64 (:func:`hold_fast`): K3LF at every ``ablate_large``
     shape (real input, all rows) and in its complex, rows and col_tiles
-    forms, S2F at n1 = 32, 128 and 256.  Returns the largest max|d| of
-    each."""
+    forms (n1 = 256 on two row blocks, n1 = 512 complex with F streamed),
+    S2F at n1 = 32, 128 and 256.  Returns the largest max|d| of each."""
     import torch
 
     from gpu_fft_tpu_torch import plan as P
@@ -2391,7 +2441,8 @@ def fast_legacy_checks(report: dict, dev, randn) -> dict:
     max_err = dict.fromkeys(FAST_LEGACY_KERNELS.values(), 0.0)
     cases = [(n, n1, False, None, None) for n, n1s in ablate_large.SWEEPS.items() for n1 in n1s]
     cases += [(1 << 17, 16, True, None, None), (1 << 17, 128, False, None, 72), (1 << 17, 128, True, 1, None),
-              (1 << 20, 128, True, None, None), (1 << 20, 128, False, None, 72), (1 << 22, 128, False, None, 72)]
+              (1 << 20, 128, True, None, None), (1 << 20, 128, False, None, 72), (1 << 22, 128, False, None, 72),
+              (1 << 20, 256, True, 2, 136), (1 << 22, 512, True, None, None)]
     for n, n1, complex_, tiles, r in cases:
         plan = P.on_device(ablate_large.make_plan, n, n1, 1 if complex_ else -1, device=dev)
         n2 = plan["n2"]
@@ -2547,27 +2598,29 @@ def precision_times(report: dict, dev, time_pair, randn, shapes=PRECISION_SHAPES
             rec = time_pair(f"{name} B=1 n={n} {label}", name, lambda a=args: kern(*a), lambda a=args: plain(*a),
                             (ms, wall), half(lib, z), profiles=5)
             rec.update(latency_wall_ms=lat, library="torch.fft on complex32")
+    def k3f_pair(label, x, xi, n1, n2, plan, ct, tiles=None, rows=None):
+        """K3F against its plain version and bound, with L2 flushed too (K3
+        at the same shapes: this phase's stage_a rows)."""
+        r, ncols = K._stage_a_extent(n1, n2, plan, ct, tiles, rows)
+        rec = time_pair(label, "stage_a_bf16", lambda: K.stage_a_bf16(x, xi, n1, n2, plan, ct, tiles, rows),
+                        lambda: K.stage_a_bf16_plain(x, xi, n1, n2, plan, ct, tiles, rows),
+                        fast_stage_a_bound(n1, n2, r, xi is not None, ct, ncols=ncols, batch=x.shape[0]),
+                        cold="stage_a")
+        rec.update(geometry=K.stage_a_bf16_geometry(x.shape[0], n1, n2, r, ncols, xi is not None, K.sm_count(dev)))
+        print(f"    geometry {rec['geometry']}")
+
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         rows = P.stage_a_real_rows(n1)
-        x = randn(1, n1, n2)
-        time_pair(f"stage_a_bf16 n={n} real rows={rows}", "stage_a_bf16",
-                  lambda: K.stage_a_bf16(x, None, n1, n2, plan, ct, rows=rows),
-                  lambda: K.stage_a_bf16_plain(x, None, n1, n2, plan, ct, rows=rows),
-                  fast_stage_a_bound(n1, n2, rows, False, ct))
+        x, xi = randn(1, n1, n2), randn(1, n1, n2)
+        k3f_pair(f"stage_a_bf16 n={n} real rows={rows}", x, None, n1, n2, plan, ct, rows=rows)
         inv = P.on_device(P.get_stage_a_plan, n, 1, ct, device=dev)
-        xi = randn(1, n1, n2)
-        time_pair(f"stage_a_bf16 n={n} complex inv", "stage_a_bf16",
-                  lambda: K.stage_a_bf16(x, xi, n1, n2, inv, ct),
-                  lambda: K.stage_a_bf16_plain(x, xi, n1, n2, inv, ct),
-                  fast_stage_a_bound(n1, n2, n1, True, ct))
+        k3f_pair(f"stage_a_bf16 n={n} complex inv", x, xi, n1, n2, inv, ct)
         fold = P.on_device(P.get_stage_a_plan, n, 1, None, device=dev)
         tiles = -(-(n2 // 2 + 1) // fold["ct"])
-        time_pair(f"stage_a_bf16 n={n} inv col_tiles={tiles}/{n2 // fold['ct']} ct={fold['ct']}", "stage_a_bf16",
-                  lambda: K.stage_a_bf16(x, xi, n1, n2, fold, fold["ct"], col_tiles=tiles),
-                  lambda: K.stage_a_bf16_plain(x, xi, n1, n2, fold, fold["ct"], col_tiles=tiles),
-                  fast_stage_a_bound(n1, n2, n1, True, fold["ct"], ncols=tiles * fold["ct"]))
+        k3f_pair(f"stage_a_bf16 n={n} inv col_tiles={tiles}/{n2 // fold['ct']} ct={fold['ct']}", x, xi, n1, n2,
+                 fold, fold["ct"], tiles)
         del x, xi
 
     rows = []
@@ -3111,7 +3164,7 @@ def main() -> None:
             del xi
             time_pair(f"stage_a_manual_bf16 n={n} n1={n1} real", "stage_a_manual_bf16",
                       lambda: A.stage_a_manual_bf16(x2, legacy), lambda: A.stage_a_manual_bf16_plain(x2, legacy),
-                      fast_stage_a_bound(n1, n2, n1, False, None, f_slots=2))
+                      fast_stage_a_bound(n1, n2, n1, False, None))
             wide = A.manual_tables(P.on_device(ablate_large.make_plan, n, 256, -1, device=dev))
             x256 = randn(256, n // 256)
             time_pair(f"stage_a_manual n={n} n1=256 real", "stage_a_manual",
@@ -3119,7 +3172,7 @@ def main() -> None:
                       dense_stage_a_bound(256, n // 256, 256))
             time_pair(f"stage_a_manual_bf16 n={n} n1=256 real", "stage_a_manual_bf16",
                       lambda: A.stage_a_manual_bf16(x256, wide), lambda: A.stage_a_manual_bf16_plain(x256, wide),
-                      fast_stage_a_bound(256, n // 256, 256, False, None, f_slots=2))
+                      fast_stage_a_bound(256, n // 256, 256, False, None))
             del x256, wide
         time_pair(f"stage_a_legacy n={n} real rows={rows}", "stage_a_legacy",
                   lambda: K.stage_a(x, None, n1, n2, legacy, lct, rows=rows),

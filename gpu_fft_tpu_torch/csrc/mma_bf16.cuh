@@ -1,7 +1,7 @@
 // bf16 tensor-core products for the "fast" kernels K1F / K2F
-// (whole_bf16.cu) and K3F (stage_a_bf16.cu): mma.sync m16n8k16, bf16
-// operands, fp32 accumulators, as the JAX bodies' dots compute under
-// lax.Precision.DEFAULT (gpu_fft_tpu/kernels/fused.py:_dot, _dot_nt).
+// (whole_bf16.cuh): mma.sync m16n8k16, bf16 operands, fp32 accumulators,
+// as the JAX bodies' dots compute under lax.Precision.DEFAULT
+// (gpu_fft_tpu/kernels/fused.py:_dot, _dot_nt).
 //
 // A (the DFT table, 16 rows a tile) arrives as a "fragment image" built on
 // the host (kernels/fused.py:frag_image): per table slot, per 16-row tile,
@@ -47,7 +47,6 @@ struct Form<REAL2> {
   static constexpr int NQ = 2;  // products
   static constexpr int NB = 1;  // bf16 operands of the data
   static constexpr int NS = 2;  // table slots read: r, i
-  __device__ __forceinline__ static int slot(int q) { return q == 0 ? SLOT_R : SLOT_I; }
   __device__ __forceinline__ static int table(int s) { return s; }
   __device__ __forceinline__ static int sidx(int q) { return q; }
   __device__ __forceinline__ static int operand(int) { return 0; }
@@ -62,8 +61,7 @@ struct Form<KARA3> {
   static constexpr int NQ = 3;
   static constexpr int NB = 3;  // xr + xi, xr, xi
   static constexpr int NS = 3;  // r, d, s
-  __device__ __forceinline__ static int slot(int q) { return q == 0 ? SLOT_R : q == 1 ? SLOT_D : SLOT_S; }
-  __device__ __forceinline__ static int table(int s) { return slot(s); }
+  __device__ __forceinline__ static int table(int s) { return s == 0 ? SLOT_R : s == 1 ? SLOT_D : SLOT_S; }
   __device__ __forceinline__ static int sidx(int q) { return q; }
   __device__ __forceinline__ static int operand(int q) { return q; }
   __device__ __forceinline__ static void fill(float re, float im, __nv_bfloat16 (&o)[NB]) {
@@ -81,7 +79,6 @@ struct Form<FOUR4> {
   static constexpr int NQ = 4;
   static constexpr int NB = 2;  // xr, xi
   static constexpr int NS = 2;  // r, i
-  __device__ __forceinline__ static int slot(int q) { return (q & 1) ? SLOT_I : SLOT_R; }
   __device__ __forceinline__ static int table(int s) { return s; }
   __device__ __forceinline__ static int sidx(int q) { return q & 1; }
   __device__ __forceinline__ static int operand(int q) { return q >> 1; }
@@ -130,52 +127,15 @@ __device__ __forceinline__ void store_operands(__nv_bfloat16* bsm, int bstride, 
 }
 
 // One warp's tile: acc[q][j] = A_slot(q) (rows 16 mt .. 16 mt + 15) x
-// B_operand(q) (columns n0 + 8 j .. + 7), over `kts` depth tiles of 16, for
-// the first `ntv` of the NT column tiles.  `img` holds the fragment image
-// of every slot, `slot_stride` uint4s apart, each [mt][kt][lane]; B lies
-// at bsm as [column][depth], `ld` bf16 a column, operands `bstride` apart.
-// Fragment layout (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + t; A
-// registers (g, 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..);
-// B registers (depth 2t.., column g), (depth 2t + 8.., column g); C values
-// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-template <int F, int NT>
-__device__ __forceinline__ void warp_tile(float (&acc)[Form<F>::NQ][NT][4], const uint4* __restrict__ img,
-                                          int slot_stride, int mt, int kts, const __nv_bfloat16* bsm,
-                                          int bstride, int ld, int n0, int ntv, int lane) {
-  using P = Form<F>;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int q = 0; q < P::NQ; ++q)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][j][e] = 0.f;
-  for (int kt = 0; kt < kts; ++kt) {
-    uint4 a[P::NQ];
-#pragma unroll
-    for (int q = 0; q < P::NQ; ++q)
-      a[q] = __ldg(img + (size_t)P::slot(q) * slot_stride + ((size_t)mt * kts + kt) * 32 + lane);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      if (j < ntv) {
-        const __nv_bfloat16* col = bsm + (n0 + 8 * j + g) * ld + 16 * kt + 2 * t;
-        uint32_t b[P::NB][2];
-#pragma unroll
-        for (int o = 0; o < P::NB; ++o) {
-          b[o][0] = *reinterpret_cast<const uint32_t*>(col + o * bstride);
-          b[o][1] = *reinterpret_cast<const uint32_t*>(col + o * bstride + 8);
-        }
-#pragma unroll
-        for (int q = 0; q < P::NQ; ++q) mma16816(acc[q][j], a[q], b[P::operand(q)][0], b[P::operand(q)][1]);
-      }
-    }
-  }
-}
-
-// warp_tile with A held in shared memory: the NS slots of the form, each
-// `slot_stride` uint4s apart, [mt][kt][lane] with KTS depth tiles, so that a
-// fragment is one conflict-free 16-byte read a lane; every one of the NT
-// column tiles is kept, and the depth loop unrolls.
+// B_operand(q) (columns n0 + 8 j .. + 7), over KTS depth tiles of 16, A
+// held in shared memory: the NS slots of the form, each `slot_stride`
+// uint4s apart, [mt][kt][lane], so that a fragment is one conflict-free
+// 16-byte read a lane; B lies at bsm as [column][depth], `ld` bf16 a
+// column, operands `bstride` apart.  Fragment layout (PTX ISA,
+// mma.m16n8k16 .bf16): lane = 4 g + t; A registers (g, 2t..), (g + 8,
+// 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); B registers (depth 2t..,
+// column g), (depth 2t + 8.., column g); C values (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
 template <int F, int NT, int KTS>
 __device__ __forceinline__ void warp_tile_smem(float (&acc)[Form<F>::NQ][NT][4], const uint4* a_sm, int slot_stride,
                                                int mt, const __nv_bfloat16* bsm, int bstride, int ld, int n0,
@@ -217,27 +177,8 @@ __device__ __forceinline__ float2 combined(const float (&acc)[Form<F>::NQ][NT][4
   return Form<F>::combine(p);
 }
 
-// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
-// device and kernel (`done` is that kernel's per-device record), so a
-// launch captured into a CUDA graph makes no such call.
+// Devices whose launch configuration a kernel records (whole_bf16.cuh).
 constexpr int MAX_DEVICES = 64;
-
-template <typename K>
-int allow_smem(K kernel, int bytes, int (&done)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (bytes > 48 * 1024 && bytes > done[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // leave no error behind for the next launch to report
-      return (int)e;
-    }
-    done[dev] = bytes;
-  }
-  return 0;
-}
 
 }  // namespace bf16mma
 }  // namespace gft

@@ -91,16 +91,17 @@ extern "C" int gft_stage_a_dot_f32(const float* x, const float* at, float* yr, f
 // rows each), grid persistent blocks (dot_geometry).
 extern "C" int gft_stage_a_dot_bf16(const float* x, const void* fimg, float* yr, float* yi, int batch,
                                     int n1, int n2, int parts, int wgs, int grid, void* stream) {
-  using gft::dot_bf16::launch_dot_bf16;
-  if (batch < 1 || n1 < 32 || n1 % 32 || n2 < gft::dot_bf16::BN || n2 % gft::dot_bf16::BN || grid < 1)
+  using namespace gft::dot_bf16;
+  if (batch < 1 || n1 < 32 || n1 % 32 || n2 < BN || n2 % BN || grid < 1 || wgs < 1 || (2 * n1) % (64 * wgs))
     return (int)cudaErrorInvalidValue;
   const auto* f = static_cast<const unsigned char*>(fimg);
   const StagedSplit epi{yr, yi, n1, n2};
+  const int groups = 2 * n1 / 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (parts == 1 && wgs == 1) return launch_dot_bf16<1, 1>(x, f, 3, epi, batch, n1, n2, grid, s);
-  if (parts == 1 && wgs == 2) return launch_dot_bf16<1, 2>(x, f, 3, epi, batch, n1, n2, grid, s);
-  if (parts == 1 && wgs == 4) return launch_dot_bf16<1, 4>(x, f, 3, epi, batch, n1, n2, grid, s);
-  if (parts == 3 && wgs == 1) return launch_dot_bf16<3, 1>(x, f, 3, epi, batch, n1, n2, grid, s);
-  if (parts == 3 && wgs == 2) return launch_dot_bf16<3, 2>(x, f, 3, epi, batch, n1, n2, grid, s);
+  if (parts == 1 && wgs == 1) return launch_dot_bf16<X1, 1>(x, nullptr, f, 3, epi, batch, n1, n2, n2, groups, grid, s);
+  if (parts == 1 && wgs == 2) return launch_dot_bf16<X1, 2>(x, nullptr, f, 3, epi, batch, n1, n2, n2, groups, grid, s);
+  if (parts == 1 && wgs == 4) return launch_dot_bf16<X1, 4>(x, nullptr, f, 3, epi, batch, n1, n2, n2, groups, grid, s);
+  if (parts == 3 && wgs == 1) return launch_dot_bf16<X6, 1>(x, nullptr, f, 3, epi, batch, n1, n2, n2, groups, grid, s);
+  if (parts == 3 && wgs == 2) return launch_dot_bf16<X6, 2>(x, nullptr, f, 3, epi, batch, n1, n2, n2, groups, grid, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,49 +20,15 @@
 // chunks, wgmma m64n64k16), here on S2's stacking of the LHS
 // (kernels/ablation.py:manual_tables "f_img"): for every 32 output rows,
 // their Fr rows then their Fi rows, so each 64-row warpgroup tile holds Re
-// and Im of the same 32 output rows.  The epilogue reads both planes of a
-// row pair from the staging tile, multiplies them by the row's twr / twi
-// (16-byte loads, coalesced along the row) and stores Yr and Yi as 16-byte
-// words.  The launch shape (warpgroups a block, persistent blocks) comes
-// from the pure rule kernels/ablation.py:manual_bf16_geometry, S3's
-// bf16 x1 rule at B = 1.
+// and Im of the same 32 output rows.  Its epilogue is K3LF's
+// (dot_bf16.cuh:TwiddleRows on twiddle.cuh's Table): it reads both planes
+// of a row pair from the staging tile, multiplies them by the row's twr /
+// twi (16-byte loads, coalesced along the row) and stores Yr and Yi as
+// 16-byte words.  S2F is K3LF at B = 1 on real input with every row kept.
+// The launch shape (warpgroups a block, persistent blocks) comes from the
+// pure rule kernels/ablation.py:manual_bf16_geometry, S3's bf16 x1 rule at
+// B = 1.
 #include "dot_bf16.cuh"
-
-namespace {
-
-// Staged row pair (64 g + r, 64 g + 32 + r) of a block's tile -> output row
-// m0 / 2 + 32 g + r, times that row's twiddle.
-struct TwiddlePairs {
-  const float* twr;
-  const float* twi;
-  float* yr;
-  float* yi;
-  int n1, n2;
-  template <int RB, int THREADS>
-  __device__ __forceinline__ void store(const float* stg, int m0, int b, int c0, int t) const {
-    using gft::dot_bf16::BN;
-    using gft::dot_bf16::SLD;
-#pragma unroll
-    for (int i = 0; i < RB / 2 * BN / 4 / THREADS; ++i) {
-      const int q = t + i * THREADS;
-      const int r = q / (BN / 4), c4 = (q % (BN / 4)) * 4;
-      const int s = r / 32 * 64 + r % 32;  // the pair's Re row; Im is 32 below
-      const float4 re = *reinterpret_cast<const float4*>(stg + s * SLD + c4);
-      const float4 im = *reinterpret_cast<const float4*>(stg + (s + 32) * SLD + c4);
-      const int k1 = m0 / 2 + r;
-      const size_t w = (size_t)k1 * n2 + c0 + c4;
-      const float4 wr = __ldg(reinterpret_cast<const float4*>(twr + w));
-      const float4 wi = __ldg(reinterpret_cast<const float4*>(twi + w));
-      const size_t o = ((size_t)b * n1 + k1) * n2 + c0 + c4;
-      *reinterpret_cast<float4*>(yr + o) = make_float4(re.x * wr.x - im.x * wi.x, re.y * wr.y - im.y * wi.y,
-                                                       re.z * wr.z - im.z * wi.z, re.w * wr.w - im.w * wi.w);
-      *reinterpret_cast<float4*>(yi + o) = make_float4(re.x * wi.x + im.x * wr.x, re.y * wi.y + im.y * wr.y,
-                                                       re.z * wi.z + im.z * wr.z, re.w * wi.w + im.w * wr.w);
-    }
-  }
-};
-
-}  // namespace
 
 // fimg: the swizzled bf16 image of S2's stacked table, one part a 64-row
 // group (manual_tables "f_img"); n1 a multiple of 32 in [32, 256], n2 of
@@ -70,14 +36,15 @@ struct TwiddlePairs {
 // blocks from manual_bf16_geometry.
 extern "C" int gft_stage_a_manual_bf16(const float* x, const void* fimg, const float* twr, const float* twi,
                                        float* yr, float* yi, int n1, int n2, int wgs, int grid, void* stream) {
-  using gft::dot_bf16::BN;
-  using gft::dot_bf16::launch_dot_bf16;
-  if (n1 < 32 || n1 % 32 || n1 > 256 || n2 < BN || n2 % BN || grid < 1) return (int)cudaErrorInvalidValue;
+  using namespace gft::dot_bf16;
+  if (n1 < 32 || n1 % 32 || n1 > 256 || n2 < BN || n2 % BN || grid < 1 || wgs < 1 || (2 * n1) % (64 * wgs))
+    return (int)cudaErrorInvalidValue;
   const auto* f = static_cast<const unsigned char*>(fimg);
-  const TwiddlePairs epi{twr, twi, yr, yi, n1, n2};
+  const TwiddleRows<32, gft::Table> epi{gft::Table{twr, twi, n2}, yr, yi, n1, n2};
+  const int groups = 2 * n1 / 64;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wgs == 1) return launch_dot_bf16<1, 1>(x, f, 1, epi, 1, n1, n2, grid, s);
-  if (wgs == 2) return launch_dot_bf16<1, 2>(x, f, 1, epi, 1, n1, n2, grid, s);
-  if (wgs == 4) return launch_dot_bf16<1, 4>(x, f, 1, epi, 1, n1, n2, grid, s);
+  if (wgs == 1) return launch_dot_bf16<X1, 1>(x, nullptr, f, 1, epi, 1, n1, n2, n2, groups, grid, s);
+  if (wgs == 2) return launch_dot_bf16<X1, 2>(x, nullptr, f, 1, epi, 1, n1, n2, n2, groups, grid, s);
+  if (wgs == 4) return launch_dot_bf16<X1, 4>(x, nullptr, f, 1, epi, 1, n1, n2, n2, groups, grid, s);
   return (int)cudaErrorInvalidValue;
 }

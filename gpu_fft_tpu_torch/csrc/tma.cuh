@@ -1,5 +1,5 @@
 // Bulk (TMA) copies into shared memory and the mbarriers that count them,
-// shared by the kernels that keep a table on chip: S3 and S2F
+// shared by the kernels that keep a table on chip: S3, S2F, K3F and K3LF
 // (dot_bf16.cuh) and K1F / K2F (whole_bf16.cu).
 //
 // One thread arms a barrier with the bytes it expects and issues the
@@ -56,13 +56,17 @@ __device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* sr
       : "memory");
 }
 
-// Waits until the barrier at `bar` completes its first phase.
-__device__ __forceinline__ void wait_phase0(uint32_t bar) {
+// Waits until the barrier at `bar` completes the phase of parity `parity`
+// (its first phase: 0, the next: 1, and so on alternately).
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
   asm volatile(
       "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar)
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar), "r"(parity)
       : "memory");
 }
+
+// Waits until the barrier at `bar` completes its first phase.
+__device__ __forceinline__ void wait_phase0(uint32_t bar) { wait_parity(bar, 0); }
 
 }  // namespace gft

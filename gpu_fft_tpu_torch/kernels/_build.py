@@ -50,10 +50,10 @@ _SIGNATURES = {
     # batch, n1, packed, cluster, threads, smem_bytes, stream
     "gft_whole_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # xr, xi, img, two_r, two_i, twi_r, twi_i, yr, yi,
-    # batch, n1, n2, ct, rows, ncols, stream
-    "gft_stage_a_bf16": [_P] * 9 + [_I] * 6 + [_P],
-    # xr, xi, img, twr, twi, yr, yi, batch, n1, n2, rows, ncols, stream
-    "gft_stage_a_bf16_full": [_P] * 7 + [_I] * 5 + [_P],
+    # batch, n1, n2, ct, rows, ncols, wgs, grid, stream
+    "gft_stage_a_bf16": [_P] * 9 + [_I] * 8 + [_P],
+    # xr, xi, img, twr, twi, yr, yi, batch, n1, n2, rows, ncols, wgs, grid, stream
+    "gft_stage_a_bf16_full": [_P] * 7 + [_I] * 7 + [_P],
     # x, f_t, yr, yi, batch, n1, n2, stream
     "gft_stage_a_dot_f32": [_P] * 4 + [_I] * 3 + [_P],
     # x, f_img, yr, yi, batch, n1, n2, parts, wgs, grid, stream

@@ -33,6 +33,7 @@ import torch
 from . import _build
 from .fused import (
     DEFAULT_SMS,
+    SMEM_MAX,
     LaunchCount,
     _bf16_dots,
     _check,
@@ -40,8 +41,10 @@ from .fused import (
     _on_cpu,
     _ptr,
     _stream,
+    pair_stacking,
     sm_count,
     stage_a_plain,
+    swizzled_image,
 )
 
 __all__ = [
@@ -102,8 +105,7 @@ def manual_tables(tables: dict) -> dict:
     n1 = fr.shape[0]
     if n1 % _PAIR:
         raise ValueError(f"stage_a_manual: n1={n1} is not a multiple of {_PAIR}")
-    blocks = torch.stack([fr.reshape(n1 // _PAIR, _PAIR, n1), fi.reshape(n1 // _PAIR, _PAIR, n1)], dim=1)
-    stack = blocks.reshape(2 * n1, n1).to(torch.float32)
+    stack = pair_stacking(fr, fi).to(torch.float32)
     return {**tables, "f_stack": stack.t().contiguous(),
             "f_img": swizzled_image(stack.to(torch.bfloat16)[None])}
 
@@ -270,28 +272,6 @@ def dot_tables(fr: torch.Tensor, fi: torch.Tensor) -> dict:
     }
 
 
-def swizzled_image(parts: torch.Tensor) -> torch.Tensor:
-    """The bf16 kernel's shared-memory image of the stacked parts (P, M, n1):
-    (ceil(M / 64), P, ceil(n1 / 64), 64, 64), per 64 rows g, part p and
-    64-deep chunk c the rows r as ``wgmma``'s K-major 128-byte swizzle lays
-    them out: the 16-byte word j (depths 8 j .. 8 j + 7) of row r stored at
-    word j ^ (r % 8), rows past M and depths past n1 zero.  A block's parts
-    of one row group are then one run of bytes, copied as it is."""
-    n_parts, m, n1 = parts.shape
-    groups, chunks = -(-m // 64), -(-n1 // 64)
-    padded = parts.new_zeros(n_parts, groups * 64, chunks * 64)
-    padded[:, :m, :n1] = parts
-    t = padded.reshape(n_parts, groups, 64, chunks, 8, 8)  # p, g, r, c, word, depth
-    r = torch.arange(64, device=parts.device).reshape(64, 1)
-    word = torch.arange(8, device=parts.device).reshape(1, 8)
-    idx = (word ^ (r % 8)).reshape(1, 1, 64, 1, 8, 1).expand_as(t)
-    img = torch.gather(t, 4, idx).permute(1, 0, 3, 2, 4, 5)
-    return img.reshape(groups, n_parts, chunks, 64, 64).contiguous()
-
-
-#: Dynamic shared memory the bf16 kernel may opt into on an H100: a
-#: block's 232,448 bytes less its static 8-byte F barrier.
-SMEM_MAX = 232_448 - 8
 _BN = 64  # x columns per bf16 tile (the wgmma N)
 
 

@@ -25,9 +25,13 @@ kernels' dots run at bf16x1 (``config.mosaic_precision()``):
   ``whole_transform_packed`` and ``stage_a`` (either plan layout) hand over
   to them when the mode is "fast" at the call; their tables are the plan's
   fp32 tables rounded to bf16, laid out as the kernels read them
-  (:func:`frag_image`) and kept per plan (:func:`bf16_images`).  K1F / K2F
-  spread a row over 8 blocks with its tables on chip by bulk copies; launch
-  shape from :func:`whole_bf16_geometry` and :func:`whole_bf16_split`.
+  (:func:`frag_image`, :func:`stage_a_bf16_image`) and kept per plan
+  (:func:`bf16_images`).  K1F / K2F spread a row over 8 blocks with its
+  tables on chip by bulk copies; launch shape from
+  :func:`whole_bf16_geometry` and :func:`whole_bf16_split`.  K3F / K3LF run
+  the ``wgmma`` kernel of ``csrc/dot_bf16.cuh`` (S3's and S2F's): F1
+  resident in shared memory, persistent blocks over the column tiles of all
+  B signals; launch shape from :func:`stage_a_bf16_geometry`.
 
 :func:`lm_geometry` gives the launch shape of the same whole kernel at
 n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
@@ -59,17 +63,24 @@ from .fused_torch import _stage_a_twiddle, stage_a_torch
 __all__ = [
     "COUNTS",
     "DEFAULT_SMS",
+    "SMEM_MAX",
     "bf16_images",
     "frag_image",
     "lm_geometry",
+    "pair_stacking",
     "reset_counts",
     "sm_count",
     "stage_a",
     "stage_a_bf16",
+    "stage_a_bf16_geometry",
+    "stage_a_bf16_image",
+    "stage_a_bf16_launch",
+    "stage_a_bf16_launch_shapes",
     "stage_a_bf16_plain",
     "stage_a_geometry",
     "stage_a_launch_shape",
     "stage_a_plain",
+    "swizzled_image",
     "whole_geometry",
     "whole_slices",
     "whole_transform",
@@ -618,6 +629,52 @@ def frag_image(*mats: torch.Tensor) -> torch.Tensor:
     return tiles.permute(0, 1, 4, 3, 6, 5, 2, 7).reshape(len(mats), mp // 16, kp // 16, 32, 8).contiguous()
 
 
+def swizzled_image(parts: torch.Tensor) -> torch.Tensor:
+    """The bf16 ``wgmma`` kernel's shared-memory image of the stacked parts
+    (P, M, n1) (``csrc/dot_bf16.cuh``): (ceil(M / 64), P, ceil(n1 / 64), 64,
+    64), per 64 rows g, part p and 64-deep chunk c the rows r as ``wgmma``'s
+    K-major 128-byte swizzle lays them out: the 16-byte word j (depths 8 j ..
+    8 j + 7) of row r stored at word j ^ (r % 8), rows past M and depths
+    past n1 zero.  A block's parts of one row group are then one run of
+    bytes, copied as it is."""
+    n_parts, m, n1 = parts.shape
+    groups, chunks = -(-m // 64), -(-n1 // 64)
+    padded = parts.new_zeros(n_parts, groups * 64, chunks * 64)
+    padded[:, :m, :n1] = parts
+    t = padded.reshape(n_parts, groups, 64, chunks, 8, 8)  # p, g, r, c, word, depth
+    r = torch.arange(64, device=parts.device).reshape(64, 1)
+    word = torch.arange(8, device=parts.device).reshape(1, 8)
+    idx = (word ^ (r % 8)).reshape(1, 1, 64, 1, 8, 1).expand_as(t)
+    img = torch.gather(t, 4, idx).permute(1, 0, 3, 2, 4, 5)
+    return img.reshape(groups, n_parts, chunks, 64, 64).contiguous()
+
+
+_PAIR = 32  # output rows of a real-input group: 64 stacked rows, Fr's then Fi's
+
+
+def pair_stacking(fr: torch.Tensor, fi: torch.Tensor) -> torch.Tensor:
+    """S2's stacking of an (n1, n1) pair, as S2F, K3F and K3LF read it on
+    real input: for every 32 output rows k1 (the last run zero-padded to 32),
+    their Fr rows then their Fi rows as one 64-row group, so that rows 32
+    apart are Re and Im of one output row.  (64 ceil(n1 / 32), n1)."""
+    (n1, k), groups = fr.shape, -(-fr.shape[0] // _PAIR)
+    runs = [torch.nn.functional.pad(f, (0, 0, 0, groups * _PAIR - n1)).reshape(groups, _PAIR, k) for f in (fr, fi)]
+    return torch.stack(runs, dim=1).reshape(2 * groups * _PAIR, k)
+
+
+def stage_a_bf16_image(plan: dict) -> torch.Tensor:
+    """K3F's and K3LF's bf16 image of F1 (``csrc/stage_a_bf16.cu``): the
+    :func:`swizzled_image` runs, (ceil(n1 / 32) + 3 ceil(n1 / 64),
+    ceil(n1 / 64), 64, 64), of real input's :func:`pair_stacking` of (Fr,
+    Fi), one part a group, then of the Karatsuba parts (Fr, Fd, Fs) of every
+    64 rows, three parts a group.  One image serves every ``rows`` cut: a
+    launch reads the first ceil(rows / 32) (ceil(rows / 64)) groups."""
+    fr, fi, fs, fd = (plan[k].to(torch.bfloat16) for k in _STAGE_A_BF16_F1)
+    real = swizzled_image(pair_stacking(fr, fi)[None])
+    kara = swizzled_image(torch.stack([fr, fd, fs]))
+    return torch.cat([real.flatten(0, 1), kara.flatten(0, 1)])
+
+
 #: The bf16 images of each plan, keyed by (the identity of) one of the
 #: plan's own table tensors, so they live as long as the plan does.
 _IMAGES = WeakIdKeyDictionary()
@@ -628,8 +685,9 @@ def bf16_images(plan: dict) -> tuple:
     plan's device from its fp32 tables (the same f64 formulas, rounded to
     bf16 to nearest even, as a DEFAULT dot rounds them): a whole plan gives
     F1's and F2's :func:`frag_image` (slots r, i, s, d), a packed plan the
-    same for r, i, a stage-A plan F1's.  An image made while ``torch.export``
-    traces (a fake tensor) is not kept."""
+    same for r, i, a stage-A plan (factored or legacy) its
+    :func:`stage_a_bf16_image`.  An image made while ``torch.export`` traces
+    (a fake tensor) is not kept."""
     key = plan["packed"] if "packed" in plan else plan["f1r"]
     images = _IMAGES.get(key)
     if images is None:
@@ -640,7 +698,7 @@ def bf16_images(plan: dict) -> tuple:
             images = (frag_image(*(plan[k] for k in _WHOLE_BF16_F1)),
                       frag_image(*(plan[k] for k in _WHOLE_BF16_F2)))
         else:
-            images = (frag_image(*(plan[k] for k in _WHOLE_BF16_F1)),)
+            images = (stage_a_bf16_image(plan),)
         if all(type(t) is torch.Tensor for t in images):
             _IMAGES[key] = images
     return images
@@ -688,6 +746,11 @@ _BF16_B1_CLUSTER = {8: 8, 16: 8, 32: 8, 64: 8, 128: 8}
 _BF16_FORMS = {"real2": (2, 1), "kara3": (3, 3), "four4": (2, 2)}
 _BF16_MAX_THREADS = 512
 _SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory, bytes
+#: Dynamic shared memory the ``wgmma`` stage-A kernel (``csrc/dot_bf16.cuh``:
+#: S3, S2F, K3F, K3LF) may opt into on an H100: a block's 232,448 bytes less
+#: its two static 8-byte barriers.  Every block size it takes is a multiple
+#: of 1,024, so none lies between this and 232,448.
+SMEM_MAX = _SMEM_LIMIT - 16
 
 
 def _bf16_forms(complex_: bool, packed: bool) -> tuple[str, str]:
@@ -875,6 +938,108 @@ def stage_a_bf16_plain(xr, xi, n1, n2, tables, col_tile, col_tiles=None, rows=No
     return _stage_a_bf16_sliced(xr, xi, tables, r, ncols, col_tile)
 
 
+#: K3F / K3LF's product forms (``csrc/dot_bf16.cuh``) by complex input:
+#: (output rows a 64-row group, F parts a group, bf16 operands of x, staged
+#: planes a group); real input X1 on S2's pair stacking, complex Kara3 (its
+#: tile's columns split over two warpgroups a group).
+_STAGE_A_BF16_FORMS = {False: (32, 1, 1, 1), True: (64, 3, 3, 2)}
+#: The groups a block (``wgs``) that ``csrc/stage_a_bf16.cu`` instantiates.
+_STAGE_A_BF16_WGS = {False: (1, 2, 3, 4), True: (1, 2)}
+_BN = 64  # x columns of a wgmma tile
+
+
+def _stage_a_bf16_shape(b: int, n1: int, n2: int, rows: int, ncols: int) -> None:
+    """K3F / K3LF's limits (``csrc/stage_a_bf16.cu:refused``); ValueError
+    for any other shape."""
+    if b < 1 or n1 % 16 or not 16 <= n1 <= 512 or rows % 8 or not 8 <= rows <= n1 or n2 % 2 or ncols % 32 \
+            or not 32 <= ncols <= n2:
+        raise ValueError(f"stage_a_bf16 kernel needs B >= 1, n1 a multiple of 16 in [16, 512], rows a multiple of "
+                         f"8 in [8, n1], n2 even and the kept columns a multiple of 32 (B={b}, n1={n1}, n2={n2}, "
+                         f"rows={rows}, columns={ncols})")
+
+
+def stage_a_bf16_streamed(n1: int, wgs: int, complex_: bool) -> bool:
+    """Whether K3F / K3LF stream F's parts through two chunk buffers: where
+    ``wgs`` groups' parts at every depth do not fit a block (complex input
+    at n1 > 320), as ``csrc/stage_a_bf16.cu`` decides."""
+    return stage_a_bf16_smem_bytes(n1, wgs, complex_, False) > SMEM_MAX
+
+
+def stage_a_bf16_smem_bytes(n1: int, wgs: int, complex_: bool, streamed: bool | None = None) -> int:
+    """Dynamic shared memory of a K3F / K3LF block of ``wgs`` groups
+    (``csrc/dot_bf16.cuh:dot_smem_bytes``): the F parts of its groups, every
+    64-deep chunk (two when streamed; None: as the kernel decides), two x
+    chunk buffers of every operand (64 deep, 64 columns), the staging tile
+    (64 rows of 72 floats a plane and group) and 1,024 bytes of
+    alignment slack."""
+    _, parts, ops, planes = _STAGE_A_BF16_FORMS[complex_]
+    if streamed is None:
+        streamed = stage_a_bf16_streamed(n1, wgs, complex_)
+    chunks = 2 if streamed else -(-n1 // 64)
+    return parts * chunks * 64 * wgs * 128 + 2 * ops * _BN * 128 + 64 * planes * wgs * (_BN + 8) * 4 + 1024
+
+
+def stage_a_bf16_groups(rows: int, complex_: bool) -> int:
+    """The 64-row groups of F1's image a launch reads for the first ``rows``
+    output rows: ceil(rows / 32) on real input, ceil(rows / 64) on complex."""
+    return -(-rows // _STAGE_A_BF16_FORMS[complex_][0])
+
+
+def stage_a_bf16_launch_shapes(b: int, n1: int, n2: int, rows: int, ncols: int, complex_: bool,
+                               sms: int = DEFAULT_SMS) -> list[tuple[int, int, int]]:
+    """Every launch shape (wgs, row_blocks, grid) K3F / K3LF take for a
+    (``b``, n1, n2) view, the first ``rows`` rows and ``ncols`` columns, on a
+    card of ``sms`` SMs, the launch rule's pick first.  A block holds ``wgs``
+    groups (:func:`stage_a_bf16_groups`), one warpgroup each (two on complex
+    input), within :data:`SMEM_MAX` (resident where any block size fits,
+    else streamed);
+    ``row_blocks`` = ceil(groups / wgs), fewest first, each with the least
+    ``wgs`` that gives that count (so the row blocks hold equal shares);
+    ``grid`` = row_blocks x min(column tiles of all B signals, one and then
+    two blocks an SM per row block).  Raises ValueError for a shape the
+    kernel does not take."""
+    _stage_a_bf16_shape(b, n1, n2, rows, ncols)
+    groups = stage_a_bf16_groups(rows, complex_)
+    tiles = b * -(-ncols // _BN)
+    options = _STAGE_A_BF16_WGS[complex_]
+    fits = [w for w in options if stage_a_bf16_smem_bytes(n1, w, complex_, False) <= SMEM_MAX]
+    if not fits:
+        fits = [w for w in options if stage_a_bf16_smem_bytes(n1, w, complex_, True) <= SMEM_MAX]
+    shapes = []
+    for row_blocks in sorted({-(-groups // w) for w in fits}):
+        wgs = -(-groups // row_blocks)
+        shapes += [(wgs, row_blocks, row_blocks * min(tiles, max(1, f * sms // row_blocks))) for f in (1, 2)]
+    return list(dict.fromkeys(shapes))
+
+
+@functools.lru_cache(maxsize=None)
+def stage_a_bf16_geometry(b: int, n1: int, n2: int, rows: int, ncols: int, complex_: bool,
+                          sms: int = DEFAULT_SMS) -> tuple[int, int, int]:
+    """K3F / K3LF's launch shape (wgs, row_blocks, grid): the first of
+    :func:`stage_a_bf16_launch_shapes`, the fewest row blocks (one at every
+    shape the main path gives with n1 <= 128, so x is read once) on one
+    block an SM.  Kept per argument tuple: a call costs a lookup."""
+    return stage_a_bf16_launch_shapes(b, n1, n2, rows, ncols, complex_, sms)[0]
+
+
+def stage_a_bf16_cover(b: int, n1: int, n2: int, rows: int, ncols: int, complex_: bool,
+                       geometry: tuple[int, int, int]) -> list[tuple[int, range, list[tuple[int, int]]]]:
+    """What each block of a K3F / K3LF launch owns (``csrc/dot_bf16.cuh``'s
+    walk): for block i, its output rows k1 < ``rows`` (its row block's
+    groups) and its (b, first column) tiles, from ``geometry`` (wgs,
+    row_blocks, grid)."""
+    wgs, row_blocks, grid = geometry
+    gr = _STAGE_A_BF16_FORMS[complex_][0]
+    per_rb, col_tiles = grid // row_blocks, -(-ncols // _BN)
+    out = []
+    for i in range(grid):
+        rb, first = divmod(i, per_rb)
+        k1 = range(rb * wgs * gr, min(rows, (rb + 1) * wgs * gr))
+        tiles = [divmod(t, col_tiles) for t in range(first, b * col_tiles, per_rb)]
+        out.append((i, k1, [(tb, tc * _BN) for tb, tc in tiles]))
+    return out
+
+
 def stage_a_bf16(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, rows=None):
     """K3F / K3LF: :func:`stage_a` as the JAX body computes it under "fast"
     (real input Fr x and Fi x, complex the Karatsuba three, x rounded to
@@ -882,19 +1047,20 @@ def stage_a_bf16(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None
     ``tables``: :func:`plan.get_stage_a_plan` (factored twiddle, K3F) or a
     legacy plan with the F1 group and a materialized (n1, n2) ``twr``/``twi``
     pair (K3LF, counted as ``stage_a_legacy_bf16``); same arguments and
-    result as :func:`stage_a`.  Off the CPU it needs n1 a multiple of 16 up
-    to 512, the kept columns a multiple of 32 and n2 and a factored ct even;
-    another shape raises ValueError before the device is looked at."""
+    result as :func:`stage_a`.  Off the CPU it needs B >= 1, n1 a multiple of
+    16 up to 512, the kept columns a multiple of 32 and n2 and a factored ct
+    even; another shape raises ValueError before the device is looked at.
+    The launch shape comes from :func:`stage_a_bf16_geometry`, F1's image
+    from :func:`bf16_images` (built once per plan)."""
     _f1_group("stage_a_bf16", tables)
     r, ncols = _stage_a_extent(n1, n2, tables, col_tile, col_tiles, rows)
     names = _TWIDDLE_FACTORS if "two_r" in tables else _TWIDDLE_TABLE
     if xr.device.type == "cpu":
         return _OPS.stage_a_bf16(xr, xi, [tables[k] for k in (*_STAGE_A_BF16_F1, *names)], n1, n2, col_tile, r,
                                  ncols)
-    if n1 % 16 or not 16 <= n1 <= 512 or ncols % 32 or n2 % 2 or ("two_r" in tables and col_tile % 2):
-        raise ValueError(f"stage_a_bf16 kernel needs n1 a multiple of 16 in [16, 512], the kept columns a "
-                         f"multiple of 32, n2 and a factored ct even (n1={n1}, n2={n2}, columns={ncols}, "
-                         f"ct={col_tile})")
+    _stage_a_bf16_shape(xr.shape[0], n1, n2, r, ncols)
+    if "two_r" in tables and col_tile % 2:
+        raise ValueError(f"stage_a_bf16 kernel needs a factored ct even (ct={col_tile})")
     _on_cpu(xr, "stage_a_bf16")  # raises for any device but CUDA
     (img,) = bf16_images(tables)
     return _OPS.stage_a_bf16(xr, xi, [img, *(tables[k] for k in names)], n1, n2, col_tile, r, ncols)
@@ -909,9 +1075,17 @@ def _stage_a_bf16_cpu(xr, xi, tables, n1, n2, col_tile, rows, ncols):
     return _stage_a_bf16_sliced(xr, xi, t, rows, ncols, col_tile)
 
 
-def _stage_a_bf16_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
-    """The operator's CUDA kernel: [img, two_r, two_i, twi_r, twi_i] launches
-    K3F, [img, twr, twi] K3LF."""
+def stage_a_bf16_image_shape(n1: int) -> tuple[int, int, int, int]:
+    """The shape of :func:`stage_a_bf16_image` for n1."""
+    chunks = -(-n1 // 64)
+    return -(-n1 // _PAIR) + 3 * chunks, chunks, 64, 64
+
+
+def stage_a_bf16_launch(xr, xi, tables: list, n1: int, n2: int, col_tile: int, rows: int, ncols: int,
+                        geometry: tuple[int, int, int]):
+    """Launch K3F ([img, two_r, two_i, twi_r, twi_i]) or K3LF ([img, twr,
+    twi]) on CUDA tensors with ``geometry``, one of
+    :func:`stage_a_bf16_launch_shapes` (a sweep times each)."""
     img, *tw = tables
     factored = len(tw) == 4
     b = xr.shape[0]
@@ -922,18 +1096,26 @@ def _stage_a_bf16_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
         shapes = dict(twr=(n1, n2), twi=(n1, n2))
     _check("stage_a_bf16", xr.device, {"xr": xr, "xi": xi, **dict(zip(shapes, tw))},
            {"xr": (b, n1, n2), "xi": (b, n1, n2), **shapes})
-    _check("stage_a_bf16", xr.device, {"img": img}, {"img": (4, n1 // 16, n1 // 16, 32, 8)}, dtype=torch.bfloat16)
+    _check("stage_a_bf16", xr.device, {"img": img}, {"img": stage_a_bf16_image_shape(n1)}, dtype=torch.bfloat16)
+    wgs, _, grid = geometry
     yr = torch.empty((b, rows, ncols), dtype=torch.float32, device=xr.device)
     yi = torch.empty_like(yr)
     lib = _build.library()
     ptrs = (_ptr(xr), _ptr(xi), _ptr(img), *(_ptr(t) for t in tw), _ptr(yr), _ptr(yi))
     if factored:
-        err = lib.gft_stage_a_bf16(*ptrs, b, n1, n2, col_tile, rows, ncols, _stream(xr.device))
+        err = lib.gft_stage_a_bf16(*ptrs, b, n1, n2, col_tile, rows, ncols, wgs, grid, _stream(xr.device))
     else:
-        err = lib.gft_stage_a_bf16_full(*ptrs, b, n1, n2, rows, ncols, _stream(xr.device))
+        err = lib.gft_stage_a_bf16_full(*ptrs, b, n1, n2, rows, ncols, wgs, grid, _stream(xr.device))
     _build.check(err, "stage_a_bf16")
     COUNTS["stage_a_bf16" if factored else "stage_a_legacy_bf16"].launches += 1
     return yr, yi
+
+
+def _stage_a_bf16_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
+    """The operator's CUDA kernel: [img, two_r, two_i, twi_r, twi_i] launches
+    K3F, [img, twr, twi] K3LF, on :func:`stage_a_bf16_geometry`'s shape."""
+    geometry = stage_a_bf16_geometry(xr.shape[0], n1, n2, rows, ncols, xi is not None, sm_count(xr.device))
+    return stage_a_bf16_launch(xr, xi, tables, n1, n2, col_tile, rows, ncols, geometry)
 
 
 # ── The operators ────────────────────────────────────────────────────────────

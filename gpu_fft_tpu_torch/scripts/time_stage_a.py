@@ -4,9 +4,13 @@ for comparing two checkouts of the port on one card.
     python gpu_fft_tpu_torch/scripts/time_stage_a.py --tree DIR --label NAME [--legacy] [--sweep]
 
 imports ``gpu_fft_tpu_torch`` from the checkout at DIR (built there on first
-use), times K3 on the factored plan that ``transform_any`` uses at 2^20 and
-2^22 (real input, the real path's rows; complex input, all rows) and appends
-one JSON line to ``chiprun_out/time_stage_a.jsonl``.  The time is the
+use), times K3 on the factored plan that ``transform_any`` uses at 2^20,
+2^22 and 2^24 (n1 = 256) (real input, the real path's rows; complex input,
+all rows), on the irfft fold's column tiles at 2^20 and 2^22 (complex
+input, sign +1, the first ceil((n2/2 + 1) / ct)) and at B = 512 x 2^17 (the
+2-D panel's rows, real and complex), each back to back and with L2 flushed
+before every call (the key's suffix ``L2 flushed``), and appends one JSON
+line to ``chiprun_out/time_stage_a.jsonl``.  The time is the
 profiler's device time of the stage-A kernel, median of 5 profiles of 50
 calls each (a profile that records no kernel is taken again and counted
 under ``empty_profiles``); before it, one launch is checked against the
@@ -31,10 +35,18 @@ n1 = 256.  It runs on a checkout from before S2's stacked table too
 ``--sweep`` (a checkout whose K3 is the radix kernel, with the geometry
 arguments) also times it at every column-tile width W in {16, 32, 64, 128}
 that fits 1,024 threads (n1 W / 8), each launch checked against the plain
-version, beside the width ``stage_a_geometry`` picks; with ``--legacy`` (a
-checkout with ``manual_launch_shapes``) also S2 at every column tile
-``manual_geometry`` considers, the shipped one marked.  The rows go into
+version, beside the width ``stage_a_geometry`` picks; under "fast" (a
+checkout with ``stage_a_bf16_launch_shapes``) K3F at every launch shape of
+its rule at 2^20, 2^22 and 2^24, the rule's pick marked; with ``--legacy``
+(a checkout with ``manual_launch_shapes``) also S2 at every column tile
+``manual_geometry`` considers, the shipped one marked (not under "fast",
+where the plain version it is held to takes bf16 operands).  The rows go into
 the same JSON line under ``sweep``.
+
+To A/B two versions of a kernel, unpack the parent commit with ``git
+archive`` into a directory that ``.gitignore`` lists and run this script
+from the working tree on each checkout in turns (A B B A) in one call, e.g.
+``GPU_FFT_TPU_PRECISION=fast`` for K3F / K3LF (``--legacy``) and S2F.
 
 ``time_dot.py`` beside it times S3 with the same helpers.
 """
@@ -52,6 +64,10 @@ from pathlib import Path
 #: A "fast" kernel against its plain version, relative to max|plain|: both
 #: round the same operands to bf16 and sum in fp32 in other orders.
 FAST_TOL = 1e-3
+
+#: The (B, n) of the factored-plan rows: the staged sizes (2^24 is n1 = 256)
+#: and the 2-D panel's rows.
+MAIN_CASES = ((1, 1 << 20), (1, 1 << 22), (1, 1 << 24), (512, 1 << 17))
 
 #: Profiles that recorded no matching kernel since the script started.  The
 #: profiler on an H100 now and then records no kernel at all, several times
@@ -178,6 +194,37 @@ def sweep_widths(lib, K, plan, xr, xi, rows: int) -> list[dict]:
     return out
 
 
+def sweep_bf16(K, plan, xr, xi, rows: int) -> list[dict]:
+    """K3F at every launch shape of its rule (``stage_a_bf16_launch_shapes``),
+    each launch checked against the plain version."""
+    n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+    (img,) = K.bf16_images(plan)
+    tables = [img, *(plan[k] for k in ("two_r", "two_i", "twi_r", "twi_i"))]
+    shapes = K.stage_a_bf16_launch_shapes(1, n1, n2, rows, n2, xi is not None, K.sm_count(xr.device))
+    want = lambda: K.stage_a_bf16_plain(xr, xi, n1, n2, plan, ct, rows=rows)  # noqa: E731
+    out = []
+    for geometry in shapes:
+        ms, err = checked_ms(lambda g=geometry: K.stage_a_bf16_launch(xr, xi, tables, n1, n2, ct, rows, n2, g),
+                             want, "stage_a")
+        row = {"kernel": "stage_a_bf16", "n": n1 * n2, "kind": "real" if xi is None else "complex", "rows": rows,
+               "geometry": geometry, "shipped": geometry == shapes[0], "max_abs_err": err, "ms": ms}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return out
+
+
+def time_row(rec: dict, key: str, fn, plain, flush) -> None:
+    """``fn`` into ``rec`` under ``key``, back to back and, under ``key + " L2
+    flushed"``, with ``flush`` before every call."""
+    def cold():
+        flush()
+        return fn()
+
+    for k, f in ((key, fn), (f"{key} L2 flushed", cold)):
+        rec["ms"][k], rec["max_abs_err"][k] = checked_ms(f, plain, "stage_a")
+        print(k, rec["ms"][k], flush=True)
+
+
 def s2_setup(A, plan: dict, n1: int) -> tuple[dict, list]:
     """S2's plan and column tiles on the checkout ``A`` comes from.  One from
     before S2's stacked table has neither ``manual_tables`` (its S2 takes
@@ -236,7 +283,7 @@ def time_legacy(rec: dict, sweep: bool, dev, gen) -> None:
             lambda: A.stage_a_manual(x, plan), lambda: manual_plain(x, plan))
         print(key, rec["ms"][key], flush=True)
         want = A.stage_a_manual_plain(x, plan)
-        for i, bn in enumerate(tiles if sweep else ()):
+        for i, bn in enumerate(tiles if sweep and not fast else ()):  # S2's tiles; S2F has none
             ms, err = checked_ms(lambda bn=bn: A.manual_launch(x, plan, bn), lambda: want)
             row = {"kernel": "stage_a_manual", "n": 1 << 20, "n1": n1, "bn": bn,
                    "shipped": i == 0, "max_abs_err": err, "ms": ms}
@@ -268,18 +315,30 @@ def main() -> None:
     rec = {"label": args.label, "tree": args.tree, "card": card_line(), "module": K.__file__,
            "mode": getattr(config, "PRECISION", "full"), "ms": {}, "max_abs_err": {}, "sweep": []}
     stage_a_plain = K.stage_a_bf16_plain if fast_mode() else K.stage_a_plain
-    for n in (1 << 20, 1 << 22):
+    flush = l2_flush(dev)
+    sweep_fast = args.sweep and fast_mode() and hasattr(K, "stage_a_bf16_launch_shapes")
+    for b, n in MAIN_CASES:
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
         rows = P.stage_a_real_rows(n1)
-        xr = torch.randn(1, n1, n2, generator=gen, device=dev)
-        xi = torch.randn(1, n1, n2, generator=gen, device=dev)
-        for key, xi_, r in ((f"n={n} real rows={rows}", None, rows), (f"n={n} complex", xi, None)):
-            rec["ms"][key], rec["max_abs_err"][key] = checked_ms(
-                lambda: K.stage_a(xr, xi_, n1, n2, plan, ct, rows=r),
-                lambda: stage_a_plain(xr, xi_, n1, n2, plan, ct, rows=r), "stage_a")
-        for xi_, r in ((None, rows), (xi, n1)) if args.sweep else ():
-            rec["sweep"] += sweep_widths(_build.library(), K, plan, xr, xi_, r)
+        xr = torch.randn(b, n1, n2, generator=gen, device=dev)
+        xi = torch.randn(b, n1, n2, generator=gen, device=dev)
+        at = f"n={n}" if b == 1 else f"B={b} n={n}"
+        cases = [(f"{at} real rows={rows}", plan, None, None, rows), (f"{at} complex", plan, xi, None, None)]
+        if b == 1 and n < 1 << 24:
+            fold = P.on_device(P.get_stage_a_plan, n, 1, None, device=dev)
+            tiles = -(-(n2 // 2 + 1) // fold["ct"])
+            cases.append((f"{at} irfft col_tiles={tiles}/{n2 // fold['ct']} ct={fold['ct']}", fold, xi, tiles, None))
+        for key, p, xi_, tiles, r in cases:
+            time_row(rec, key, lambda p=p, xi_=xi_, tiles=tiles, r=r: K.stage_a(xr, xi_, n1, n2, p, p["ct"], tiles, r),
+                     lambda p=p, xi_=xi_, tiles=tiles, r=r: stage_a_plain(xr, xi_, n1, n2, p, p["ct"], tiles, r),
+                     flush)
+        if b == 1:
+            for xi_, r in ((None, rows), (xi, n1)) if args.sweep and not fast_mode() and n < 1 << 24 else ():
+                rec["sweep"] += sweep_widths(_build.library(), K, plan, xr, xi_, r)
+            for xi_, r in ((None, rows), (xi, n1)) if sweep_fast else ():
+                rec["sweep"] += sweep_bf16(K, plan, xr, xi_, r)
+        del xr, xi
     if args.legacy:
         time_legacy(rec, args.sweep, dev, gen)
     append_record("time_stage_a.jsonl", rec)

@@ -20,7 +20,10 @@ wrappers take a keyword ``device`` after scipy's arguments.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
 
 from ..ops.czt import czt as _czt_split, zoom_fft as _zoom_split
 from ..ops.dsp import fft_convolve as fftconvolve, fft_correlate, hilbert as _hilbert_split, resample
@@ -192,6 +195,35 @@ def _pack(re, im):
     return np.asarray(re) + 1j * np.asarray(im)
 
 
+def _complex_arg(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.is_complex()
+    return isinstance(v, (np.ndarray, list, tuple)) and np.iscomplexobj(v)
+
+
+def _real_only(name: str, fn):
+    """``fn`` (``signal.<name>``) raising TypeError for a complex numpy array or tensor among its
+    arguments, before any work: the port computes these on real signals
+    (float32) and would otherwise drop the imaginary part with no more than
+    numpy's ComplexWarning.  A recorded divergence: the JAX package returns
+    the real part's answer (ROADMAP.md, section 3)."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if any(_complex_arg(v) for v in (*args, *kwargs.values())):
+            raise TypeError(f"signal.{name}: complex input is not supported; the port computes it on real "
+                            f"signals only")
+        return fn(*args, **kwargs)
+
+    return wrapper
+
+
+#: The functions that take a real signal and lost a complex one's imaginary
+#: part; each raises TypeError for complex input now.
+_REAL_ONLY = ("lfilter", "sosfilt", "filtfilt", "fftconvolve", "oaconvolve", "correlate", "upfirdn", "resample",
+             "resample_poly", "decimate", "welch", "csd", "periodogram", "spectrogram", "stft")
+
+
 def convolve(in1, in2, mode: str = "full", method: str = "auto", device=None):
     """``scipy.signal.convolve`` with the FFT method (the only one here —
     this is an FFT library); ``method`` must be 'auto' or 'fft'."""
@@ -293,3 +325,8 @@ def get_window(window, Nx: int, fftbins: bool = True):
     """``scipy.signal.get_window``: every scipy window family, symmetric or
     periodic form, in f64 (see :mod:`gpu_fft_tpu_torch.signal.windows`)."""
     return windows.get_window(window, Nx, fftbins=fftbins)
+
+
+for _name in _REAL_ONLY:
+    globals()[_name] = _real_only(_name, globals()[_name])
+del _name

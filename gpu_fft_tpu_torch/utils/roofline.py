@@ -107,7 +107,6 @@ OWN_KERNELS = (
     "copy_min_kernel",
     "dense_f32_kernel",
     "operand_probe_kernel",
-    "stage_a_bf16_kernel",
     "stage_a_dot_wgmma_kernel",
     "stage_a_radix_kernel",
     "whole_bf16_kernel",

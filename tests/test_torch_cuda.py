@@ -829,16 +829,24 @@ def test_whole_bf16_kernel(dev, name, n, b, complex_, signal):
     _close_fast(got, getattr(K, name + "_plain")(xr, xi, plan))
 
 
-@pytest.mark.parametrize("n,ct", [(1 << 17, 512), (1 << 18, 2048), (1 << 20, 2048), (1 << 20, 512),
+def _signals(signal, b, n1, n2, g, dev):
+    return torch.stack([_signal(signal, n1, n2, g, dev) for _ in range(b)])
+
+
+@pytest.mark.parametrize("n,ct", [(1 << 17, 512), (1 << 17, 32), (1 << 18, 2048), (1 << 20, 2048), (1 << 20, 512),
                                   (1 << 22, 2048), (1 << 24, 2048)])
 @pytest.mark.parametrize("kind", ["real_rows", "complex", "complex_col_tiles"])
 @pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
-def test_stage_a_bf16_kernel(dev, n, ct, kind, signal):
+@pytest.mark.parametrize("b", [1, 3])
+def test_stage_a_bf16_kernel(dev, n, ct, kind, signal, b):
+    """K3F at B = 1 and 3; ct = 32 keeps 17 column tiles on the irfft fold's
+    form (an odd multiple of 32 columns, half a 64-column tile masked);
+    2^24 is n1 = 256 (real rows = 136, two row blocks; complex, four)."""
     plan = P.on_device(P.get_stage_a_plan, n, -1 if kind == "real_rows" else 1, ct, device=dev)
     n1, n2 = plan["n1"], plan["n2"]
     g = torch.Generator(device=dev).manual_seed(n + ct)
-    xr = _signal(signal, n1, n2, g, dev)[None]
-    xi = None if kind == "real_rows" else _signal(signal, n1, n2, g, dev)[None]
+    xr = _signals(signal, b, n1, n2, g, dev)
+    xi = None if kind == "real_rows" else _signals(signal, b, n1, n2, g, dev)
     kw = dict(rows=P.stage_a_real_rows(n1) if kind == "real_rows" else None,
               col_tiles=-(-(n2 // 2 + 1) // ct) if kind == "complex_col_tiles" else None)
     K.reset_counts()
@@ -847,25 +855,55 @@ def test_stage_a_bf16_kernel(dev, n, ct, kind, signal):
     _close_fast(got, K.stage_a_bf16_plain(xr, xi, n1, n2, plan, ct, **kw))
 
 
+@pytest.mark.parametrize("kind", ["real_rows", "complex", "complex_col_tiles"])
+@pytest.mark.parametrize("layout", ["factored", "legacy"])
+def test_stage_a_bf16_every_launch_shape(dev, kind, layout):
+    """K3F and K3LF at (1, 2^20) at every launch shape their rule considers
+    (``stage_a_bf16_launch_shapes``, the rule's pick first), each within
+    1e-3 of the plain version."""
+    n, sign = 1 << 20, -1 if kind == "real_rows" else 1
+    plan = (P.on_device(P.get_stage_a_plan, n, sign, None, device=dev) if layout == "factored"
+            else P.on_device(legacy_plan, n, 128, sign, device=dev))
+    n1, n2 = plan["n1"], plan["n2"]
+    ct = plan.get("ct", P.stage_a_col_tile(n1, n2))
+    g = torch.Generator(device=dev).manual_seed(7)
+    xr = torch.randn(1, n1, n2, generator=g, device=dev)
+    xi = None if kind == "real_rows" else torch.randn(1, n1, n2, generator=g, device=dev)
+    tiles = -(-(n2 // 2 + 1) // ct) if kind == "complex_col_tiles" else None
+    rows = P.stage_a_real_rows(n1) if kind == "real_rows" else None
+    r, ncols = K._stage_a_extent(n1, n2, plan, ct, tiles, rows)
+    (img,) = K.bf16_images(plan)
+    tables = [img, *(plan[k] for k in (K._TWIDDLE_FACTORS if layout == "factored" else K._TWIDDLE_TABLE))]
+    want = K.stage_a_bf16_plain(xr, xi, n1, n2, plan, ct, tiles, rows)
+    shapes = K.stage_a_bf16_launch_shapes(1, n1, n2, r, ncols, xi is not None, K.sm_count(dev))
+    assert len(shapes) >= 2
+    for geometry in shapes:
+        _close_fast(K.stage_a_bf16_launch(xr, xi, tables, n1, n2, ct, r, ncols, geometry), want)
+
+
 LEGACY_CASES = [(1 << 17, 16, False, None, None), (1 << 17, 16, True, None, 16),
                 (1 << 17, 128, False, None, 72), (1 << 17, 128, True, 1, None),
                 (1 << 20, 128, False, None, None), (1 << 20, 256, True, 2, 136),
-                (1 << 22, 128, False, None, 72), (1 << 22, 512, True, None, None)]
+                (1 << 22, 128, False, None, 72), (1 << 22, 512, True, None, None),
+                (1 << 20, 256, False, None, 136), (1 << 20, 256, True, None, None), (48 * 4096, 48, True, None, 40)]
 
 
 @pytest.mark.parametrize("n,n1,complex_,tiles,rows", LEGACY_CASES)
 @pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
-def test_stage_a_legacy_bf16_kernel(dev, n, n1, complex_, tiles, rows, signal, monkeypatch):
+@pytest.mark.parametrize("b", [1, 3])
+def test_stage_a_legacy_bf16_kernel(dev, n, n1, complex_, tiles, rows, signal, b, monkeypatch):
     """K3LF: ``stage_a`` on a legacy plan under "fast" launches it (and no
-    other kernel), within 1e-3 of its plain version."""
+    other kernel), within 1e-3 of its plain version; B = 1 and 3, n1 = 256
+    real (rows = 136) and complex, n1 = 512 complex (F streamed), n1 = 48
+    (the last real group half padding)."""
     from gpu_fft_tpu_torch import config
 
     plan = P.on_device(legacy_plan, n, n1, 1 if complex_ else -1, device=dev)
     n2 = plan["n2"]
     ct = P.stage_a_col_tile(n1, n2)
     g = torch.Generator(device=dev).manual_seed(n1)
-    xr = _signal(signal, n1, n2, g, dev)[None]
-    xi = _signal(signal, n1, n2, g, dev)[None] if complex_ else None
+    xr = _signals(signal, b, n1, n2, g, dev)
+    xi = _signals(signal, b, n1, n2, g, dev) if complex_ else None
     monkeypatch.setattr(config, "PRECISION", "fast")
     K.reset_counts()
     got = K.stage_a(xr, xi, n1, n2, plan, ct, col_tiles=tiles, rows=rows)

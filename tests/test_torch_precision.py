@@ -425,14 +425,14 @@ def test_bf16_images_are_built_once_per_plan():
     assert torch.equal(K.frag_image(whole["f1s"])[0], one[2])
     p1, p2 = K.bf16_images(packed)
     assert p1.shape == (2, 1, 1, 32, 8) and p2.shape == (2, 8, 8, 32, 8)
-    (s1,) = K.bf16_images(staged)
-    assert s1.shape == (4, 8, 8, 32, 8)
+    (s1,) = K.bf16_images(staged)  # K3F's image: 4 real-input groups of 32 rows, 2 Karatsuba groups of 3 parts
+    assert s1.shape == K.stage_a_bf16_image_shape(128) == (10, 2, 64, 64)
     from gpu_fft_tpu_torch.scripts.ablate_large import make_plan
 
     legacy = tplan.on_device(make_plan, 1 << 17, 64, -1, device="cpu")
     (l1,) = K.bf16_images(legacy)
-    assert K.bf16_images(legacy)[0] is l1 and l1.shape == (4, 4, 4, 32, 8)
-    assert torch.equal(K.frag_image(legacy["f1d"])[0], l1[3])
+    assert K.bf16_images(legacy)[0] is l1 and l1.shape == (5, 1, 64, 64)
+    assert torch.equal(K.swizzled_image(legacy["f1d"].to(torch.bfloat16)[None])[0, 0], l1[3])  # (Fr, Fd, Fs) from 2
 
 
 # ── Gradients ────────────────────────────────────────────────────────────────
