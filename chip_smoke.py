@@ -126,6 +126,25 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    with the real rows, complex input and the irfft fold's column tiles, and
    on the 2-D panel's B = 512; a Parseval gradient at 4,096 and 2^20 in
    each mode, within its band;
+3i. the gate-closed engines, counted from 0, each gate opened inside the
+   phase only by replacing the tuning row (``tuning.replaced``) and the row
+   checked to be back after: the packed real forward through fft_device at
+   (1 and 3) x (4,096, 32,768, 2^17, 2^21, 2^22) against numpy f64
+   (5*log2(n)*eps) with a roundtrip through ifft_device, its half
+   transform's launches pinned (K1 once at B = 1 for 4,096 and 32,768, K3
+   once at 2^21 and 2^22, none where the torch four-step runs it), and at
+   32,768 under "fast" (K1F once, within 2e-2); fft2 / ifft2 / rfft2 /
+   irfft2_device on the 4,096^2 image through the axis-0 branch (four
+   transform_axis0 calls, phase 3e's gates), the 512 x 131,072 panel's
+   fft2_device still on the transpose branch (H = 512 is not above W/2:
+   K3 once) and its column pass through transform_axis0 directly (against
+   the transpose route on the card, and 4,096 columns against numpy);
+   rfft_direct_packed / rfft_packed_psd at (1,024, 256) and (1,024, 512)
+   against numpy (5*log2(n)*eps, the PSD twice it); the soak
+   (``scripts/soak.py``, seed 0, 40 + 20 checks, 2 GiB) in-process, every
+   check ok; each opened engine's device time beside its closed route's
+   and torch.fft's; every kernel geometry it launched against its plain
+   version;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -293,6 +312,16 @@ FAST_TOL = 1e-3  # K1F/K2F/K3F/K3LF/S2F vs plain, relative to max|plain|: see ph
 F64_RATIO = 1.5
 # The "fast" forms of the stage-A ablation kernels (phase 5 under "fast").
 FAST_LEGACY_KERNELS = {"stage_a_legacy": "stage_a_legacy_bf16", "stage_a_manual": "stage_a_manual_bf16"}
+# Phase 3i: the gate-closed engines, each gate opened inside the phase only.
+# The packed real forward at B = 1 and 3 (its n/2-point half on K1 at
+# 2,048 ... 16,384 when B = 1, K3 above 65,536), once under "fast"; the
+# axis-0 column pass (H > W/2 in the predicate, so the panel's H = 512 keeps
+# the transpose branch); the packed direct rfft / PSD; the soak.
+GATE_PACK_SIZES = (4096, 32768, 1 << 17, 1 << 21, 1 << 22)
+GATE_PACK_FAST = 32768
+AXIS0_OPEN = dict(axis0_h_min=2, axis0_h_max=1 << 16, axis0_w_min=2)
+GATE_DIRECT = ((1024, 256), (1024, 512))
+SOAK = dict(iters=40, analysis_iters=20, max_bytes=1 << 31, seed=0)
 
 
 T0 = time.perf_counter()
@@ -2561,6 +2590,257 @@ def fast_legacy_phase(report: dict, dev, out_dir: Path) -> dict:
     return {"launches": {k: launches.get(k, 0) for k in FAST_LEGACY_KERNELS.values()}, "max_err": max_err}
 
 
+def gate_closed_phase(report: dict, dev, rng) -> dict:
+    """Phase 3i: the gate-closed engines on the card, each gate opened only
+    inside this phase by replacing the tuning row (``tuning.replaced``) and
+    the row checked to be back afterwards.  The packed real forward through
+    ``fft_device`` (against numpy f64, a roundtrip, the half transform's
+    launches), the axis-0 column pass through the four 2-D calls on the
+    image and on the panel's column leg, the packed direct rfft / PSD, and
+    the soak in-process.  Device times beside the closed routes and
+    ``torch.fft``.  Returns the launches of the phase (counted from 0)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import scipy.fft as sf
+    import torch
+
+    import gpu_fft_tpu_torch as gt
+    from gpu_fft_tpu_torch import config, tuning
+    from gpu_fft_tpu_torch import plan as P
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import fused_torch as F
+    from gpu_fft_tpu_torch.kernels import large as L
+    from gpu_fft_tpu_torch.scripts import soak
+
+    row = tuning.get_tuning()
+    kernels = (*MAIN_PATH_KERNELS, *FAST_KERNELS.values())
+
+    def snapshot():
+        return {k: (K.COUNTS[k].launches, K.COUNTS[k].plain_calls) for k in kernels}
+
+    def delta(before):
+        after = snapshot()
+        return ({k: after[k][0] - before[k][0] for k in kernels if after[k][0] - before[k][0]},
+                sum(after[k][1] - before[k][1] for k in kernels))
+
+    def counted(label, fn, want):
+        """``fn()``, failing unless it launched exactly ``want`` and no plain version."""
+        before = snapshot()
+        out = fn()
+        torch.cuda.synchronize()
+        launched, plain = delta(before)
+        if launched != want or plain:
+            fail(f"{label}: launched {launched} and {plain} plain calls, want {want}")
+        return out, launched
+
+    def host(t):
+        return t.detach().cpu().double().numpy()
+
+    def cerr(re, im, ref):
+        return max(float(np.abs(host(re) - ref.real).max()), float(np.abs(host(im) - ref.imag).max())) \
+            / float(np.abs(ref).max())
+
+    def dev_ms(fn, **opened):
+        """``device_ms`` of ``fn`` with the row's ``opened`` fields replaced
+        while it runs (None where no profile recorded a kernel)."""
+        with tuning.replaced(**opened) if opened else contextlib.nullcontext():
+            return device_ms(fn, iters=10)[0]
+
+    def keep(label, **ms):
+        report.setdefault("gate_closed_times", []).append({"what": label, **ms})
+        print(f"  {label:40s} device ms: " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in ms.items()))
+
+    K.reset_counts()
+    geometries, restore = capture_launches(L)
+    axis0_calls = []
+    axis0 = F.transform_axis0
+
+    def logged_axis0(xr, xi, n, *args, **kw):
+        axis0_calls.append((tuple(xr.shape), n))
+        return axis0(xr, xi, n, *args, **kw)
+
+    F.transform_axis0 = logged_axis0
+    try:
+        # ── The packed real forward: ONE n/2-point complex transform ────────
+        print(f"  packed real forward, rfft_pack_min opened (gate 5*log2(n)*eps; fast {PRECISION_BANDS['fast']})")
+        with tuning.replaced(rfft_pack_min=8):
+            for n in GATE_PACK_SIZES:
+                for b in (1, 3):
+                    x = rng.standard_normal((b, n)).astype(np.float32)
+                    xt = torch.from_numpy(x).to(dev)
+                    half = band_kernel(b, n // 2)
+                    (yr, yi), launched = counted(f"packed fft ({b}, {n})", lambda: gt.fft_device(xt),
+                                                 {half: 1} if half else {})
+                    ref = sf.fft(x.astype(np.float64), axis=-1, workers=-1)
+                    record(report, "gate_closed_path", f"packed fft ({b}, {n}) {launched} vs numpy f64 (rel)", n,
+                           cerr(yr, yi, ref), gate(n))
+                    rr, _ = gt.ifft_device(yr, yi)
+                    record(report, "gate_closed_path", f"packed fft ({b}, {n}) roundtrip", n,
+                           float(np.abs(host(rr) - x).max()), gate(n))
+                    del xt, yr, yi, rr, ref
+            n = GATE_PACK_FAST
+            x = rng.standard_normal((1, n)).astype(np.float32)
+            xt = torch.from_numpy(x).to(dev)
+            config.PRECISION = "fast"
+            try:
+                (yr, yi), launched = counted(f"packed fft (1, {n}) fast", lambda: gt.fft_device(xt),
+                                             {"whole_transform_bf16": 1})
+                rr, _ = gt.ifft_device(yr, yi)
+                torch.cuda.synchronize()
+            finally:
+                config.PRECISION = "full"
+            ref = np.fft.fft(x.astype(np.float64), axis=-1)
+            record(report, "gate_closed_path", f"packed fft (1, {n}) fast {launched} vs numpy f64 (rel)", n,
+                   cerr(yr, yi, ref), PRECISION_BANDS["fast"])
+            record(report, "gate_closed_path", f"packed fft (1, {n}) fast roundtrip (rel)", n,
+                   float(np.abs(host(rr) - x).max()) / float(np.abs(x).max()), PRECISION_BANDS["fast"])
+
+        # ── The axis-0 column pass ──────────────────────────────────────────
+        stamp("phase 3i axis-0")
+        print("  axis-0 column pass, axis0_* opened (phase 3e's gates)")
+        img = rng.standard_normal((IMAGE, IMAGE)).astype(np.float32)
+        img_t = torch.from_numpy(img).to(dev)
+        iref = sf.fft2(img.astype(np.float64), workers=-1)
+        nn = IMAGE * IMAGE
+        h, w = PANEL
+        panel = rng.standard_normal((h, w)).astype(np.float32)
+        panel_t = torch.from_numpy(panel).to(dev)
+        with tuning.replaced(**AXIS0_OPEN):
+            if not (P.axis0_applies(IMAGE, IMAGE) and P.axis0_applies(IMAGE, IMAGE // 2 + 1)):
+                fail("the axis-0 gate did not open for the image")
+            (yr, yi), _ = counted(f"fft2_device {IMAGE}^2 axis-0", lambda: gt.fft2_device(img_t), {})
+            record(report, "gate_closed_path", f"fft2_device {IMAGE}^2 axis-0 vs numpy f64 (rel)", nn,
+                   cerr(yr, yi, iref), gate(nn))
+            (br, bi), _ = counted(f"ifft2_device {IMAGE}^2 axis-0", lambda: gt.ifft2_device(yr, yi), {})
+            record(report, "gate_closed_path", f"ifft2_device {IMAGE}^2 axis-0 roundtrip (rel)", nn,
+                   max(float(np.abs(host(br) - img).max()), float(bi.abs().max())) / float(np.abs(img).max()),
+                   gate(nn))
+            del yr, yi, br, bi
+            (hr, hi), _ = counted(f"rfft2_device {IMAGE}^2 axis-0", lambda: gt.rfft2_device(img_t), {})
+            record(report, "gate_closed_path", f"rfft2_device {IMAGE}^2 axis-0 vs numpy f64 (rel)", nn,
+                   cerr(hr, hi, iref[:, : IMAGE // 2 + 1]), gate(nn))
+            back, _ = counted(f"irfft2_device {IMAGE}^2 axis-0", lambda: gt.irfft2_device(hr, hi), {})
+            record(report, "gate_closed_path", f"irfft2_device {IMAGE}^2 axis-0 roundtrip (rel)", nn,
+                   float(np.abs(host(back) - img).max()) / float(np.abs(img).max()), gate(nn))
+            del hr, hi, back, iref
+            if [c[1] for c in axis0_calls] != [IMAGE] * 4:
+                fail(f"the four 2-D calls on the image ran the axis-0 engine {axis0_calls}, want 4 at n = {IMAGE}")
+            # The panel: H = 512 is not above W/2, so the predicate keeps the
+            # transpose branch (K3 on its rows, as in phase 3e); its column
+            # pass goes through the engine directly.
+            if P.axis0_applies(h, w):
+                fail(f"the axis-0 predicate took the {h} x {w} panel")
+            counted(f"fft2_device {h} x {w} (transpose branch)", lambda: gt.fft2_device(panel_t), {"stage_a": 1})
+            if len(axis0_calls) != 4:
+                fail(f"fft2_device on the panel ran the axis-0 engine: {axis0_calls[4:]}")
+            (cr, ci), _ = counted(f"transform_axis0 {h} x {w}", lambda: F.transform_axis0(panel_t, None, h, -1), {})
+            # Every column against the transpose route on the card, the
+            # first 4,096 against numpy (the contraction is per column).
+            tr, ti = (t.t() for t in L.transform_any(panel_t.t().contiguous(), None, h, -1))
+            record(report, "gate_closed_path", f"transform_axis0 {h} x {w} vs the transpose route (rel)", h * w,
+                   max(float((cr - tr).abs().max()), float((ci - ti).abs().max()))
+                   / max(float(tr.abs().max()), float(ti.abs().max())), gate(h * w))
+            cref = sf.fft(panel[:, :4096].astype(np.float64), axis=0, workers=-1)
+            record(report, "gate_closed_path", f"transform_axis0 {h} x {w}, 4,096 columns, vs numpy f64 (rel)",
+                   h * w, cerr(cr[:, :4096], ci[:, :4096], cref), gate(h * w))
+            del cr, ci, tr, ti, cref
+
+        # ── The packed direct rfft and PSD ──────────────────────────────────
+        stamp("phase 3i direct")
+        print("  packed direct rfft / PSD (gate 5*log2(n)*eps; PSD twice it)")
+        for b, n in GATE_DIRECT:
+            x = rng.standard_normal((b, n)).astype(np.float32)
+            xt = torch.from_numpy(x).to(dev)
+            dplan = P.on_device(P.get_rfft_direct_packed_plan, n, None, device=dev)
+            (_, fr, fi), _ = counted(f"rfft_direct_packed ({b}, {n})", lambda: F.rfft_direct_packed(xt, dplan), {})
+            ref = np.fft.rfft(x.astype(np.float64), axis=-1)
+            record(report, "gate_closed_path", f"rfft_direct_packed ({b}, {n}) vs numpy f64 (rel)", n,
+                   cerr(fr, fi, ref), gate(n))
+            psd, _ = counted(f"rfft_packed_psd ({b}, {n})", lambda: F.rfft_packed_psd(xt, dplan), {})
+            pref = np.abs(ref) ** 2
+            record(report, "gate_closed_path", f"rfft_packed_psd ({b}, {n}) vs numpy f64 (rel)", n,
+                   float(np.abs(host(psd) - pref).max()) / float(pref.max()), 2 * gate(n))
+
+        # ── The soak, in-process ────────────────────────────────────────────
+        stamp("phase 3i soak")
+        print(f"  soak {SOAK}")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            ran, failures = soak.run(device="cuda", **SOAK)
+        lines = log.getvalue().splitlines()
+        for line in lines:
+            if "FAIL" in line or "EXCEPTION" in line or line.startswith("soak:"):
+                print(f"    {line}")
+        report["soak"] = dict(args=SOAK, ran=ran, failures=failures, log=lines)
+        if failures or ran != SOAK["iters"] + SOAK["analysis_iters"]:
+            fail(f"soak: {failures} of {ran} checks failed")
+        torch.cuda.synchronize()
+        launched = {k: c.launches for k, c in K.COUNTS.items() if k in kernels}
+
+        # ── Times: each opened engine beside its closed route and torch.fft ─
+        stamp("phase 3i times")
+        print(f"  times, gate opened beside closed ({report['card']})")
+        for n in GATE_PACK_SIZES:
+            xt = torch.from_numpy(rng.standard_normal((1, n)).astype(np.float32)).to(dev)
+            keep(f"fft_device (1, {n})", packed=dev_ms(lambda: gt.fft_device(xt), rfft_pack_min=8),
+                 closed=dev_ms(lambda: gt.fft_device(xt)), torch_fft=dev_ms(lambda: torch.fft.fft(xt)))
+        xt = torch.from_numpy(rng.standard_normal((1, GATE_PACK_FAST)).astype(np.float32)).to(dev)
+        config.PRECISION = "fast"
+        try:
+            packed, closed = dev_ms(lambda: gt.fft_device(xt), rfft_pack_min=8), dev_ms(lambda: gt.fft_device(xt))
+        finally:
+            config.PRECISION = "full"
+        keep(f"fft_device (1, {GATE_PACK_FAST}) fast", packed=packed, closed=closed,
+             torch_fft=dev_ms(lambda: torch.fft.fft(xt)))
+        yr, yi = gt.fft2_device(img_t)
+        hr, hi = gt.rfft2_device(img_t)
+        z, zh = torch.complex(yr, yi), torch.complex(hr, hi)
+        calls = {"fft2_device": (lambda: gt.fft2_device(img_t), lambda: torch.fft.fft2(img_t)),
+                 "ifft2_device": (lambda: gt.ifft2_device(yr, yi), lambda: torch.fft.ifft2(z)),
+                 "rfft2_device": (lambda: gt.rfft2_device(img_t), lambda: torch.fft.rfft2(img_t)),
+                 "irfft2_device": (lambda: gt.irfft2_device(hr, hi), lambda: torch.fft.irfft2(zh))}
+        for name, (call, lib) in calls.items():
+            keep(f"{name} {IMAGE}^2", axis0=dev_ms(call, **AXIS0_OPEN), transpose=dev_ms(call),
+                 torch_fft=dev_ms(lib))
+        del yr, yi, hr, hi, z, zh
+
+        def transpose_leg():
+            sr, si = L.transform_any(panel_t.t().contiguous(), None, h, -1)
+            return sr.t().contiguous(), si.t().contiguous()
+
+        keep(f"panel column pass {h} x {w}", axis0=dev_ms(lambda: F.transform_axis0(panel_t, None, h, -1)),
+             transpose=dev_ms(transpose_leg), torch_fft=dev_ms(lambda: torch.fft.fft(panel_t, dim=0)))
+        for b, n in GATE_DIRECT:
+            xt = torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)).to(dev)
+            dplan = P.on_device(P.get_rfft_direct_packed_plan, n, None, device=dev)
+
+            def psd_closed():
+                fr, fi = gt.rfft_device(xt)
+                return fr * fr + fi * fi
+
+            keep(f"rfft ({b}, {n})", packed=dev_ms(lambda: F.rfft_direct_packed(xt, dplan)),
+                 rfft_device=dev_ms(lambda: gt.rfft_device(xt)), torch_fft=dev_ms(lambda: torch.fft.rfft(xt)))
+            keep(f"psd ({b}, {n})", packed=dev_ms(lambda: F.rfft_packed_psd(xt, dplan)), rfft_device=dev_ms(psd_closed),
+                 torch_fft=dev_ms(lambda: torch.fft.rfft(xt).abs().square()))
+    finally:
+        F.transform_axis0 = axis0
+        restore()
+        config.PRECISION = "full"
+    del img_t, panel_t
+    if tuning.get_tuning() is not row or P.rfft_pack_applies(1, 1 << 22) or P.axis0_applies(IMAGE, IMAGE):
+        fail(f"the tuning row was not put back: {tuning.get_tuning()}")
+    print(f"  the tuning row is back ({row.name}: rfft_pack_min {row.rfft_pack_min}, axis0_h_min {row.axis0_h_min})")
+    print(f"  launches in phase 3i: {launched}")
+    report["gate_closed_launches"] = launched
+    stamp("phase 3i geometries")
+    check_geometries(report, geometries, "phase 3i")
+    torch.cuda.empty_cache()  # the soak's and the panel's blocks
+    return launched
+
+
 def precision_times(report: dict, dev, time_pair, randn, shapes=PRECISION_SHAPES) -> None:
     """Phase 4's rows for phase 3h: K2F / K1F / K3F against their plain
     versions and bounds (K2F / K1F beside torch.fft on complex32), then
@@ -3037,6 +3317,11 @@ def main() -> None:
     print("phase 3h: the precision modes full / high / fast on device='cuda' against numpy in float64")
     precision = precision_phase(report, dev, rng)
 
+    # ── Phase 3i: the gate-closed engines ───────────────────────────────────
+    stamp("phase 3i")
+    print("phase 3i: the gate-closed engines, each gate opened inside the phase only, against numpy in float64")
+    gate_launches = gate_closed_phase(report, dev, rng)
+
     # ── Phase 4: warm median times (CUDA events) ────────────────────────────
     stamp("phase 4")
     print(f"phase 4: warm medians, CUDA events ({smi})")
@@ -3395,10 +3680,11 @@ def main() -> None:
     # The main path's launches: fft/ifft and the real-output path together.
     all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
                           + filter_launches[k] + twod_launches[k] + namespace_launches[k] + fno_launches[k]
-                          + parallel_launches[k]
+                          + parallel_launches[k] + gate_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS},
-                    **precision["launches"], **fast_legacy["launches"]}
+                    **{k: v + gate_launches[k] for k, v in precision["launches"].items()},
+                    **fast_legacy["launches"]}
     max_err.update(precision["max_err"])
     for name, err in fast_legacy["max_err"].items():
         max_err[name] = max(fast_legacy_err[name], err)
@@ -3412,6 +3698,7 @@ def main() -> None:
             filter_path_launches=filter_launches.get(name, 0), twod_path_launches=twod_launches.get(name, 0),
             namespace_path_launches=namespace_launches.get(name, 0), fno_path_launches=fno_launches.get(name, 0),
             parallel_path_launches=parallel_launches.get(name, 0),
+            gate_closed_path_launches=gate_launches.get(name, 0),
             max_abs_err=max_err[name], ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"], device_ms=t["device_ms"],
             **{k: t[k] for k in ("dense_bound_ms", "dense_bound_by", "cold_device_ms") if k in t},

@@ -33,15 +33,19 @@ __all__ = [
     "fused_fft_folded",
     "fused_fft_half",
     "fused_irfft",
+    "fused_irfft_half",
     "irfft_direct_half",
     "irfft_direct_half_k128",
     "irfft_fold_columns",
+    "rfft_direct_packed",
+    "rfft_packed_psd",
     "stage_a_torch",
     "stage_a_torch_transpose",
     "stage_b",
     "stage_b_half",
     "stage_b_irfft",
     "stage_b_irfft_from_half",
+    "transform_axis0",
 ]
 
 
@@ -211,6 +215,49 @@ def fused_fft_folded(xr, xi, plan: FusedPlan):
     return rr.reshape(b, n), ri.reshape(b, n)
 
 
+def transform_axis0(xr, xi, n: int, sign: int, scale: float | None = None):
+    """Length-n transform along axis -2 of (..., n, w) tensors, in place of
+    transpose, row transform, transpose back: the column pass of a 2-D
+    transform (``ops/fft2d.py``, where ``plan.axis0_applies``).
+
+    The four-step's contractions with the width a free trailing axis,
+    'bacw,ak->bckw' then 'bckw,cJ->bJkw' (the digit reversal folded into
+    the output order), on the row engines' tables
+    (``plan.get_fused_plan(n, sign, wide=False, scale)``; a direct plan is
+    one contraction, F being symmetric).  ``xi`` may be None (real input).
+    Unnormalized unless ``scale``; power-of-two n <= FUSED_MAX.
+    """
+    from ..plan import get_fused_plan, on_device
+
+    lead = xr.shape[:-2]
+    h, w = xr.shape[-2], xr.shape[-1]
+    assert h == n, (h, n)
+    x3r = xr.reshape(-1, h, w)
+    x3i = None if xi is None else xi.reshape(-1, h, w)
+    plan = on_device(get_fused_plan, n, sign, False, scale, device=xr.device)
+    t = plan.tables
+    if plan.kind == "direct":
+        if x3i is None:
+            yr = _contract("bhw,hk->bkw", x3r, t["fr"])
+            yi = _contract("bhw,hk->bkw", x3r, t["fi"])
+        else:
+            yr, yi = _ceinsum("bhw,hk->bkw", x3r, x3i, t, "f")
+        return yr.reshape(*lead, h, w), yi.reshape(*lead, h, w)
+    n1, n2 = plan.n1, plan.n2
+    x4r = x3r.reshape(-1, n1, n2, w)
+    if x3i is None:
+        pr = _contract("bacw,ak->bckw", x4r, t["f1r"])
+        pi = _contract("bacw,ak->bckw", x4r, t["f1i"])
+    else:
+        pr, pi = _ceinsum("bacw,ak->bckw", x4r, x3i.reshape(-1, n1, n2, w), t, "f1")
+    twr = t["twr"][None, :, :, None]  # (n2, n1) = [c, k]
+    twi = t["twi"][None, :, :, None]
+    zr = pr * twr - pi * twi
+    zi = pr * twi + pi * twr
+    rr, ri = _ceinsum("bckw,cJ->bJkw", zr, zi, t, "f2")
+    return rr.reshape(*lead, h, w), ri.reshape(*lead, h, w)
+
+
 def _hermitian_mirror(sr, si, n1: int, axis: int):
     """Full (.., n1, ..) spectra from the computed k1 in [0, n1/2] half.
 
@@ -315,6 +362,38 @@ def fused_irfft(xr, xi, plan: dict):
     return _irfft_fold_core(gr, gi, plan)
 
 
+def fused_irfft_half(xr, xi, plan: dict):
+    """Real-output inverse straight from the ONE-SIDED (B, h = n/2 + 1)
+    spectrum: :func:`fused_irfft`'s (B, n2, h1) fold grid
+    g[k2, k1] = X[k1 + n1 k2] built from the given bins rather than from a
+    full Hermitian mirror.  With L[k2, k1] = X[k1 + n1 k2], k2 < n2/2:
+
+    * rows k2 < n2/2: g = L[:, :h1];
+    * rows k2 >= n2/2, k1 >= 1: conj(X[(n1 - k1) + n1 (n2 - 1 - k2)]), a
+      flip over (k2, k1) of L's k1 >= n1/2 half, conjugated;
+    * rows k2 > n2/2, k1 = 0: conj(L[n2 - k2, 0]), flipped block starts;
+      k2 = n2/2, k1 = 0 is the Nyquist bin X[n/2].
+
+    DC / Nyquist imaginary parts are ignored (numpy ``irfft``).  ``plan``:
+    ``plan.get_irfft_plan``.  Returns the (B, n) real signal.
+    """
+    b = xr.shape[0]
+    n1, n2, h1 = plan["n1"], plan["n2"], plan["h1"]
+    half = n1 * n2 // 2
+    assert xr.shape[-1] == half + 1, (tuple(xr.shape), n1 * n2)
+    zero = xi.new_zeros(b, 1)
+    xi = torch.cat([zero, xi[:, 1:half], zero], dim=1)
+    lr = xr[:, :half].reshape(b, n2 // 2, n1)
+    li = xi[:, :half].reshape(b, n2 // 2, n1)
+    hi_r = torch.flip(lr[:, :, n1 // 2 :], (1, 2))
+    hi_i = -torch.flip(li[:, :, n1 // 2 :], (1, 2))
+    q0_r = torch.cat([xr[:, half:], torch.flip(lr[:, 1:, 0], (1,))], dim=1)[..., None]
+    q0_i = torch.cat([xi[:, half:], -torch.flip(li[:, 1:, 0], (1,))], dim=1)[..., None]
+    gr = torch.cat([lr[:, :, :h1], torch.cat([q0_r, hi_r], dim=2)], dim=1)
+    gi = torch.cat([li[:, :, :h1], torch.cat([q0_i, hi_i], dim=2)], dim=1)
+    return _irfft_fold_core(gr, gi, plan)
+
+
 def _irfft_fold_core(gr, gi, plan: dict):
     """The fold's contractions on the (B, n2, h1) grid of kept columns."""
     b = gr.shape[0]
@@ -339,6 +418,28 @@ def irfft_direct_half(xr, xi, plan: dict):
     real products against the folded tables (``plan.get_irfft_direct_plan``;
     their zero sin rows ignore DC/Nyquist imaginary parts)."""
     return _mm(xr, plan["cr"]) + _mm(xi, plan["ci"])
+
+
+def rfft_direct_packed(x, plan: dict):
+    """Direct real forward as ONE product against the packed (n, n) table
+    (``plan.get_rfft_direct_packed_plan``).  Returns the packed (B, n)
+    product (columns [0, h) = Re X, [h, n) = Im X[1..h-1)) and the
+    one-sided pair (fr, fi), (B, h) each."""
+    out = _mm(x, plan["t"])
+    h = plan["h"]
+    zero = out.new_zeros(out.shape[0], 1)
+    return out, out[:, :h], torch.cat([zero, out[:, h:], zero], dim=1)
+
+
+def rfft_packed_psd(x, plan: dict):
+    """One-sided |X|^2 from the packed product: re^2 from columns [0, h),
+    im^2 of bins 1 .. h-2 from columns [h, n), added by an index-add on a
+    copy (no unpacking)."""
+    out = _mm(x, plan["t"])
+    h = plan["h"]
+    sq = out * out
+    bins = torch.arange(1, h - 1, device=out.device)
+    return sq[:, :h].index_add(1, bins, sq[:, h:])
 
 
 def irfft_direct_half_k128(xr, xi, plan: dict):

@@ -14,6 +14,11 @@ engine is picked by (B, n) with the same predicates as the JAX package
   into its output order (or, for forced-small plans, a recursive row
   transform).
 
+Ahead of these, a real forward with ``rfft_pack_applies`` runs as ONE
+n/2-point complex transform (:func:`_real_packed_fft`), so on K1 for
+n/2 in the band and on K3 above FUSED_MAX.  Its gate is closed on both
+tuning rows, as in the JAX package.
+
 Under ``GPU_FFT_TPU_PRECISION=high`` no kernel runs, as in the JAX package,
 whose Mosaic kernels have no bf16x3 form: the band falls through to the
 torch engines, and stage A (and the staged irfft's stage A) runs as the
@@ -52,6 +57,9 @@ at staged sizes): fold extra axes into B.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from .. import config
@@ -61,6 +69,7 @@ from ..plan import (
     get_irfft_direct_k128_plan,
     get_irfft_direct_plan,
     get_irfft_plan,
+    get_pack_tables,
     get_stage_a_plan,
     get_stage_b_irfft_plan,
     get_whole_packed_plan,
@@ -69,6 +78,7 @@ from ..plan import (
     irfft_half_applies,
     irfft_half_staged_applies,
     on_device,
+    rfft_pack_applies,
     stage_a_ct_full_range,
     stage_a_real_rows,
     use_folded_layout,
@@ -105,6 +115,8 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
     input's device.
     """
     dev = xr.device
+    if xi is None and sign == -1 and n >= 8 and rfft_pack_applies(xr.shape[0], n):
+        return _real_packed_fft(xr, n, scale)
     if n <= FUSED_MAX:
         b = xr.shape[0]
         if whole_kernel_applies(b, n) and config.PRECISION != "high":
@@ -291,6 +303,50 @@ def _staged(xr, xi, key):
     out_r = rr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
     out_i = ri.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
     return out_r, out_i
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_twiddle(n: int, scale: float | None) -> dict:
+    """The packed forward's twiddle W_n^k, k < n/2, times ``hs`` = (1/2)
+    scale, in f32 as the JAX package folds it at trace time."""
+    hs = np.float32(0.5 if scale is None else 0.5 * scale)
+    wr, wi = get_pack_tables(n)
+    return {"wr": wr * hs, "wi": wi * hs, "hs": float(hs)}
+
+
+def _real_packed_fft(xr, n: int, scale):
+    """Length-n real forward transform as ONE length-n/2 complex transform
+    and an O(n) recombination (``gpu_fft_tpu/kernels/large.py:
+    _real_packed_fft``).
+
+    z[j] = x[2j] + i x[2j+1], Z = FFT_{n/2}(z) through :func:`transform_any`
+    (K1 or K3 and their autograd seams where n/2 falls in their range), then
+    with Z'[k] = conj(Z[(n/2 - k) mod n/2]):
+
+        E[k] = (Z[k] + Z'[k]) / 2,  O[k] = -i (Z[k] - Z'[k]) / 2,
+        X[k] = E[k] + W_n^k O[k],   X[k + n/2] = E[k] - W_n^k O[k].
+
+    The even / odd split is two strided slices made contiguous (the JAX
+    package's permutation matmul exists to avoid lane shuffles on the TPU),
+    the mirror a flip and a roll by one.  ``scale`` folds into the 1/2 and
+    the twiddle (:func:`_pack_twiddle`).  Every step is a torch op or an
+    autograd seam, so gradients flow through the split and the epilogue.
+    """
+    h = n // 2
+    zr = xr[:, 0::2].contiguous()
+    zi = xr[:, 1::2].contiguous()
+    Zr, Zi = transform_any(zr, zi, h, -1)
+    Zr_m = torch.roll(torch.flip(Zr, (-1,)), 1, -1)
+    Zi_m = torch.roll(torch.flip(Zi, (-1,)), 1, -1)
+    w = on_device(_pack_twiddle, n, scale, device=xr.device)
+    wr, wi, hs = w["wr"], w["wi"], w["hs"]
+    er = (Zr + Zr_m) * hs
+    ei = (Zi - Zi_m) * hs
+    o2r = Zi + Zi_m  # 2 Re(O); the 1/2 is in the twiddle
+    o2i = Zr_m - Zr  # 2 Im(O)
+    tr = wr * o2r - wi * o2i
+    ti = wr * o2i + wi * o2r
+    return torch.cat([er + tr, er - tr], dim=1), torch.cat([ei + ti, ei - ti], dim=1)
 
 
 def inverse_real(xr, xi, n: int, scale: float | None = None):

@@ -9,9 +9,10 @@ K3 on rows longer than FUSED_MAX, the torch engines elsewhere), other
 lengths run exactly by Bluestein (``ops/exact.py:_bluestein``), never by
 padding.
 
-The JAX package can also run the column pass in place over axis 0
-(``plan.axis0_applies``); that gate is closed on every tuning row, so the
-port takes the transpose branch only, which is what the JAX package runs.
+Where ``plan.axis0_applies(H, W)`` the column pass runs in place over axis
+0 instead (``kernels/fused_torch.py:transform_axis0``), as in the JAX
+package; that gate is closed on both tuning rows, so the transpose branch
+is what runs.
 
 ``*_device`` functions take and return tensors on the input's device (a
 non-tensor goes to ``device``, default ``"cuda"``) and carry autograd
@@ -24,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import plan as _plan
 from ..config import MAX_N
+from ..kernels import fused_torch as _fused_torch
 from .exact import _check_exact_n
 from .transform import _as_tensor
 
@@ -100,7 +103,11 @@ def _transform2d(xr, xi, sign: int):
     b = int(np.prod(lead)) if lead else 1
     # Rows: all B*H rows in one batched 1-D transform.
     rr, ri = _rows(xr.reshape(b * h, w), None if xi is None else xi.reshape(b * h, w), w, sign)
-    # Columns: transpose, transform the H-length rows, transpose back.
+    # Columns: in place over axis 0 where the gate opens; otherwise
+    # transpose, transform the H-length rows, transpose back.
+    if _plan.axis0_applies(h, w):
+        sr, si = _fused_torch.transform_axis0(rr.reshape(b, h, w), ri.reshape(b, h, w), h, sign)
+        return sr.reshape(*lead, h, w), si.reshape(*lead, h, w)
     sr, si = _rows(_swap(rr, b, h, w), _swap(ri, b, h, w), h, sign)
     return _swap(sr, b, w, h).reshape(*lead, h, w), _swap(si, b, w, h).reshape(*lead, h, w)
 
@@ -240,6 +247,9 @@ def rfft2_device(x, device=None):
             raise ValueError(f"rfft2 {name} must be a power of two >= 2, got {s}")
     hw = w // 2 + 1
     rr, ri = rfft_device(x.reshape(b * h, w))  # rows: (b*h, hw)
+    if _plan.axis0_applies(h, hw):
+        out_r, out_i = _fused_torch.transform_axis0(rr.reshape(b, h, hw), ri.reshape(b, h, hw), h, -1)
+        return (out_r[0], out_i[0]) if squeeze else (out_r, out_i)
     sr, si = transform_any(_swap(rr, b, h, hw), _swap(ri, b, h, hw), h, -1)  # columns: full complex FFT
     out_r = sr.reshape(b, hw, h).transpose(1, 2)
     out_i = si.reshape(b, hw, h).transpose(1, 2)
@@ -271,10 +281,14 @@ def irfft2_device(xr, xi, device=None):
             f"irfft2 expects power-of-two sides (H, W//2 + 1 bins), got {tuple(xr.shape[1:])}"
         )
     # Columns first: the inverse complex FFT over H with the 1/H scale in
-    # the dispatch's tables.
-    sr, si = transform_any(_swap(xr, b, h, hw), _swap(xi, b, h, hw), h, +1, scale=1.0 / h)
-    rr = _swap(sr, b, hw, h)
-    ri = _swap(si, b, hw, h)
+    # the dispatch's tables (in place over axis 0 where the gate opens).
+    if _plan.axis0_applies(h, hw):
+        rr3, ri3 = _fused_torch.transform_axis0(xr, xi, h, +1, scale=1.0 / h)
+        rr, ri = rr3.reshape(b * h, hw), ri3.reshape(b * h, hw)
+    else:
+        sr, si = transform_any(_swap(xr, b, h, hw), _swap(xi, b, h, hw), h, +1, scale=1.0 / h)
+        rr = _swap(sr, b, hw, h)
+        ri = _swap(si, b, hw, h)
     out = irfft_device(rr, ri).reshape(b, h, w)  # rows carry the 1/W scale
     return out[0] if squeeze else out
 

@@ -23,20 +23,26 @@ from .kernels.tables import dft_matrix_ext, twiddle_table
 from .tuning import get_tuning
 
 __all__ = [
+    "STAGE_A_N1",
     "FusedPlan",
+    "axis0_applies",
     "balanced_split",
     "clear_device_cache",
+    "deinterleave_matrix",
     "describe_plan",
     "from_jax_plan",
     "get_fused_plan",
     "get_irfft_direct_k128_plan",
     "get_irfft_direct_plan",
     "get_irfft_plan",
+    "get_pack_tables",
+    "get_rfft_direct_packed_plan",
     "get_stage_a_plan",
     "get_stage_b_irfft_plan",
     "get_whole_packed_plan",
     "get_whole_plan",
     "on_device",
+    "rfft_pack_applies",
 ]
 
 
@@ -56,6 +62,14 @@ def use_folded_layout(b: int, n: int) -> bool:
     return n <= t.folded_n_max or b >= t.folded_batch_min
 
 
+def rfft_pack_applies(b: int, n: int) -> bool:
+    """Real input runs as ONE n/2-point complex transform of
+    z = x[0::2] + i x[1::2] and an O(n) recombination
+    (``kernels/large.py:_real_packed_fft``): half the transform's work.
+    Closed on both tuning rows, as in the JAX package."""
+    return n >= get_tuning().rfft_pack_min
+
+
 def half_spectrum_applies(n: int) -> bool:
     """Real input computes only the k1 <= n1/2 spectrum half and mirrors the
     rest (Hermitian symmetry, either sign)."""
@@ -73,6 +87,20 @@ def irfft_half_staged_applies(n: int) -> bool:
     """Staged real-output inverses run stage A on the first column tiles
     only (the rest are conjugate mirrors) and fold stage B per row."""
     return n >= get_tuning().irfft_half_staged_min
+
+
+def axis0_applies(h: int, w: int) -> bool:
+    """Whether the column pass of an (h, w) 2-D transform runs in place over
+    axis 0 (``kernels/fused_torch.py:transform_axis0``) instead of
+    transpose, row transform, transpose back.  Closed on both tuning rows,
+    as in the JAX package."""
+    t = get_tuning()
+    return (
+        h & (h - 1) == 0
+        and t.axis0_h_min <= h <= t.axis0_h_max
+        and w >= t.axis0_w_min
+        and h > w // 2
+    )
 
 
 def whole_kernel_applies(b: int, n: int) -> bool:
@@ -101,6 +129,27 @@ def balanced_split(n: int) -> tuple[int, int]:
     m = n.bit_length() - 1
     n1 = 1 << (m // 2)
     return n1, n // n1
+
+
+@functools.lru_cache(maxsize=None)
+def get_pack_tables(n: int) -> tuple:
+    """``(wr, wi)``: W_n^k for k < n/2 (f64-generated f32), the packed real
+    forward's recombination twiddle (``kernels/large.py:_real_packed_fft``)."""
+    from .kernels.tables import unit_roots
+
+    return unit_roots(n // 2, n, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def deinterleave_matrix() -> np.ndarray:
+    """(256, 256) 0/1 permutation: right-multiplying a (rows, 256) view sends
+    each row's even elements to columns 0..127 and its odd ones to
+    128..255.  The JAX package splits x[0::2] / x[1::2] with it on the TPU;
+    the port slices instead and keeps the matrix for the name and the tests."""
+    p = np.zeros((256, 256), dtype=np.float32)
+    for src in range(256):
+        p[src, src // 2 + (128 if src % 2 else 0)] = 1.0
+    return p
 
 
 # ── Fused plans (n <= FUSED_MAX) ─────────────────────────────────────────────
@@ -229,6 +278,27 @@ def get_irfft_direct_plan(n: int, scale: float | None = None) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
+def get_rfft_direct_packed_plan(n: int, scale: float | None = None) -> dict:
+    """One (n, n) table for the direct real forward,
+    T = [C (n, h) | S[:, 1:h-1] (n, h - 2)], h = n/2 + 1, with
+    C[m, k] = s cos(2 pi m k / n) and S[m, k] = -s sin(2 pi m k / n): x @ T
+    holds Re X[0..h) in its first h columns and Im X[1..h-1) in the rest
+    (the k = 0 and n/2 sin columns are zero).  ``kernels/fused_torch.py:
+    rfft_direct_packed`` and ``rfft_packed_psd`` read it."""
+    if n & (n - 1) or n < 8:
+        raise ValueError(f"packed rfft plans require power-of-two n >= 8, got {n}")
+    if n > DIRECT_MAX:
+        raise ValueError(f"n={n} exceeds DIRECT_MAX={DIRECT_MAX}")
+    h = n // 2 + 1
+    s = 1.0 if scale is None else float(scale)
+    red = np.mod(np.outer(np.arange(n, dtype=np.int64), np.arange(h, dtype=np.int64)), n)
+    ang = (2.0 * np.pi / n) * red.astype(np.float64)
+    c = (np.cos(ang) * s).astype(np.float32)
+    sn = (-np.sin(ang) * s).astype(np.float32)
+    return {"n": n, "h": h, "t": np.concatenate([c, sn[:, 1 : h - 1]], axis=1)}
+
+
+@functools.lru_cache(maxsize=None)
 def get_irfft_direct_k128_plan(n: int, scale: float | None = None) -> dict:
     """:func:`get_irfft_direct_plan` split into the first h - 1 = n/2 rows
     (``cr``, ``ci``) and the Nyquist row ``alt`` = s (-1)^m, added as a
@@ -334,6 +404,11 @@ def stage_a_real_rows(n1: int) -> int:
     k1 and the half-spectrum stage B reads only k1 <= n1/2, so the first
     ceil-to-8(n1/2 + 1) rows (72 of 128, 136 of 256)."""
     return -(-(n1 // 2 + 1) // 8) * 8
+
+
+# The stage-A digit of the v5e row; the live value is the tuning row's
+# ``stage_a_n1`` (the same 128 on both of the port's rows).
+STAGE_A_N1 = 128
 
 
 def _stage_a_n1(n: int) -> int:
@@ -482,9 +557,12 @@ def get_stage_b_irfft_plan(n: int, scale: float | None = None) -> dict | None:
 
 
 def _map_arrays(obj, fn):
-    """Apply ``fn`` to every array in a plan dict (recursing into ``stage_b``)."""
+    """Apply ``fn`` to every array in a plan dict (recursing into ``stage_b``)
+    or tuple."""
     if isinstance(obj, dict):
         return {k: _map_arrays(v, fn) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(_map_arrays(v, fn) for v in obj)
     if hasattr(obj, "shape") and hasattr(obj, "dtype"):
         return fn(obj)
     return obj

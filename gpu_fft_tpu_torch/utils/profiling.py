@@ -43,6 +43,7 @@ __all__ = [
     "firstream_step",
     "hilbert_step",
     "ifft_sequential_step",
+    "irfft_step",
     "lfilter_step",
     "oaconvolve_step",
     "resample_step",
@@ -260,6 +261,21 @@ def fft_inverse_step(n: int):
     def step(x):
         yr, _ = transform_any(x, x, n, +1)
         return yr * s
+
+    return step
+
+
+def irfft_step(n: int):
+    """x -> inverse_real(x + jx) * sqrt(n/2): the real-output inverse path
+    (``kernels/large.py:inverse_real``, 1/n in its tables).  The imaginary
+    part aliases the input, as in :func:`fft_inverse_step`; the time is the
+    shape's, so a non-Hermitian operand runs the program callers run."""
+    from ..kernels.large import inverse_real
+
+    s = float(np.float32(np.sqrt(n / 2.0)))
+
+    def step(x):
+        return inverse_real(x, x, n, scale=1.0 / n) * s
 
     return step
 

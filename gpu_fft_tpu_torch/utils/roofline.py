@@ -10,11 +10,9 @@ time on a :class:`ChipSpec`,
 
 and names the wall that sets it (``bound``).  The stages mirror the port's
 dispatch (``kernels/large.py:transform_any``, ``inverse_real``), so the
-cost is that of the plan that runs.  Only the kinds of a ported caller are
-costed (``fft``, ``ifft``, ``roundtrip``, ``irfft``, ``grad_fft``,
-``welch``, ``stft_roundtrip``, ``fft_exact``); the JAX package's other
-kinds raise ``NotImplementedError`` naming the ROADMAP item that ports
-their module.
+cost is that of the plan that runs.  Every kind of the JAX package is
+costed, the ``*_batch`` / ``*_sequential`` / ``fft_batchsize`` kinds as
+aliases of ``fft``, ``ifft`` and ``roundtrip`` (the same work).
 
 * ``CHIPS`` holds ``h100`` and ``cpu-approx`` (order-of-magnitude figures so
   that the accounting stays defined in the CPU tests).
@@ -40,8 +38,11 @@ their module.
   its operands on chip can beat it, so against such a kernel the matmul
   wall is not a lower bound.
 
-The kernels of a step are counted by :func:`compiled_stats`, from a
-``torch.profiler`` trace of the step on the card.
+The kernels of a step are counted by :func:`compiled_stats` (and
+:func:`count_kernels`), from a ``torch.profiler`` trace of the step on the
+card.  :data:`CALIBRATED_CHIPS` names the rows whose launch floor and
+``EFF_PASSES`` were measured by the port's own calibration scripts; a
+``roofline_row`` says whether its chip is one.
 """
 
 from __future__ import annotations
@@ -57,17 +58,20 @@ from ..config import DIRECT_MAX, FUSED_MAX
 from ..tuning import get_tuning
 
 __all__ = [
+    "CALIBRATED_CHIPS",
     "CHIPS",
     "ChipSpec",
     "EFF_PASSES",
-    "NOT_PORTED_KINDS",
     "OWN_KERNELS",
+    "chip_calibrated",
     "compiled_stats",
+    "count_kernels",
     "detect_chip",
     "eff_passes",
     "irfft_stages",
     "roofline_row",
     "transform_cost",
+    "transform_flops",
     "transform_stages",
 ]
 
@@ -93,13 +97,10 @@ EFF_PASSES = {
 }
 _EFF_DEFAULT = EFF_PASSES["h100"]
 
-_BENCH = "ROADMAP item 0 (the H100 bench's config kinds)"
-#: The JAX package's transform_cost kinds that the port does not cost yet,
-#: with the ROADMAP queue item that ports what they need.
-NOT_PORTED_KINDS = {
-    **{k: _BENCH for k in ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch",
-                           "ifft_sequential", "roundtrip_batch", "roundtrip_sequential")},
-}
+#: Chips whose launch floor (``calibrate_latency``) and ``EFF_PASSES``
+#: (``calibrate_matmul``) were measured on the card by the port's own
+#: scripts (PERF.md records the runs): the H100 80GB HBM3 at 700 W.
+CALIBRATED_CHIPS = frozenset({"h100"})
 
 #: The ``__global__`` functions of ``csrc/``: a profiled kernel whose name
 #: holds one of these is one of the port's own.
@@ -113,6 +114,11 @@ OWN_KERNELS = (
     "whole_kernel",
 )
 _OWN = re.compile(r"\b(" + "|".join(OWN_KERNELS) + r")\b")
+
+
+def chip_calibrated(chip: ChipSpec) -> bool:
+    """Whether ``chip``'s figures were measured on it (:data:`CALIBRATED_CHIPS`)."""
+    return chip.name in CALIBRATED_CHIPS
 
 
 def eff_passes(chip_name: str, k: int) -> float:
@@ -188,14 +194,27 @@ def compiled_stats(step, x0) -> dict:
     }
 
 
+def count_kernels(step, x0) -> int:
+    """Kernels one ``step(x0)`` launches on the card (:func:`compiled_stats`)."""
+    return compiled_stats(step, x0)["n_kernels"]
+
+
+def _pack_applies(b: int, n: int) -> bool:
+    return _plan.rfft_pack_applies(b, n)
+
+
 def transform_stages(b: int, n: int, real_input: bool):
     """Per-matmul-stage (flops, contraction) list and elementwise flops of
     the port's dispatch (``kernels/large.py:transform_any``): the whole
     kernel band, direct, half-spectrum, the fused split, and staged.  A real
     matmul (m, k) @ (k, j) counts 2*m*k*j, a complex one 3 real products
-    (Karatsuba), a complex elementwise multiply 6 flops.  The JAX package's
-    real-input packing branch is gate-closed and not ported (ROADMAP item 17).
+    (Karatsuba), a complex elementwise multiply 6 flops.  A real input
+    where ``rfft_pack_applies`` is the n/2-point complex transform's stages
+    plus the recombination, charged 8 flops per element.
     """
+    if real_input and n >= 8 and _pack_applies(b, n):
+        stages, elem = transform_stages(b, n // 2, real_input=False)
+        return stages, elem + 8.0 * b * n
     if DIRECT_MAX < n <= FUSED_MAX and _plan.whole_kernel_applies(b, n):
         # K1/K2: n2 = 128, stage 1 contracts n1 = n/128 (2 real or 3
         # Karatsuba products), stage 2 the 128 columns (3), one twiddle.
@@ -287,11 +306,20 @@ def irfft_stages(b: int, n: int):
     return stages, elem, 1.0
 
 
+def transform_flops(b: int, n: int, real_input: bool) -> float:
+    """All FLOPs (matmul and elementwise) of one planned transform."""
+    stages, elem = transform_stages(b, n, real_input)
+    return sum(f for f, _ in stages) + elem
+
+
 def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     """FLOPs, least bytes and per-stage classes of one configuration.
 
     ``kind``: fft (real in, split-complex out), ifft (complex in and out),
-    roundtrip (fft + ifft), irfft (Hermitian spectrum in, real out,
+    roundtrip (fft + ifft), their aliases fft_batch, fft_sequential,
+    fft_batchsize, ifft_batch, ifft_sequential, roundtrip_batch and
+    roundtrip_sequential (the same work, run as one batch or row by row),
+    irfft (Hermitian spectrum in, real out,
     :func:`irfft_stages`), and the analysis kinds: welch ((b, n) =
     (segments, nperseg): the segments' forward transform; the O(bn) window
     and mean are left out, so the bound stays a lower bound), grad_fft (the
@@ -305,13 +333,10 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     block length): a real forward and a complex inverse), and the 2-D
     kinds: fft2 ((H, W): the real row pass and the complex column pass) and
     conv2d ((m1, m2), one padded image: the one-sided forward, the product
-    and the one-sided inverse; the kernel's spectrum is not charged).  The
-    kinds of :data:`NOT_PORTED_KINDS`
-    raise ``NotImplementedError``; any other raises ``ValueError``.
+    and the one-sided inverse; the kernel's spectrum is not charged).  Any other kind raises
+    ``ValueError``.
     """
     f32 = 4
-    if kind in NOT_PORTED_KINDS:
-        raise NotImplementedError(f"transform_cost kind {kind!r} is not ported: {NOT_PORTED_KINDS[kind]}")
 
     def parts(*specs):
         stages: list = []
@@ -322,14 +347,14 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
             elem += e
         return stages, elem
 
-    if kind in ("fft", "welch"):
+    if kind in ("fft", "fft_batch", "fft_sequential", "fft_batchsize", "welch"):
         stages, elem = parts((b, n, True))
         bytes_ = b * n * f32 * (1 + 2)  # read x, write (re, im)
-    elif kind == "ifft":
+    elif kind in ("ifft", "ifft_batch", "ifft_sequential"):
         stages, elem = transform_stages(b, n, False)
         elem += 2.0 * b * n  # 1/N scale
         bytes_ = b * n * f32 * (2 + 2)
-    elif kind in ("roundtrip", "grad_fft", "hilbert"):
+    elif kind in ("roundtrip", "roundtrip_batch", "roundtrip_sequential", "grad_fft", "hilbert"):
         # hilbert: the forward, the gain mask, the full complex inverse
         # (the analytic signal is complex).
         stages, elem = parts((b, n, True), (b, n, False))
@@ -448,7 +473,8 @@ def roofline_row(
     Given ``n_kernels`` (:func:`compiled_stats`) and a chip with a measured
     launch floor, ``t_latency = kernel_call_us * n_kernels``.  ``sol`` is
     the largest wall, ``bound`` its name: ``hbm``, ``matmul``,
-    ``elementwise`` or ``latency``.
+    ``elementwise`` or ``latency``; ``calibrated`` whether the chip's
+    figures were measured on it (:func:`chip_calibrated`).
     """
     chip = chip or detect_chip()
     cost = transform_cost(b, n, kind)
@@ -470,6 +496,7 @@ def roofline_row(
         "bound": bound,
         "walls_us": {k: v * 1e6 for k, v in walls.items()},
         "chip": chip.name,
+        "calibrated": chip_calibrated(chip),
     }
     if precision_passes is not None:
         row["precision_passes"] = precision_passes

@@ -6,9 +6,10 @@ batch, ``axes`` and error cases of ``tests/test_fft2d.py``; the same numpy
 input, made from a seed, goes through both packages.  Tolerance:
 max |port - JAX| <= 1e-5 * max |JAX| (fp32 on both sides, bit-identical
 tables, different summation order).  Gradients of ``fft2_device`` and
-``rfft2_device`` are held against ``jax.grad``.  The JAX package's axis-0
-column engine is gate-closed, so both packages take the transpose branch:
-pinned by ``test_column_pass_is_the_transpose_branch``.
+``rfft2_device`` are held against ``jax.grad``.  The axis-0 column engine
+is gate-closed in both packages, so both take the transpose branch:
+pinned by ``test_column_pass_is_the_transpose_branch`` (the engine under an
+opened gate: ``test_torch_gate_closed.py``).
 """
 
 import jax
@@ -233,7 +234,7 @@ def test_device_forms_carry_a_grad_fn_through_the_kernel_functions():
 @pytest.mark.parametrize("shape", [(2048, 512), (4096, 4096), (8192, 2048)])
 def test_jax_axis0_gate_is_closed(shape):
     """The JAX package's axis-0 column engine never runs at its default
-    tuning, so its column pass is the transpose branch the port carries."""
+    tuning, so its column pass is the transpose branch the port takes."""
     from gpu_fft_tpu.plan import axis0_applies
 
     assert not axis0_applies(*shape)
@@ -241,9 +242,10 @@ def test_jax_axis0_gate_is_closed(shape):
 
 @pytest.mark.parametrize("fn", ["fft2_device", "rfft2_device", "irfft2_device"])
 def test_column_pass_is_the_transpose_branch(monkeypatch, fn):
-    """The port has no axis-0 branch.  Its outputs equal the JAX package's
-    with the gate as shipped (closed) and with the gate forced open (the
-    axis-0 engine): the divergence changes no output."""
+    """With its axis-0 gate closed (as shipped) the port takes the
+    transpose branch.  Its outputs equal the JAX package's with the JAX gate
+    closed and forced open (the axis-0 engine): the branch changes no
+    output."""
     import gpu_fft_tpu.plan as jplan
 
     h, w = 64, 32

@@ -48,7 +48,8 @@ def test_import_leaves_jax_out():
         "gpu_fft_tpu_torch.models.fno, gpu_fft_tpu_torch.models.train, gpu_fft_tpu_torch.examples.fno, "
         "gpu_fft_tpu_torch.parallel, gpu_fft_tpu_torch.parallel.mesh, gpu_fft_tpu_torch.parallel.distributed, "
         "gpu_fft_tpu_torch.parallel.pencil, gpu_fft_tpu_torch.utils.serving, gpu_fft_tpu_torch.__main__, "
-        "gpu_fft_tpu_torch.examples.extensions\n"
+        "gpu_fft_tpu_torch.examples.extensions, gpu_fft_tpu_torch.scripts.soak, "
+        "gpu_fft_tpu_torch.scripts.ablate_rfft_packed, gpu_fft_tpu_torch.scripts.ablate_fft2_axis0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'gpu_fft_tpu.')) "
         "or m == 'gpu_fft_tpu')\n"
         "print(bad)\n"

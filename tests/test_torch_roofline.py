@@ -4,9 +4,8 @@ without a card.
 
 Both packages' CPU tuning rows carry the same gates
 (``gpu_fft_tpu/tuning.py`` "cpu-approx", ``gpu_fft_tpu_torch/tuning.py``),
-so every ported cost kind must give the JAX package's FLOPs, bytes and
-stages (rel 1e-12) on the same (B, n), and every other JAX kind is named
-as not ported.
+so every cost kind must give the JAX package's FLOPs, bytes and stages
+(rel 1e-12) on the same (B, n).
 """
 
 import dataclasses
@@ -25,6 +24,8 @@ from gpu_fft_tpu_torch.utils import roofline as roof
 ROOT = Path(__file__).resolve().parent.parent
 PORTED_KINDS = ("fft", "ifft", "roundtrip", "irfft", "grad_fft", "welch", "stft_roundtrip", "fft_exact",
                 "hilbert", "dct_roundtrip", "resample", "oaconvolve", "fftfilt")
+ALIAS_KINDS = ("fft_batch", "fft_sequential", "fft_batchsize", "ifft_batch", "ifft_sequential", "roundtrip_batch",
+               "roundtrip_sequential")
 GRID = [(1, 1 << k) for k in range(8, 23)] + [(2, 16384), (16, 4096), (16, 65536)]
 H100 = roof.CHIPS["h100"]
 
@@ -66,15 +67,64 @@ def test_2d_cost_matches_the_jax_package(kind, b, n):
     assert got["stages"] == pytest.approx(want["stages"], rel=1e-12)
 
 
-@pytest.mark.parametrize("kind", sorted(roof.NOT_PORTED_KINDS))
-def test_unported_kinds_raise_not_implemented(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        roof.transform_cost(1, 4096, kind)
+@pytest.mark.parametrize("kind", ALIAS_KINDS)
+def test_batch_and_sequential_kinds_match_the_jax_package(kind):
+    """The seven aliases cost what the JAX package's do, which is the work
+    of fft, ifft or roundtrip on the same (B, n)."""
+    base = kind.split("_")[0]
+    for b, n in GRID + [(64, 4096)]:
+        got, want = roof.transform_cost(b, n, kind), jroof.transform_cost(b, n, kind)
+        assert got["bytes"] == want["bytes"], (kind, b, n)
+        assert got["flops"] == pytest.approx(want["flops"], rel=1e-12), (kind, b, n)
+        assert got["stages"] == pytest.approx(want["stages"], rel=1e-12)
+        assert got == roof.transform_cost(b, n, base)
 
 
-@pytest.mark.parametrize("kind", sorted(roof.NOT_PORTED_KINDS))
-def test_unported_kinds_are_the_jax_packages(kind):
-    assert jroof.transform_cost(16, 65536, kind)["flops"] > 0
+@pytest.mark.parametrize("b,n", [(1, 256), (1, 4096), (16, 4096), (1, 65536), (1, 1 << 17), (3, 1 << 20),
+                                 (1, 1 << 22)])
+@pytest.mark.parametrize("real_input", [True, False])
+def test_transform_flops_matches_the_jax_package(b, n, real_input):
+    got = roof.transform_flops(b, n, real_input)
+    assert got == pytest.approx(jroof.transform_flops(b, n, real_input), rel=1e-12)
+    stages, elem = roof.transform_stages(b, n, real_input)
+    assert got == sum(f for f, _ in stages) + elem
+
+
+@pytest.mark.parametrize("b,n", [(1, 4096), (3, 32768), (1, 1 << 17), (1, 1 << 21)])
+def test_packing_branch_matches_the_jax_package(b, n, monkeypatch):
+    """With the packing gate opened in both packages, a real input costs the
+    n/2-point complex transform plus 8 flops an element."""
+    import gpu_fft_tpu.plan as jplan
+    from gpu_fft_tpu_torch import tuning
+
+    monkeypatch.setattr(jplan, "rfft_pack_applies", lambda b, n: n >= 256)
+    with tuning.replaced(rfft_pack_min=256):
+        got, want = roof.transform_cost(b, n, "fft"), jroof.transform_cost(b, n, "fft")
+        half = roof.transform_stages(b, n // 2, real_input=False)
+    assert got["stages"] == pytest.approx(want["stages"], rel=1e-12) and got["stages"] == half[0]
+    assert got["elem_flops"] == pytest.approx(want["elem_flops"], rel=1e-12)
+    assert got["elem_flops"] == pytest.approx(half[1] + 8.0 * b * n)
+    assert roof.transform_cost(b, n, "fft") != got  # the gate closed again
+
+
+def test_calibrated_chips_are_the_measured_rows():
+    assert roof.CALIBRATED_CHIPS == {"h100"}
+    assert roof.chip_calibrated(H100) and not roof.chip_calibrated(roof.CHIPS["cpu-approx"])
+    assert roof.roofline_row(1, 4096, "fft", 1e-5, chip=H100)["calibrated"] is True
+    assert roof.roofline_row(1, 4096, "fft", 1e-5, chip=roof.CHIPS["cpu-approx"])["calibrated"] is False
+
+
+@pytest.mark.parametrize("n", [64, 1 << 15, 1 << 18])
+def test_irfft_step_matches_the_jax_package(n):
+    """inverse_real on the aliased operand, times sqrt(n/2): a chained step
+    keeps the shape and agrees with the JAX package's ``irfft_step``."""
+    from gpu_fft_tpu.utils import profiling as jprof
+
+    x = np.random.default_rng(n).standard_normal((2, n)).astype(np.float32)
+    got = tprof.irfft_step(n)(torch.from_numpy(x)).numpy()
+    want = np.asarray(jprof.irfft_step(n)(x))
+    assert got.shape == x.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("b,n", [(1, 16), (1, 1 << 15), (3, 1 << 16), (1, 1 << 17), (2, 1 << 18),
@@ -208,8 +258,9 @@ def test_own_kernels_name_every_kernel_in_csrc():
         lambda x: tprof.chained_step_time(lambda z: z * 2.0, x, k1=2, k2=200, reps=2),
         lambda x: tprof.benchmark(lambda z: z + 1.0, x),
         lambda x: roof.compiled_stats(lambda z: z * 2.0, x),
+        lambda x: roof.count_kernels(lambda z: z * 2.0, x),
     ],
-    ids=["chained_step_stats", "chained_step_time", "benchmark", "compiled_stats"],
+    ids=["chained_step_stats", "chained_step_time", "benchmark", "compiled_stats", "count_kernels"],
 )
 def test_measuring_needs_the_card(call):
     with pytest.raises(ValueError, match="CUDA"):
