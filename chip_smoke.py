@@ -127,8 +127,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    on the 2-D panel's B = 512; a Parseval gradient at 4,096 and 2^20 in
    each mode, within its band;
 3i. the gate-closed engines, counted from 0, each gate opened inside the
-   phase only by replacing the tuning row (``tuning.replaced``) and the row
-   checked to be back after: the packed real forward through fft_device at
+   phase only by patching its threshold in ``plan`` (``RFFT_PACK_MIN``,
+   ``AXIS0_H_MIN``) and both checked closed after: the packed real forward through fft_device at
    (1 and 3) x (4,096, 32,768, 2^17, 2^21, 2^22) against numpy f64
    (5*log2(n)*eps) with a roundtrip through ifft_device, its half
    transform's launches pinned (K1 once at B = 1 for 4,096 and 32,768, K3
@@ -144,7 +144,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (``scripts/soak.py``, seed 0, 40 + 20 checks, 2 GiB) in-process, every
    check ok; each opened engine's device time beside its closed route's
    and torch.fft's; every kernel geometry it launched against its plain
-   version;
+   version.  No tuning row takes these routes, so the phase's launches
+   stand only under ``gate_closed_path_launches`` in the kernels line, not
+   in ``launches``;
 4. warm median times with CUDA events (back-to-back calls, host included)
    and device times from torch.profiler (the kernels alone): each kernel
    against its plain version, its bound on the card and, where one exists,
@@ -319,7 +321,8 @@ FAST_LEGACY_KERNELS = {"stage_a_legacy": "stage_a_legacy_bf16", "stage_a_manual"
 # the transpose branch); the packed direct rfft / PSD; the soak.
 GATE_PACK_SIZES = (4096, 32768, 1 << 17, 1 << 21, 1 << 22)
 GATE_PACK_FAST = 32768
-AXIS0_OPEN = dict(axis0_h_min=2, axis0_h_max=1 << 16, axis0_w_min=2)
+PACK_OPEN = dict(RFFT_PACK_MIN=8)  # plan's thresholds, patched inside the phase
+AXIS0_OPEN = dict(AXIS0_H_MIN=2)
 GATE_DIRECT = ((1024, 256), (1024, 512))
 SOAK = dict(iters=40, analysis_iters=20, max_bytes=1 << 31, seed=0)
 
@@ -2592,29 +2595,30 @@ def fast_legacy_phase(report: dict, dev, out_dir: Path) -> dict:
 
 def gate_closed_phase(report: dict, dev, rng) -> dict:
     """Phase 3i: the gate-closed engines on the card, each gate opened only
-    inside this phase by replacing the tuning row (``tuning.replaced``) and
-    the row checked to be back afterwards.  The packed real forward through
-    ``fft_device`` (against numpy f64, a roundtrip, the half transform's
-    launches), the axis-0 column pass through the four 2-D calls on the
+    inside this phase by patching its threshold in ``plan``
+    (``unittest.mock.patch.multiple``) and both checked closed afterwards.
+    The packed real forward through ``fft_device`` (against numpy f64, a
+    roundtrip, the half transform's launches), the axis-0 column pass through the four 2-D calls on the
     image and on the panel's column leg, the packed direct rfft / PSD, and
     the soak in-process.  Device times beside the closed routes and
     ``torch.fft``.  Returns the launches of the phase (counted from 0)."""
     import contextlib
     import io
+    from unittest import mock
 
     import numpy as np
     import scipy.fft as sf
     import torch
 
     import gpu_fft_tpu_torch as gt
-    from gpu_fft_tpu_torch import config, tuning
+    from gpu_fft_tpu_torch import config
     from gpu_fft_tpu_torch import plan as P
     from gpu_fft_tpu_torch.kernels import fused as K
     from gpu_fft_tpu_torch.kernels import fused_torch as F
     from gpu_fft_tpu_torch.kernels import large as L
     from gpu_fft_tpu_torch.scripts import soak
 
-    row = tuning.get_tuning()
+    shut = (P.RFFT_PACK_MIN, P.AXIS0_H_MIN)
     kernels = (*MAIN_PATH_KERNELS, *FAST_KERNELS.values())
 
     def snapshot():
@@ -2643,9 +2647,9 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
             / float(np.abs(ref).max())
 
     def dev_ms(fn, **opened):
-        """``device_ms`` of ``fn`` with the row's ``opened`` fields replaced
+        """``device_ms`` of ``fn`` with plan's ``opened`` thresholds patched
         while it runs (None where no profile recorded a kernel)."""
-        with tuning.replaced(**opened) if opened else contextlib.nullcontext():
+        with mock.patch.multiple(P, **opened) if opened else contextlib.nullcontext():
             return device_ms(fn, iters=10)[0]
 
     def keep(label, **ms):
@@ -2665,8 +2669,8 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
     F.transform_axis0 = logged_axis0
     try:
         # ── The packed real forward: ONE n/2-point complex transform ────────
-        print(f"  packed real forward, rfft_pack_min opened (gate 5*log2(n)*eps; fast {PRECISION_BANDS['fast']})")
-        with tuning.replaced(rfft_pack_min=8):
+        print(f"  packed real forward, {PACK_OPEN} (gate 5*log2(n)*eps; fast {PRECISION_BANDS['fast']})")
+        with mock.patch.multiple(P, **PACK_OPEN):
             for n in GATE_PACK_SIZES:
                 for b in (1, 3):
                     x = rng.standard_normal((b, n)).astype(np.float32)
@@ -2700,7 +2704,7 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
 
         # ── The axis-0 column pass ──────────────────────────────────────────
         stamp("phase 3i axis-0")
-        print("  axis-0 column pass, axis0_* opened (phase 3e's gates)")
+        print(f"  axis-0 column pass, {AXIS0_OPEN} (phase 3e's gates)")
         img = rng.standard_normal((IMAGE, IMAGE)).astype(np.float32)
         img_t = torch.from_numpy(img).to(dev)
         iref = sf.fft2(img.astype(np.float64), workers=-1)
@@ -2708,7 +2712,7 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
         h, w = PANEL
         panel = rng.standard_normal((h, w)).astype(np.float32)
         panel_t = torch.from_numpy(panel).to(dev)
-        with tuning.replaced(**AXIS0_OPEN):
+        with mock.patch.multiple(P, **AXIS0_OPEN):
             if not (P.axis0_applies(IMAGE, IMAGE) and P.axis0_applies(IMAGE, IMAGE // 2 + 1)):
                 fail("the axis-0 gate did not open for the image")
             (yr, yi), _ = counted(f"fft2_device {IMAGE}^2 axis-0", lambda: gt.fft2_device(img_t), {})
@@ -2772,7 +2776,7 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
             ran, failures = soak.run(device="cuda", **SOAK)
         lines = log.getvalue().splitlines()
         for line in lines:
-            if "FAIL" in line or "EXCEPTION" in line or line.startswith("soak:"):
+            if "FAIL" in line or "EXCEPTION" in line or "not gated" in line or line.startswith("soak:"):
                 print(f"    {line}")
         report["soak"] = dict(args=SOAK, ran=ran, failures=failures, log=lines)
         if failures or ran != SOAK["iters"] + SOAK["analysis_iters"]:
@@ -2785,15 +2789,15 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
         print(f"  times, gate opened beside closed ({report['card']})")
         for n in GATE_PACK_SIZES:
             xt = torch.from_numpy(rng.standard_normal((1, n)).astype(np.float32)).to(dev)
-            keep(f"fft_device (1, {n})", packed=dev_ms(lambda: gt.fft_device(xt), rfft_pack_min=8),
+            keep(f"fft_device (1, {n})", packed=dev_ms(lambda: gt.fft_device(xt), **PACK_OPEN),
                  closed=dev_ms(lambda: gt.fft_device(xt)), torch_fft=dev_ms(lambda: torch.fft.fft(xt)))
         xt = torch.from_numpy(rng.standard_normal((1, GATE_PACK_FAST)).astype(np.float32)).to(dev)
         config.PRECISION = "fast"
         try:
-            packed, closed = dev_ms(lambda: gt.fft_device(xt), rfft_pack_min=8), dev_ms(lambda: gt.fft_device(xt))
+            packed, shipped = dev_ms(lambda: gt.fft_device(xt), **PACK_OPEN), dev_ms(lambda: gt.fft_device(xt))
         finally:
             config.PRECISION = "full"
-        keep(f"fft_device (1, {GATE_PACK_FAST}) fast", packed=packed, closed=closed,
+        keep(f"fft_device (1, {GATE_PACK_FAST}) fast", packed=packed, closed=shipped,
              torch_fft=dev_ms(lambda: torch.fft.fft(xt)))
         yr, yi = gt.fft2_device(img_t)
         hr, hi = gt.rfft2_device(img_t)
@@ -2830,9 +2834,10 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
         restore()
         config.PRECISION = "full"
     del img_t, panel_t
-    if tuning.get_tuning() is not row or P.rfft_pack_applies(1, 1 << 22) or P.axis0_applies(IMAGE, IMAGE):
-        fail(f"the tuning row was not put back: {tuning.get_tuning()}")
-    print(f"  the tuning row is back ({row.name}: rfft_pack_min {row.rfft_pack_min}, axis0_h_min {row.axis0_h_min})")
+    if (P.RFFT_PACK_MIN, P.AXIS0_H_MIN) != shut or P.rfft_pack_applies(1, 1 << 22) \
+            or P.axis0_applies(IMAGE, IMAGE):
+        fail(f"the gates were not closed again: {(P.RFFT_PACK_MIN, P.AXIS0_H_MIN)}, want {shut}")
+    print(f"  both gates closed again (RFFT_PACK_MIN, AXIS0_H_MIN = {shut})")
     print(f"  launches in phase 3i: {launched}")
     report["gate_closed_launches"] = launched
     stamp("phase 3i geometries")
@@ -3678,12 +3683,14 @@ def main() -> None:
         "copy_min": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/calibrate_latency.py:79"),
     }
     # The main path's launches: fft/ifft and the real-output path together.
+    # Phase 3i's stand apart (gate_closed_path_launches): no tuning row
+    # takes the gate-closed routes.
     all_launches = {**{k: main_launches[k] + irfft_launches[k] + grad_launches[k] + analysis_launches[k]
                           + filter_launches[k] + twod_launches[k] + namespace_launches[k] + fno_launches[k]
-                          + parallel_launches[k] + gate_launches[k]
+                          + parallel_launches[k]
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS},
-                    **{k: v + gate_launches[k] for k, v in precision["launches"].items()},
+                    **precision["launches"],
                     **fast_legacy["launches"]}
     max_err.update(precision["max_err"])
     for name, err in fast_legacy["max_err"].items():

@@ -16,8 +16,8 @@ engine is picked by (B, n) with the same predicates as the JAX package
 
 Ahead of these, a real forward with ``rfft_pack_applies`` runs as ONE
 n/2-point complex transform (:func:`_real_packed_fft`), so on K1 for
-n/2 in the band and on K3 above FUSED_MAX.  Its gate is closed on both
-tuning rows, as in the JAX package.
+n/2 in the band and on K3 above FUSED_MAX.  Its gate
+(``plan.RFFT_PACK_MIN``) is closed, as in the JAX package.
 
 Under ``GPU_FFT_TPU_PRECISION=high`` no kernel runs, as in the JAX package,
 whose Mosaic kernels have no bf16x3 form: the band falls through to the

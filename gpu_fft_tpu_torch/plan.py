@@ -23,12 +23,10 @@ from .kernels.tables import dft_matrix_ext, twiddle_table
 from .tuning import get_tuning
 
 __all__ = [
-    "STAGE_A_N1",
     "FusedPlan",
     "axis0_applies",
     "balanced_split",
     "clear_device_cache",
-    "deinterleave_matrix",
     "describe_plan",
     "from_jax_plan",
     "get_fused_plan",
@@ -62,12 +60,19 @@ def use_folded_layout(b: int, n: int) -> bool:
     return n <= t.folded_n_max or b >= t.folded_batch_min
 
 
+# The two gate-closed engines' thresholds: 1 << 62, closed, as on every
+# JAX tuning row.  No tuning row opens them; a measurement or a test opens
+# one by patching the constant for its length (``unittest.mock.patch.object``).
+RFFT_PACK_MIN = 1 << 62
+AXIS0_H_MIN = 1 << 62
+
+
 def rfft_pack_applies(b: int, n: int) -> bool:
     """Real input runs as ONE n/2-point complex transform of
     z = x[0::2] + i x[1::2] and an O(n) recombination
     (``kernels/large.py:_real_packed_fft``): half the transform's work.
-    Closed on both tuning rows, as in the JAX package."""
-    return n >= get_tuning().rfft_pack_min
+    From :data:`RFFT_PACK_MIN`, closed."""
+    return n >= RFFT_PACK_MIN
 
 
 def half_spectrum_applies(n: int) -> bool:
@@ -92,15 +97,10 @@ def irfft_half_staged_applies(n: int) -> bool:
 def axis0_applies(h: int, w: int) -> bool:
     """Whether the column pass of an (h, w) 2-D transform runs in place over
     axis 0 (``kernels/fused_torch.py:transform_axis0``) instead of
-    transpose, row transform, transpose back.  Closed on both tuning rows,
-    as in the JAX package."""
-    t = get_tuning()
-    return (
-        h & (h - 1) == 0
-        and t.axis0_h_min <= h <= t.axis0_h_max
-        and w >= t.axis0_w_min
-        and h > w // 2
-    )
+    transpose, row transform, transpose back: a power-of-two H from
+    :data:`AXIS0_H_MIN` (closed) up to the engine's FUSED_MAX, and
+    H > W/2, the JAX predicate's shape rule."""
+    return AXIS0_H_MIN <= h <= FUSED_MAX and h & (h - 1) == 0 and h > w // 2
 
 
 def whole_kernel_applies(b: int, n: int) -> bool:
@@ -138,18 +138,6 @@ def get_pack_tables(n: int) -> tuple:
     from .kernels.tables import unit_roots
 
     return unit_roots(n // 2, n, -1)
-
-
-@functools.lru_cache(maxsize=None)
-def deinterleave_matrix() -> np.ndarray:
-    """(256, 256) 0/1 permutation: right-multiplying a (rows, 256) view sends
-    each row's even elements to columns 0..127 and its odd ones to
-    128..255.  The JAX package splits x[0::2] / x[1::2] with it on the TPU;
-    the port slices instead and keeps the matrix for the name and the tests."""
-    p = np.zeros((256, 256), dtype=np.float32)
-    for src in range(256):
-        p[src, src // 2 + (128 if src % 2 else 0)] = 1.0
-    return p
 
 
 # ── Fused plans (n <= FUSED_MAX) ─────────────────────────────────────────────
@@ -404,11 +392,6 @@ def stage_a_real_rows(n1: int) -> int:
     k1 and the half-spectrum stage B reads only k1 <= n1/2, so the first
     ceil-to-8(n1/2 + 1) rows (72 of 128, 136 of 256)."""
     return -(-(n1 // 2 + 1) // 8) * 8
-
-
-# The stage-A digit of the v5e row; the live value is the tuning row's
-# ``stage_a_n1`` (the same 128 on both of the port's rows).
-STAGE_A_N1 = 128
 
 
 def _stage_a_n1(n: int) -> int:

@@ -13,7 +13,7 @@ pass of an (H, W) image:
 Two tables, as the JAX script has them: the isolated column leg, (T)
 against (A) on real and complex input, H in {256, 1,024, 4,096, 16,384},
 W in {128, 512, 2,048, 4,096}, H W <= 2^24; and ``fft2_device`` composed,
-the axis-0 gate closed and opened (``tuning.replaced``) at the nine JAX
+the axis-0 gate closed and opened (``plan.AXIS0_H_MIN`` patched to 2) at the nine JAX
 cells.  Steps map (H, W) to (H, W) (``utils/profiling.chained_step_stats``);
 ``parity`` is max|A - T| / max|T|.
 
@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -36,7 +37,6 @@ COMPOSED = ((2048, 512), (2048, 1024), (2048, 2048), (4096, 512), (4096, 1024), 
             (8192, 512), (8192, 2048))
 QUICK_LEG = ((4096, 512),)
 QUICK_COMPOSED = ((4096, 4096),)
-OPEN = dict(axis0_h_min=2, axis0_h_max=1 << 16, axis0_w_min=2)  # every composed cell has H > W/2
 
 
 def parity_failures(results: dict) -> dict:
@@ -48,7 +48,7 @@ def parity_failures(results: dict) -> dict:
 
 
 def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> dict:
-    from .. import tuning
+    from .. import plan
     from ..config import apply_precision
     from ..kernels.fused_torch import transform_axis0
     from ..kernels.large import transform_any
@@ -106,7 +106,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
             return fft2_device(v)[0]
 
         def opened(v):
-            with tuning.replaced(**OPEN):
+            with mock.patch.object(plan, "AXIS0_H_MIN", 2):  # every composed cell has H > W/2
                 return fft2_device(v)[0]
 
         t_off, t_on, par = pair(closed, opened, img)

@@ -1,7 +1,7 @@
 """The packed real forwards against the shipped routes, on the card.
 
 Counterpart of ``scripts/ablate_rfft_packed.py``, whose two sections it
-keeps, and a third for the ``rfft_pack_min`` gate:
+keeps, and a third for the packed real forward's gate:
 
 1. ``fwd``: the one-product direct rfft (``fused_torch.rfft_direct_packed``
    on ``plan.get_rfft_direct_packed_plan``) against ``rfft_device`` with
@@ -9,7 +9,7 @@ keeps, and a third for the ``rfft_pack_min`` gate:
    shapes (253, 256), (511, 256), (64, 512);
 2. ``psd``: ``fused_torch.rfft_packed_psd`` against ``rfft_device`` and
    re^2 + im^2, both padded back to (B, n);
-3. ``gate``: ``fft_device`` with ``rfft_pack_min`` opened (``tuning.replaced``:
+3. ``gate``: ``fft_device`` with ``plan.RFFT_PACK_MIN`` patched to 8 (open:
    the real forward as ONE n/2-point complex transform,
    ``kernels/large.py:_real_packed_fft``) against the closed row, at
    B = 1 and 3, n = 4,096 … 2^22 (quick: B = 1 at 32,768 and 2^21).
@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import json
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -44,7 +45,7 @@ def parity_failures(results: dict) -> dict:
 
 
 def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> dict:
-    from .. import tuning
+    from .. import plan
     from ..config import apply_precision
     from ..kernels.fused_torch import rfft_direct_packed, rfft_packed_psd
     from ..ops.transform import fft_device, rfft_device
@@ -107,7 +108,7 @@ def main(quick: bool = False, out_dir: str = "chiprun_out", device="cuda") -> di
             return fft_device(f)[0] * sc
 
         def opened(f):
-            with tuning.replaced(rfft_pack_min=8):
+            with mock.patch.object(plan, "RFFT_PACK_MIN", 8):
                 return fft_device(f)[0] * sc
 
         row("gate", b, n, closed, opened, x0, labels=("closed", "packed"))

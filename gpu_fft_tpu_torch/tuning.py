@@ -6,20 +6,18 @@ The port keeps that shape with two rows: ``h100``, uncalibrated, carrying the
 v5e gate values, and ``cpu-approx``, the same values for the CPU tests.
 Identical gates mean the port takes the same engine as the JAX package for
 every (B, n), so the tests compare like with like.  Re-tuning the gates on
-H100 measurements is later work; :func:`replaced` opens a gate for the
-length of a block (a measurement or a test) and puts the row back.
+H100 measurements is later work.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 from dataclasses import dataclass, replace
 
 import torch
 
-__all__ = ["ChipTuning", "TUNING", "get_tuning", "replaced"]
+__all__ = ["ChipTuning", "TUNING", "get_tuning"]
 
 
 @dataclass(frozen=True)
@@ -34,19 +32,11 @@ class ChipTuning:
     * ``stage_a_n1``: the staged column digit.
     * ``oa_block_min``: the floor of the overlap-add block transform length
       (``ops/filter.py:_best_block_fft_size``).
-    * ``rfft_pack_min``: from this n a real forward runs as ONE n/2-point
-      complex transform and an O(n) recombination (``kernels/large.py:
-      _real_packed_fft``); closed (1 << 62) on both rows.
     * ``half_spectrum_min``: real input computes only k1 <= n1/2 and mirrors.
     * ``irfft_half_min``: a real-output inverse folds the conjugate half of
       its input before the matmuls (fused sizes);
       ``irfft_half_staged_min``: from this staged n, stage A runs on half
       the column tiles and stage B folds per row.
-    * ``axis0_h_min`` / ``axis0_h_max`` / ``axis0_w_min``: the 2-D column
-      pass of an (H, W) image runs in place over axis 0
-      (``kernels/fused_torch.py:transform_axis0``) for a power-of-two H in
-      [h_min, h_max], W >= w_min and H > W/2 (``plan.axis0_applies``);
-      closed (1 << 62) on both rows.
     * ``irfft_direct_k128``: the direct half inverse at n >= 256 contracts
       K = n/2 and adds the Nyquist row as a broadcast.
     * ``whole_*``: the (B, n) band that runs the whole transform as one kernel;
@@ -62,13 +52,9 @@ class ChipTuning:
     folded_batch_min: int
     stage_a_n1: int
     oa_block_min: int
-    rfft_pack_min: int
     half_spectrum_min: int
     irfft_half_min: int
     irfft_half_staged_min: int
-    axis0_h_min: int
-    axis0_h_max: int
-    axis0_w_min: int
     irfft_direct_k128: bool
     whole_n_min: int
     whole_n_max: int
@@ -89,13 +75,9 @@ _H100 = ChipTuning(
     folded_batch_min=2,
     stage_a_n1=128,
     oa_block_min=16384,
-    rfft_pack_min=1 << 62,
     half_spectrum_min=1 << 15,
     irfft_half_min=1 << 15,
     irfft_half_staged_min=1 << 18,
-    axis0_h_min=1 << 62,
-    axis0_h_max=1 << 62,
-    axis0_w_min=512,
     irfft_direct_k128=True,
     whole_n_min=1 << 10,
     whole_n_max=1 << 14,
@@ -134,24 +116,3 @@ def get_tuning() -> ChipTuning:
             raise ValueError(f"GPU_FFT_TPU_CHIP={forced!r} unknown; have {sorted(TUNING)}")
         return TUNING[key]
     return _detected_tuning()
-
-
-@contextlib.contextmanager
-def replaced(**fields):
-    """Run a block on the current row with ``fields`` replaced
-    (``dataclasses.replace``), then put the row back, also on an error.
-
-    How a measurement or a test opens a closed gate (``rfft_pack_min=8``)
-    without editing the table; the dispatch reads the row at each call.
-    Yields the replaced row.  Not for concurrent use: the row is the
-    process's.
-    """
-    row = get_tuning()
-    key = os.environ.get("GPU_FFT_TPU_CHIP", "").strip().lower() or row.name
-    TUNING[key] = replace(row, **fields)
-    _detected_tuning.cache_clear()
-    try:
-        yield TUNING[key]
-    finally:
-        TUNING[key] = row
-        _detected_tuning.cache_clear()

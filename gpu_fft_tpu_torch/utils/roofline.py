@@ -199,10 +199,6 @@ def count_kernels(step, x0) -> int:
     return compiled_stats(step, x0)["n_kernels"]
 
 
-def _pack_applies(b: int, n: int) -> bool:
-    return _plan.rfft_pack_applies(b, n)
-
-
 def transform_stages(b: int, n: int, real_input: bool):
     """Per-matmul-stage (flops, contraction) list and elementwise flops of
     the port's dispatch (``kernels/large.py:transform_any``): the whole
@@ -212,7 +208,7 @@ def transform_stages(b: int, n: int, real_input: bool):
     where ``rfft_pack_applies`` is the n/2-point complex transform's stages
     plus the recombination, charged 8 flops per element.
     """
-    if real_input and n >= 8 and _pack_applies(b, n):
+    if real_input and n >= 8 and _plan.rfft_pack_applies(b, n):
         stages, elem = transform_stages(b, n // 2, real_input=False)
         return stages, elem + 8.0 * b * n
     if DIRECT_MAX < n <= FUSED_MAX and _plan.whole_kernel_applies(b, n):

@@ -972,15 +972,15 @@ def test_fast_mode_launches_its_kernels_on_card(dev, n, kernel, monkeypatch):
 
 @pytest.mark.parametrize("n,kernel", [(32768, "whole_transform"), (1 << 21, "stage_a")])
 def test_packed_real_forward_launches_one_kernel_on_card(dev, n, kernel):
-    """The gate-closed packed real forward (``rfft_pack_min`` opened for the
-    test): the n/2-point complex transform is one launch of K1 or K3, and
-    the spectrum is within 5 log2(n) eps of numpy in float64."""
-    from gpu_fft_tpu_torch import tuning
+    """The gate-closed packed real forward (``plan.RFFT_PACK_MIN`` opened for
+    the test): the n/2-point complex transform is one launch of K1 or K3,
+    and the spectrum is within 5 log2(n) eps of numpy in float64."""
+    from unittest import mock
 
     x = torch.randn(1, n, device=dev, generator=torch.Generator(device=dev).manual_seed(n))
     ref = np.fft.fft(x.double().cpu().numpy(), axis=-1)
     K.reset_counts()
-    with tuning.replaced(rfft_pack_min=8):
+    with mock.patch.object(P, "RFFT_PACK_MIN", 8):
         yr, yi = gt.fft_device(x)
     ran = {k: c.launches for k, c in K.COUNTS.items() if c.launches or c.plain_calls}
     assert ran == {kernel: 1}

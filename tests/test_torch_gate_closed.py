@@ -1,15 +1,16 @@
 """The gate-closed engines of the port against the JAX package, on the CPU.
 
-Both packages keep these paths with their tuning gates closed
-(``rfft_pack_min`` and ``axis0_*`` = 1 << 62): the packed real forward
+Both packages keep these paths with their gates closed (1 << 62: the JAX
+package's ``rfft_pack_min`` and ``axis0_*`` tuning fields, the port's
+``plan.RFFT_PACK_MIN`` and ``AXIS0_H_MIN``): the packed real forward
 (``kernels/large.py:_real_packed_fft``), the axis-0 column pass
 (``transform_axis0`` and its three ``ops/fft2d.py`` branches), the
 one-sided fold grid (``fused_irfft_half``) and the packed direct rfft / PSD.
 Each is held against the JAX function on the same seeded input, and
 against numpy in float64, at the JAX tests' shapes and gates
 (``tests/test_kernel_paths.py``, ``test_fft2d.py``, ``test_irfft_half.py``);
-gates are opened with ``tuning.replaced`` in the port and monkeypatched in
-the JAX package.  Then the soak and the two ablations, rehearsed.
+gates are opened by monkeypatching, the port's constants and the JAX
+package's predicates.  Then the soak and the two ablations, rehearsed.
 """
 
 import dataclasses
@@ -28,13 +29,13 @@ import gpu_fft_tpu_torch as gt
 import gpu_fft_tpu_torch.kernels.fused_torch as tfj
 import gpu_fft_tpu_torch.kernels.large as tlarge
 import gpu_fft_tpu_torch.plan as tplan
+from gpu_fft_tpu_torch.config import FUSED_MAX
 from gpu_fft_tpu_torch import tuning
 from gpu_fft_tpu_torch.scripts import ablate_fft2_axis0, ablate_rfft_packed, soak
 from gpu_fft_tpu_torch.utils import profiling as tprof
 
 PACK_SIZES = (256, 4096, 65536, 1 << 17)
 AXIS0_CASES = ((64, 96, False), (512, 130, True), (2048, 64, False))
-AXIS0_OPEN = dict(axis0_h_min=2, axis0_h_max=1 << 16, axis0_w_min=2)
 
 
 def _bound(n):
@@ -101,7 +102,7 @@ def test_packed_real_forward_below_256(n):
 
 @pytest.mark.parametrize("b,n", [(1, 65536), (1, 4096), (3, 1 << 18)])
 def test_forced_gate_meets_the_roundtrip_gate(b, n, monkeypatch):
-    """The gate opened through the tuning row: transform_any takes the
+    """The gate opened through ``plan.RFFT_PACK_MIN``: transform_any takes the
     packed branch, the JAX package's forced branch agrees (B = 1), and the
     public roundtrip meets 5 log2(N) eps
     (``test_packed_gate_still_meets_roundtrip_gate``)."""
@@ -109,15 +110,16 @@ def test_forced_gate_meets_the_roundtrip_gate(b, n, monkeypatch):
     calls = []
     real = tlarge._real_packed_fft
     monkeypatch.setattr(tlarge, "_real_packed_fft", lambda *a: calls.append(a[1]) or real(*a))
-    with tuning.replaced(rfft_pack_min=256) as row:
-        assert row.rfft_pack_min == 256 and tplan.rfft_pack_applies(b, n)
+    with monkeypatch.context() as m:
+        m.setattr(tplan, "RFFT_PACK_MIN", 256)
+        assert tplan.rfft_pack_applies(b, n)
         yr, yi = tlarge.transform_any(_t(x), None, n, -1)
         if b == 1:
             re, im = gt.fft(x[0], device="cpu")
             out = gt.ifft(re, im, device="cpu")
             assert np.abs(out[:n] - x[0]).max() <= _bound(n)
     assert calls == [n] * (2 if b == 1 else 1)
-    assert not tplan.rfft_pack_applies(b, n) and tuning.get_tuning().rfft_pack_min == 1 << 62
+    assert not tplan.rfft_pack_applies(b, n) and tplan.RFFT_PACK_MIN == 1 << 62
     ref = np.fft.fft(x.astype(np.float64), axis=-1)
     assert _rel((yr, yi), (ref.real, ref.imag)) < _bound(n)
     if b == 1:  # (the JAX half transform at 2^17 runs Pallas in interpret mode)
@@ -127,7 +129,7 @@ def test_forced_gate_meets_the_roundtrip_gate(b, n, monkeypatch):
 
 
 @pytest.mark.parametrize("b,n", [(1, 4096), (2, 4096), (1, 1 << 18)])
-def test_gradient_through_the_packed_branch(b, n):
+def test_gradient_through_the_packed_branch(b, n, monkeypatch):
     """d/dx of a weighted sum of the spectrum through the packed branch (the
     strided split, K1's or K3's autograd seam at n/2, the epilogue) equals
     the gradient through the closed route."""
@@ -142,8 +144,8 @@ def test_gradient_through_the_packed_branch(b, n):
         return g.numpy()
 
     closed = grad()
-    with tuning.replaced(rfft_pack_min=8):
-        packed = grad()
+    monkeypatch.setattr(tplan, "RFFT_PACK_MIN", 8)
+    packed = grad()
     assert _rel((packed,), (closed,)) < 1e-5
 
 
@@ -178,7 +180,8 @@ def axis0_calls(monkeypatch):
     real = tfj.transform_axis0
     monkeypatch.setattr(tfj, "transform_axis0", lambda xr, xi, n, *a, **k: calls.append(n) or real(xr, xi, n, *a, **k))
     monkeypatch.setattr(jplan, "axis0_applies", lambda h, w: h & (h - 1) == 0)
-    with tuning.replaced(**AXIS0_OPEN):
+    with monkeypatch.context() as m:
+        m.setattr(tplan, "AXIS0_H_MIN", 2)
         yield calls
     assert not tplan.axis0_applies(4096, 4096)
 
@@ -211,16 +214,18 @@ def test_rfft2_and_irfft2_through_the_axis0_branch(axis0_calls):
 
 
 def test_axis0_predicate_matches_jax_when_open(monkeypatch):
-    """Opened by the same fields in both packages, the predicates agree on
-    every shape: a power-of-two H in range, W >= w_min and H > W/2."""
-    fields = dict(axis0_h_min=64, axis0_h_max=4096, axis0_w_min=32)
+    """Opened from the same H in both packages, the predicates agree on every
+    shape: a power-of-two H from h_min up to the engine's FUSED_MAX (the
+    port's bound; the JAX row's h_max set to it) and H > W/2 (the JAX row's
+    w_min set to 0: the port has no width floor)."""
+    fields = dict(axis0_h_min=64, axis0_h_max=FUSED_MAX, axis0_w_min=0)
     opened = dataclasses.replace(jtuning.get_tuning(), **fields)
     monkeypatch.setattr(jplan, "get_tuning", lambda: opened)
-    with tuning.replaced(**fields):
-        for h in (32, 64, 96, 128, 4096, 8192):
-            for w in (16, 32, 100, 128, 256, 8192):
-                assert tplan.axis0_applies(h, w) == jplan.axis0_applies(h, w), (h, w)
-        assert tplan.axis0_applies(128, 100) and not tplan.axis0_applies(128, 256)
+    monkeypatch.setattr(tplan, "AXIS0_H_MIN", 64)
+    for h in (32, 64, 96, 128, 4096, 8192, FUSED_MAX, 2 * FUSED_MAX):
+        for w in (16, 32, 100, 128, 256, 8192):
+            assert tplan.axis0_applies(h, w) == jplan.axis0_applies(h, w), (h, w)
+    assert tplan.axis0_applies(128, 100) and not tplan.axis0_applies(128, 256)
 
 
 # ── The one-sided fold grid and the packed direct rfft ──────────────────────
@@ -287,8 +292,6 @@ def test_plans_are_the_jax_packages(n, scale):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tplan.get_rfft_direct_packed_plan(n, scale)["t"],
                                   jplan.get_rfft_direct_packed_plan(n, scale)["t"])
-    np.testing.assert_array_equal(tplan.deinterleave_matrix(), jplan.deinterleave_matrix())
-    assert tplan.STAGE_A_N1 == jplan.STAGE_A_N1
     with pytest.raises(ValueError):
         tplan.get_rfft_direct_packed_plan(1024)
 
@@ -298,22 +301,14 @@ def test_plans_are_the_jax_packages(n, scale):
 
 @pytest.mark.parametrize("row", ["h100", "cpu-approx"])
 def test_every_gate_closed_by_default(row, monkeypatch):
-    t = tuning.TUNING[row]
+    """The port's thresholds are the JAX rows' closed values, and no tuning
+    row (nor any other process-wide setting) opens a gate."""
     v5e = jtuning.TUNING["v5e"]
-    assert (t.rfft_pack_min, t.axis0_h_min, t.axis0_h_max, t.axis0_w_min) == (1 << 62, 1 << 62, 1 << 62, 512)
-    assert (t.rfft_pack_min, t.axis0_h_min, t.axis0_h_max, t.axis0_w_min) == (
-        v5e.rfft_pack_min, v5e.axis0_h_min, v5e.axis0_h_max, v5e.axis0_w_min)
+    assert (tplan.RFFT_PACK_MIN, tplan.AXIS0_H_MIN) == (v5e.rfft_pack_min, v5e.axis0_h_min) == (1 << 62, 1 << 62)
     monkeypatch.setenv("GPU_FFT_TPU_CHIP", row)
+    assert tuning.get_tuning().name == row
     assert not any(tplan.rfft_pack_applies(b, 1 << k) for b in (1, 3, 64) for k in range(3, 25))
     assert not any(tplan.axis0_applies(h, w) for h in (512, 2048, 4096, 8192) for w in (96, 512, 4096))
-
-
-def test_replaced_puts_the_row_back_on_error():
-    before = tuning.get_tuning()
-    with pytest.raises(RuntimeError), tuning.replaced(rfft_pack_min=8):
-        assert tuning.get_tuning().rfft_pack_min == 8
-        raise RuntimeError
-    assert tuning.get_tuning() is before
 
 
 # ── The soak and the two ablations ───────────────────────────────────────────
@@ -333,6 +328,16 @@ def test_soak_counts_an_exception_as_a_failure(monkeypatch, capsys):
     assert soak.run(iters=2, analysis_iters=0, max_bytes=1 << 20, device="cpu") == (2, 2)
     assert soak.main(["--device", "cpu", "--iters", "1", "--analysis-iters", "0"]) == 1
     assert "EXCEPTION RuntimeError" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("seed,drawn", [(23, "-0.62"), (1, "0.72")])
+def test_soak_reports_a_clipped_fht_draw_ungated(seed, drawn):
+    """A bias past the condition-number cap is gated clipped and also run as
+    drawn, its error reported beside the draw but not gated (a non-finite
+    one included)."""
+    desc, err, good = soak._analysis_case("fht", np.random.default_rng(seed), "cpu")
+    assert f"(drawn q={drawn}: err " in desc and desc.endswith(", not gated)")
+    assert good and err < soak.GATE
 
 
 @pytest.fixture
@@ -355,7 +360,7 @@ def test_ablate_rfft_packed_rehearsal(rehearsal, monkeypatch, tmp_path):
         ("fwd", 253, 256), ("psd", 253, 256), ("gate", 1, 4096), ("gate", 3, 1 << 17)]
     assert not ablate_rfft_packed.parity_failures(res)
     assert (tmp_path / "ablate_rfft_packed_results.json").is_file()
-    assert tuning.get_tuning().rfft_pack_min == 1 << 62
+    assert tplan.RFFT_PACK_MIN == 1 << 62 and not tplan.rfft_pack_applies(1, 1 << 22)
 
 
 def test_ablate_fft2_axis0_rehearsal(rehearsal, monkeypatch, tmp_path):

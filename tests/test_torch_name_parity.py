@@ -47,6 +47,11 @@ JAX_ONLY = {
     ("kernels/large.py", "_stage_a_ad"): "the same seam",
     ("kernels/large.py", "_stage_a_core"): "the same seam",
     ("kernels/large.py", "_stage_a_core_jvp"): "the same seam",
+    ("plan.py", "deinterleave_matrix"): "the TPU's 0/1 permutation matmul for the even / odd split; the "
+                                        "port's packed forward slices x[0::2] / x[1::2]",
+    ("plan.py", "STAGE_A_N1"): "the v5e stage-A digit, read by nothing; the live value is the tuning row's "
+                               "stage_a_n1",
+    ("utils/roofline.py", "_pack_applies"): "a wrapper of plan.rfft_pack_applies, called directly",
     ("utils/roofline.py", "_fused_split"): "a wrapper of plan.fused_split, which the port calls directly",
     ("utils/roofline.py", "_half_applies"): "a wrapper of plan.half_spectrum_applies, called directly",
     ("utils/roofline.py", "_stage_a_n1"): "a wrapper of plan._stage_a_n1, called directly",

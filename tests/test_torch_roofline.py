@@ -95,10 +95,11 @@ def test_packing_branch_matches_the_jax_package(b, n, monkeypatch):
     """With the packing gate opened in both packages, a real input costs the
     n/2-point complex transform plus 8 flops an element."""
     import gpu_fft_tpu.plan as jplan
-    from gpu_fft_tpu_torch import tuning
+    import gpu_fft_tpu_torch.plan as tplan
 
     monkeypatch.setattr(jplan, "rfft_pack_applies", lambda b, n: n >= 256)
-    with tuning.replaced(rfft_pack_min=256):
+    with monkeypatch.context() as m:
+        m.setattr(tplan, "RFFT_PACK_MIN", 256)
         got, want = roof.transform_cost(b, n, "fft"), jroof.transform_cost(b, n, "fft")
         half = roof.transform_stages(b, n // 2, real_input=False)
     assert got["stages"] == pytest.approx(want["stages"], rel=1e-12) and got["stages"] == half[0]
