@@ -1,0 +1,4 @@
+"""device_ms_per_call in the cells whose end-to-end rate is the card's,
+card_samples_per_s."""
+
+from .device_ms_per_call import read  # noqa: F401
