@@ -38,6 +38,7 @@ from .fused import (
     _bf16_dots,
     _check,
     _fast,
+    _launch,
     _on_cpu,
     _ptr,
     _stream,
@@ -174,11 +175,10 @@ def manual_launch(x, tables: dict, bn: int):
     _check("stage_a_manual", x.device, {"x": x, **{k: tables[k] for k in names}}, shapes)
     yr = torch.empty_like(x)
     yi = torch.empty_like(x)
-    err = _build.library().gft_stage_a_manual(
+    _launch(
+        COUNTS, "stage_a_manual", _build.library().gft_stage_a_manual,
         _ptr(x), *(_ptr(tables[k]) for k in names), _ptr(yr), _ptr(yi), n1, n2, bn, _stream(x.device),
     )
-    _build.check(err, "stage_a_manual")
-    COUNTS["stage_a_manual"].launches += 1
     return yr, yi
 
 
@@ -231,12 +231,11 @@ def manual_bf16_launch(x, tables: dict, geometry: tuple):
            {"f_img": (2 * n1 // 64, 1, -(-n1 // 64), 64, 64)}, dtype=torch.bfloat16)
     yr = torch.empty_like(x)
     yi = torch.empty_like(x)
-    err = _build.library().gft_stage_a_manual_bf16(
+    _launch(
+        COUNTS, "stage_a_manual_bf16", _build.library().gft_stage_a_manual_bf16,
         _ptr(x), _ptr(tables["f_img"]), _ptr(tables["twr"]), _ptr(tables["twi"]), _ptr(yr), _ptr(yi), n1, n2,
         *geometry, _stream(x.device),
     )
-    _build.check(err, "stage_a_manual_bf16")
-    COUNTS["stage_a_manual_bf16"].launches += 1
     return yr, yi
 
 
@@ -380,15 +379,15 @@ def dot_launch(x, tables: dict, variant: str, geometry: tuple):
     yi = torch.empty_like(x)
     stream = _stream(x.device)
     _check("stage_a_dot", x.device, {"x": x}, {"x": (b, n1, n2)})
+    kernel = f"stage_a_dot_{variant}"
     if variant == "f32_highest":
         _check("stage_a_dot", x.device, {"f_t": tables["f_t"]}, {"f_t": (n1, 2 * n1)})
-        err = lib.gft_stage_a_dot_f32(_ptr(x), _ptr(tables["f_t"]), _ptr(yr), _ptr(yi), b, n1, n2, stream)
+        _launch(COUNTS, kernel, lib.gft_stage_a_dot_f32, _ptr(x), _ptr(tables["f_t"]), _ptr(yr), _ptr(yi),
+                b, n1, n2, stream)
     else:
         img = (2 * n1 // 64, 3, -(-n1 // 64), 64, 64)
         _check("stage_a_dot", x.device, {"f_img": tables["f_img"]}, {"f_img": img}, dtype=torch.bfloat16)
         parts = 3 if variant == "bf16_x6" else 1
-        err = lib.gft_stage_a_dot_bf16(_ptr(x), _ptr(tables["f_img"]), _ptr(yr), _ptr(yi), b, n1, n2,
-                                       parts, *geometry, stream)
-    _build.check(err, f"stage_a_dot[{variant}]")
-    COUNTS[f"stage_a_dot_{variant}"].launches += 1
+        _launch(COUNTS, kernel, lib.gft_stage_a_dot_bf16, _ptr(x), _ptr(tables["f_img"]), _ptr(yr), _ptr(yi),
+                b, n1, n2, parts, *geometry, stream)
     return yr, yi

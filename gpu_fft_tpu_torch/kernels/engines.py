@@ -22,7 +22,7 @@ import torch
 
 from ..plan import balanced_split
 from . import _build
-from .fused import LaunchCount, _check, _on_cpu, _ptr, _stream, lm_geometry, sm_count
+from .fused import LaunchCount, _check, _launch, _on_cpu, _ptr, _stream, lm_geometry, sm_count
 from .tables import dft_matrix_ext, twiddle_table
 
 __all__ = [
@@ -83,9 +83,8 @@ def fused_fft_lm(x, t: dict):
     ``x``: (B, n) fp32; ``t``: :func:`lm_tables` on ``x``'s device, with n2 in
     :data:`LM_N2`.  Returns split-complex (B, n), natural order.
     """
-    count = COUNTS["fused_fft_lm"]
     if _on_cpu(x, "fused_fft_lm"):
-        count.plain_calls += 1
+        COUNTS["fused_fft_lm"].plain_calls += 1
         return fused_fft_lm_plain(x, t)
     b, n = x.shape
     n1, n2 = t["n1"], t["n2"]
@@ -98,10 +97,9 @@ def fused_fft_lm(x, t: dict):
     _check("fused_fft_lm", x.device, {"x": x, **{k: t[k] for k in names}}, shapes)
     yr = torch.empty_like(x)
     yi = torch.empty_like(x)
-    err = _build.library().gft_fused_lm(
+    _launch(
+        COUNTS, "fused_fft_lm", _build.library().gft_fused_lm,
         _ptr(x), *(_ptr(t[k]) for k in names), _ptr(yr), _ptr(yi), b, n1, n2, *geometry,
         _stream(x.device),
     )
-    _build.check(err, "fused_fft_lm")
-    count.launches += 1
     return yr, yi

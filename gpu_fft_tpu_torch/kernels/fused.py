@@ -45,7 +45,10 @@ CUDA kernel launches the Hopper kernel or raises, and a fake kernel gives
 the output shapes, so ``torch.export`` records the operator itself on
 either device.  ``COUNTS[name]`` counts inside the operator's kernels:
 ``launches`` where the kernel is launched, ``plain_calls`` where the plain
-version runs.  A tensor on any other device raises in the wrapper.
+version runs.  Every hand-written kernel of the port is launched through
+:func:`_launch`, which counts the launch and wraps the C call in the
+profiler span ``gft.launch.<name>``.  A tensor on any other device raises
+in the wrapper.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import config
+from ..utils.profiling import span
 from . import _build
 from .fused_torch import _stage_a_twiddle, stage_a_torch
 
@@ -162,6 +166,16 @@ def _ptr(t):
 
 def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(counts: dict, kernel: str, entry, *args) -> None:
+    """Launch ``kernel`` by its C entry, ``entry(*args)``, inside the span
+    ``gft.launch.<kernel>``; raise on its error and count the launch in
+    ``counts[kernel]``: the span and the counter share this one site."""
+    with span("gft.launch." + kernel):
+        err = entry(*args)
+    _build.check(err, kernel)
+    counts[kernel].launches += 1
 
 
 # ── K1 / K2: whole transform ─────────────────────────────────────────────────
@@ -335,12 +349,10 @@ def _whole_cuda(xr, xi, tables, n1):
     yi = torch.empty_like(xr)
     lib = _build.library()
     entry = lib.gft_whole_packed if packed else lib.gft_whole_split
-    err = entry(
-        _ptr(xr), _ptr(xi), *(_ptr(t) for t in tables), _ptr(yr), _ptr(yi), b, n1,
+    _launch(
+        COUNTS, kernel, entry, _ptr(xr), _ptr(xi), *(_ptr(t) for t in tables), _ptr(yr), _ptr(yi), b, n1,
         *whole_geometry(b, n1, sm_count(xr.device)), _stream(xr.device),
     )
-    _build.check(err, kernel)
-    COUNTS[kernel].launches += 1
     return yr, yi
 
 
@@ -513,11 +525,11 @@ def _stage_a_cuda(xr, xi, tables, n1, n2, col_tile, rows, ncols):
     lib = _build.library()
     ptrs = (_ptr(xr), _ptr(xi), *(_ptr(v) for v in t.values()), _ptr(yr), _ptr(yi))
     if factored:
-        err = lib.gft_stage_a(*ptrs, b, n1, n2, col_tile, rows, ncols, *geometry, _stream(xr.device))
+        _launch(COUNTS, "stage_a", lib.gft_stage_a, *ptrs, b, n1, n2, col_tile, rows, ncols, *geometry,
+                _stream(xr.device))
     else:
-        err = lib.gft_stage_a_full(*ptrs, b, n1, n2, rows, ncols, *geometry, _stream(xr.device))
-    _build.check(err, "stage_a")
-    COUNTS["stage_a" if factored else "stage_a_legacy"].launches += 1
+        _launch(COUNTS, "stage_a_legacy", lib.gft_stage_a_full, *ptrs, b, n1, n2, rows, ncols, *geometry,
+                _stream(xr.device))
     return yr, yi
 
 
@@ -882,12 +894,11 @@ def _whole_bf16_cuda(kernel: str, xr, xi, tables, packed: bool):
     cluster, threads, smem = whole_bf16_geometry(b, n1, xi is not None, sm_count(xr.device), packed)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xr)
-    err = _build.library().gft_whole_bf16(
+    _launch(
+        COUNTS, kernel, _build.library().gft_whole_bf16,
         _ptr(xr), _ptr(xi), _ptr(img1), _ptr(img2), _ptr(twr), _ptr(twi), _ptr(yr), _ptr(yi), b, n1,
         int(packed), cluster, threads, smem, _stream(xr.device),
     )
-    _build.check(err, kernel)
-    COUNTS[kernel].launches += 1
     return yr, yi
 
 
@@ -1103,11 +1114,11 @@ def stage_a_bf16_launch(xr, xi, tables: list, n1: int, n2: int, col_tile: int, r
     lib = _build.library()
     ptrs = (_ptr(xr), _ptr(xi), _ptr(img), *(_ptr(t) for t in tw), _ptr(yr), _ptr(yi))
     if factored:
-        err = lib.gft_stage_a_bf16(*ptrs, b, n1, n2, col_tile, rows, ncols, wgs, grid, _stream(xr.device))
+        _launch(COUNTS, "stage_a_bf16", lib.gft_stage_a_bf16, *ptrs, b, n1, n2, col_tile, rows, ncols, wgs,
+                grid, _stream(xr.device))
     else:
-        err = lib.gft_stage_a_bf16_full(*ptrs, b, n1, n2, rows, ncols, wgs, grid, _stream(xr.device))
-    _build.check(err, "stage_a_bf16")
-    COUNTS["stage_a_bf16" if factored else "stage_a_legacy_bf16"].launches += 1
+        _launch(COUNTS, "stage_a_legacy_bf16", lib.gft_stage_a_bf16_full, *ptrs, b, n1, n2, rows, ncols, wgs,
+                grid, _stream(xr.device))
     return yr, yi
 
 

@@ -53,6 +53,15 @@ autodiff mode sees runs the wrapped body straight (``_through``), since
 ``apply`` costs host time.  On the CPU the same rules run over the plain
 versions.  ``vmap`` is not supported (nor in the JAX package
 at staged sizes): fold extra axes into B.
+
+Profiler spans (``utils/profiling.py:span``): the body of each dispatch
+function is ``gft.dispatch`` (a recursive call nests), and each engine it
+hands a call to is ``gft.engine.<name>``: ``whole`` (K1/K2/K1F/K2F),
+``direct`` and ``fourstep`` (``fused_fft``, by the plan's kind),
+``fourstep_folded``, ``fourstep_half``, ``packed_real``, ``stage_a`` and
+``stage_b`` (the staged body's two halves, the staged fold's too),
+``irfft_fold`` (``fused_irfft``) and ``irfft_direct``.  Plans are looked up
+in dispatch, outside the engine's span.
 """
 
 from __future__ import annotations
@@ -86,6 +95,7 @@ from ..plan import (
     wide_split_applies,
 )
 from ..tuning import get_tuning
+from ..utils.profiling import span
 from .fused import stage_a, whole_transform, whole_transform_packed
 from .fused_torch import (
     _tracked,
@@ -114,26 +124,31 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
     table, at staged sizes applied after.  Natural output order, on the
     input's device.
     """
-    dev = xr.device
-    if xi is None and sign == -1 and n >= 8 and rfft_pack_applies(xr.shape[0], n):
-        return _real_packed_fft(xr, n, scale)
-    if n <= FUSED_MAX:
-        b = xr.shape[0]
-        if whole_kernel_applies(b, n) and config.PRECISION != "high":
-            return _through(_WholeTransform, _whole, xr, xi, (n, sign, scale))
-        if xi is None and half_spectrum_applies(n):
-            plan = on_device(get_fused_plan, n, sign, False, scale, device=dev)
-            if plan.kind == "fourstep":
-                return fused_fft_half(xr, plan)
-        plan = on_device(get_fused_plan, n, sign, wide_split_applies(b, n), scale, device=dev)
-        if plan.kind == "fourstep" and use_folded_layout(b, n):
-            return fused_fft_folded(xr, xi, plan)
-        return fused_fft(xr, xi, plan)
+    with span("gft.dispatch"):
+        dev = xr.device
+        if xi is None and sign == -1 and n >= 8 and rfft_pack_applies(xr.shape[0], n):
+            with span("gft.engine.packed_real"):
+                return _real_packed_fft(xr, n, scale)
+        if n <= FUSED_MAX:
+            b = xr.shape[0]
+            if whole_kernel_applies(b, n) and config.PRECISION != "high":
+                return _through(_WholeTransform, _whole, xr, xi, (n, sign, scale))
+            if xi is None and half_spectrum_applies(n):
+                plan = on_device(get_fused_plan, n, sign, False, scale, device=dev)
+                if plan.kind == "fourstep":
+                    with span("gft.engine.fourstep_half"):
+                        return fused_fft_half(xr, plan)
+            plan = on_device(get_fused_plan, n, sign, wide_split_applies(b, n), scale, device=dev)
+            if plan.kind == "fourstep" and use_folded_layout(b, n):
+                with span("gft.engine.fourstep_folded"):
+                    return fused_fft_folded(xr, xi, plan)
+            with span("gft.engine." + plan.kind):
+                return fused_fft(xr, xi, plan)
 
-    if scale is not None:
-        yr, yi = transform_any(xr, xi, n, sign)
-        return yr * scale, yi * scale
-    return _through(_StagedTransform, _staged, xr, xi, (n, sign))
+        if scale is not None:
+            yr, yi = transform_any(xr, xi, n, sign)
+            return yr * scale, yi * scale
+        return _through(_StagedTransform, _staged, xr, xi, (n, sign))
 
 
 # ── Autodiff seams ───────────────────────────────────────────────────────────
@@ -150,8 +165,12 @@ def _whole(xr, xi, key):
     n, sign, scale = key
     dev = xr.device
     if n <= get_tuning().whole_packed_n_max:
-        return whole_transform_packed(xr, xi, on_device(get_whole_packed_plan, n, sign, scale, device=dev))
-    return whole_transform(xr, xi, on_device(get_whole_plan, n, sign, scale, device=dev))
+        plan = on_device(get_whole_packed_plan, n, sign, scale, device=dev)
+        with span("gft.engine.whole"):
+            return whole_transform_packed(xr, xi, plan)
+    plan = on_device(get_whole_plan, n, sign, scale, device=dev)
+    with span("gft.engine.whole"):
+        return whole_transform(xr, xi, plan)
 
 
 def _stage_a_fold(x3r, x3i, key):
@@ -286,23 +305,25 @@ def _staged(xr, xi, key):
     half = xi is None and half_spectrum_applies(n) and plan["stage_b"] is not None
     x3r = xr.reshape(b, n1, n2)
     x3i = None if xi is None else xi.reshape(b, n1, n2)
-    if config.PRECISION == "high":
-        yr, yi = stage_a_torch(x3r, x3i, plan)
-    else:
-        half_rows = stage_a_real_rows(n1) if half else None
-        yr, yi = stage_a(x3r, x3i, n1, n2, plan, plan["ct"], rows=half_rows)
+    with span("gft.engine.stage_a"):
+        if config.PRECISION == "high":
+            yr, yi = stage_a_torch(x3r, x3i, plan)
+        else:
+            half_rows = stage_a_real_rows(n1) if half else None
+            yr, yi = stage_a(x3r, x3i, n1, n2, plan, plan["ct"], rows=half_rows)
 
-    if plan["stage_b"] is not None:
-        if half:
-            return stage_b_half(yr, yi, n1, n2, plan["stage_b"])
-        return stage_b(yr, yi, n1, n2, plan["stage_b"])
+    with span("gft.engine.stage_b"):
+        if plan["stage_b"] is not None:
+            if half:
+                return stage_b_half(yr, yi, n1, n2, plan["stage_b"])
+            return stage_b(yr, yi, n1, n2, plan["stage_b"])
 
-    # Forced-small plans: row transforms of length n2, then the digit reversal
-    # (flat k = k1 + n1 * k2).
-    rr, ri = transform_any(yr.reshape(b * n1, n2), yi.reshape(b * n1, n2), n2, sign)
-    out_r = rr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
-    out_i = ri.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
-    return out_r, out_i
+        # Forced-small plans: row transforms of length n2, then the digit
+        # reversal (flat k = k1 + n1 * k2).
+        rr, ri = transform_any(yr.reshape(b * n1, n2), yi.reshape(b * n1, n2), n2, sign)
+        out_r = rr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+        out_i = ri.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+        return out_r, out_i
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,21 +383,26 @@ def inverse_real(xr, xi, n: int, scale: float | None = None):
     imaginary part dropped.  Unnormalized unless ``scale`` is given; at the
     fold sizes it lives in the tables.  Correct only for Hermitian input.
     """
-    dev = xr.device
-    if 16 <= n <= FUSED_MAX and irfft_half_applies(n):
-        return fused_irfft(xr, xi, on_device(get_irfft_plan, n, scale, None, device=dev))
-    if n > FUSED_MAX and irfft_half_staged_applies(n):
-        bt = on_device(get_stage_b_irfft_plan, n, scale, device=dev)
-        if bt is not None:
-            b = xr.shape[0]
-            plan = on_device(get_stage_a_plan, n, +1, None, device=dev)
-            n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
-            tiles = -(-(n2 // 2 + 1) // ct)
-            yr, yi = _through(_StageAFold, _stage_a_fold, xr.reshape(b, n1, n2), xi.reshape(b, n1, n2),
-                              (n, tiles))
-            return stage_b_irfft_from_half(*irfft_fold_columns(yr, yi, bt), bt)
-    yr, _ = transform_any(xr, xi, n, +1, scale=scale)
-    return yr
+    with span("gft.dispatch"):
+        dev = xr.device
+        if 16 <= n <= FUSED_MAX and irfft_half_applies(n):
+            plan = on_device(get_irfft_plan, n, scale, None, device=dev)
+            with span("gft.engine.irfft_fold"):
+                return fused_irfft(xr, xi, plan)
+        if n > FUSED_MAX and irfft_half_staged_applies(n):
+            bt = on_device(get_stage_b_irfft_plan, n, scale, device=dev)
+            if bt is not None:
+                b = xr.shape[0]
+                plan = on_device(get_stage_a_plan, n, +1, None, device=dev)
+                n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+                tiles = -(-(n2 // 2 + 1) // ct)
+                with span("gft.engine.stage_a"):
+                    yr, yi = _through(_StageAFold, _stage_a_fold, xr.reshape(b, n1, n2),
+                                      xi.reshape(b, n1, n2), (n, tiles))
+                with span("gft.engine.stage_b"):
+                    return stage_b_irfft_from_half(*irfft_fold_columns(yr, yi, bt), bt)
+        yr, _ = transform_any(xr, xi, n, +1, scale=scale)
+        return yr
 
 
 def inverse_real_half(xr, xi, n: int, scale: float | None = None):
@@ -389,16 +415,21 @@ def inverse_real_half(xr, xi, n: int, scale: float | None = None):
     :func:`inverse_real` runs.  DC/Nyquist imaginary parts are ignored on
     every path (numpy ``irfft`` semantics).
     """
-    h = n // 2 + 1
-    if xr.shape[-1] != h:
-        raise ValueError(f"inverse_real_half expects {h} bins for n={n}, got {xr.shape[-1]}")
-    dev = xr.device
-    if n <= DIRECT_MAX:
-        if n >= 256 and get_tuning().irfft_direct_k128:
-            return irfft_direct_half_k128(xr, xi, on_device(get_irfft_direct_k128_plan, n, scale, device=dev))
-        return irfft_direct_half(xr, xi, on_device(get_irfft_direct_plan, n, scale, device=dev))
-    mid_i = xi[:, 1 : h - 1]
-    zero = xi.new_zeros(xi.shape[0], 1)
-    full_r = torch.cat([xr, torch.flip(xr[:, 1 : h - 1], (1,))], dim=1)
-    full_i = torch.cat([zero, mid_i, zero, -torch.flip(mid_i, (1,))], dim=1)
-    return inverse_real(full_r, full_i, n, scale=scale)
+    with span("gft.dispatch"):
+        h = n // 2 + 1
+        if xr.shape[-1] != h:
+            raise ValueError(f"inverse_real_half expects {h} bins for n={n}, got {xr.shape[-1]}")
+        dev = xr.device
+        if n <= DIRECT_MAX:
+            if n >= 256 and get_tuning().irfft_direct_k128:
+                plan = on_device(get_irfft_direct_k128_plan, n, scale, device=dev)
+                with span("gft.engine.irfft_direct"):
+                    return irfft_direct_half_k128(xr, xi, plan)
+            plan = on_device(get_irfft_direct_plan, n, scale, device=dev)
+            with span("gft.engine.irfft_direct"):
+                return irfft_direct_half(xr, xi, plan)
+        mid_i = xi[:, 1 : h - 1]
+        zero = xi.new_zeros(xi.shape[0], 1)
+        full_r = torch.cat([xr, torch.flip(xr[:, 1 : h - 1], (1,))], dim=1)
+        full_i = torch.cat([zero, mid_i, zero, -torch.flip(mid_i, (1,))], dim=1)
+        return inverse_real(full_r, full_i, n, scale=scale)

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused import LaunchCount, _check, _on_cpu, _ptr, _stream
+from .fused import LaunchCount, _check, _launch, _on_cpu, _ptr, _stream
 
 __all__ = [
     "COUNTS",
@@ -56,15 +56,12 @@ def copy_min_plain(x):
 def copy_min(x):
     """o = x * (1 + 2^-20) for x (8, 128) fp32 in one launch (JAX:
     ``pallas_min`` of ``scripts/calibrate_latency.py``)."""
-    count = COUNTS["copy_min"]
     if _on_cpu(x, "copy_min"):
-        count.plain_calls += 1
+        COUNTS["copy_min"].plain_calls += 1
         return copy_min_plain(x)
     _check("copy_min", x.device, {"x": x}, {"x": TILE})
     o = torch.empty_like(x)
-    err = _build.library().gft_copy_min(_ptr(x), _ptr(o), _stream(x.device))
-    _build.check(err, "copy_min")
-    count.launches += 1
+    _launch(COUNTS, "copy_min", _build.library().gft_copy_min, _ptr(x), _ptr(o), _stream(x.device))
     return o
 
 
@@ -84,16 +81,14 @@ def operand_probe(x, tables):
     k = len(tables)
     if k not in PROBE_KS:
         raise ValueError(f"operand_probe takes k in {PROBE_KS} tables, got {k}")
-    count = COUNTS["operand_probe"]
     if _on_cpu(x, "operand_probe"):
-        count.plain_calls += 1
+        COUNTS["operand_probe"].plain_calls += 1
         return operand_probe_plain(x, tables)
     names = [f"t{i}" for i in range(k)]
     _check("operand_probe", x.device, {"x": x, **dict(zip(names, tables))},
            {"x": TILE, **{n: TABLE for n in names}})
     o = torch.empty_like(x)
     ptrs = [_ptr(t) for t in tables] + [None] * (8 - k)
-    err = _build.library().gft_operand_probe(_ptr(x), *ptrs, _ptr(o), k, _stream(x.device))
-    _build.check(err, "operand_probe")
-    count.launches += 1
+    _launch(COUNTS, "operand_probe", _build.library().gft_operand_probe, _ptr(x), *ptrs, _ptr(o), k,
+            _stream(x.device))
     return o

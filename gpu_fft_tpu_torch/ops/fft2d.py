@@ -28,6 +28,7 @@ import torch
 from .. import plan as _plan
 from ..config import MAX_N
 from ..kernels import fused_torch as _fused_torch
+from ..utils.profiling import span
 from .exact import _check_exact_n
 from .transform import _as_tensor
 
@@ -119,32 +120,34 @@ def fft2_device(x, imag=None, device=None):
     ``x`` real f32 (``imag`` for complex input); any side >= 2.  Returns
     split-complex (re, im), unnormalized, natural order — ``numpy.fft.fft2``.
     """
-    x = _as_tensor(x, device)
-    if x.dim() < 2:
-        raise ValueError(f"fft2 expects (..., H, W), got shape {tuple(x.shape)}")
-    _check_sides(x.shape[-2], x.shape[-1])
-    xi = None
-    if imag is not None:
-        xi = _as_tensor(imag, x.device)
-        if xi.shape != x.shape:
-            raise ValueError(f"fft2: real and imag shapes differ: {tuple(x.shape)} vs {tuple(xi.shape)}")
-    return _transform2d(x, xi, -1)
+    with span("gft.entry.fft2"):
+        x = _as_tensor(x, device)
+        if x.dim() < 2:
+            raise ValueError(f"fft2 expects (..., H, W), got shape {tuple(x.shape)}")
+        _check_sides(x.shape[-2], x.shape[-1])
+        xi = None
+        if imag is not None:
+            xi = _as_tensor(imag, x.device)
+            if xi.shape != x.shape:
+                raise ValueError(f"fft2: real and imag shapes differ: {tuple(x.shape)} vs {tuple(xi.shape)}")
+        return _transform2d(x, xi, -1)
 
 
 def ifft2_device(xr, xi, device=None):
     """Inverse 2-D FFT (normalized by 1/(H*W)) of split-complex tensors."""
-    xr = _as_tensor(xr, device)
-    xi = _as_tensor(xi, xr.device)
-    if xr.shape != xi.shape or xr.dim() < 2:
-        raise ValueError(
-            f"ifft2: real and imag must share one (..., H, W) shape, got "
-            f"{tuple(xr.shape)} vs {tuple(xi.shape)}"
-        )
-    h, w = xr.shape[-2], xr.shape[-1]
-    _check_sides(h, w)
-    yr, yi = _transform2d(xr, xi, +1)
-    s = float(np.float32(1.0 / (h * w)))
-    return yr * s, yi * s
+    with span("gft.entry.ifft2"):
+        xr = _as_tensor(xr, device)
+        xi = _as_tensor(xi, xr.device)
+        if xr.shape != xi.shape or xr.dim() < 2:
+            raise ValueError(
+                f"ifft2: real and imag must share one (..., H, W) shape, got "
+                f"{tuple(xr.shape)} vs {tuple(xi.shape)}"
+            )
+        h, w = xr.shape[-2], xr.shape[-1]
+        _check_sides(h, w)
+        yr, yi = _transform2d(xr, xi, +1)
+        s = float(np.float32(1.0 / (h * w)))
+        return yr * s, yi * s
 
 
 def fftn_device(x, imag=None, axes=None, sign: int = -1, device=None):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .stft import frame_signal, window_on, window_table
 from .transform import _as_tensor, fft_device, rfft_device
 
@@ -288,20 +289,21 @@ def welch_device(
     Returns ``(freqs, psd)``: freqs a numpy array of the nfft // 2 + 1 bin
     frequencies, psd a tensor; a (channels, n) input gives (channels, bins).
     """
-    if average not in ("mean", "median"):
-        raise ValueError(f"average must be 'mean' or 'median', got {average!r}")
-    yr, yi = _segment_spectra(x, nperseg, noverlap, window, detrend, fs, scaling, "welch", nfft,
-                              device=device)
-    nbins = nperseg if nfft is None else nfft
-    seg_power = yr * yr + yi * yi  # (..., num_seg, bins)
-    if average == "median":
-        power = _median_over_segments(seg_power) / float(
-            np.float32(_median_bias(seg_power.shape[-2]))
-        )
-    else:
-        power = seg_power.mean(dim=-2)
-    freqs = np.arange(nbins // 2 + 1, dtype=np.float64) * (fs / nbins)
-    return freqs, power * _scale_mult_on(window, nperseg, fs, scaling, nfft, power.device)
+    with span("gft.entry.welch"):
+        if average not in ("mean", "median"):
+            raise ValueError(f"average must be 'mean' or 'median', got {average!r}")
+        yr, yi = _segment_spectra(x, nperseg, noverlap, window, detrend, fs, scaling, "welch", nfft,
+                                  device=device)
+        nbins = nperseg if nfft is None else nfft
+        seg_power = yr * yr + yi * yi  # (..., num_seg, bins)
+        if average == "median":
+            power = _median_over_segments(seg_power) / float(
+                np.float32(_median_bias(seg_power.shape[-2]))
+            )
+        else:
+            power = seg_power.mean(dim=-2)
+        freqs = np.arange(nbins // 2 + 1, dtype=np.float64) * (fs / nbins)
+        return freqs, power * _scale_mult_on(window, nperseg, fs, scaling, nfft, power.device)
 
 
 def welch(x, fs: float = 1.0, window: str | None = "hann", nperseg: int = 256,

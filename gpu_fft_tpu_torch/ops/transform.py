@@ -17,7 +17,8 @@
 The host API takes lists / numpy arrays and returns numpy arrays; ``device``
 picks where it runs (default ``"cuda"`` or ``GPU_FFT_TPU_TORCH_DEVICE``).
 ``fft_device`` / ``ifft_device`` / ``rfft_device`` / ``irfft_device`` take
-tensors and return tensors on the same device.
+tensors and return tensors on the same device; each body is the profiler
+span ``gft.entry.<op>`` (``utils/profiling.py:span``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 
 from ..backends import Backend, backend_module, resolve_backend
 from ..config import MAX_N, apply_precision, resolve_device
+from ..utils.profiling import span
 
 __all__ = [
     "fft",
@@ -271,30 +273,32 @@ def _device_module(backend, name: str):
 def fft_device(x, backend=None, device=None):
     """Forward FFT of (n,) or (B, n) real rows (power-of-two n), staying on
     the tensor's device.  Returns ``(real, imag)`` tensors."""
-    x = _as_tensor(x, device)
-    squeeze = x.dim() == 1
-    if squeeze:
-        x = x[None]
-    _check_device_n(x.shape[-1], "fft_device")
-    yr, yi = _device_module(backend, "fft_device").forward(x)
-    return (yr[0], yi[0]) if squeeze else (yr, yi)
+    with span("gft.entry.fft"):
+        x = _as_tensor(x, device)
+        squeeze = x.dim() == 1
+        if squeeze:
+            x = x[None]
+        _check_device_n(x.shape[-1], "fft_device")
+        yr, yi = _device_module(backend, "fft_device").forward(x)
+        return (yr[0], yi[0]) if squeeze else (yr, yi)
 
 
 def ifft_device(xr, xi, backend=None, device=None):
     """Inverse FFT (1/n) of (n,) or (B, n) split-complex rows, staying on the
     tensors' device.  Returns ``(real, imag)`` tensors."""
-    xr = _as_tensor(xr, device)
-    xi = _as_tensor(xi, xr.device if device is None else device)
-    if xr.shape != xi.shape:
-        raise ValueError(
-            f"ifft_device: real and imag must have the same shape, got {xr.shape} vs {xi.shape}"
-        )
-    squeeze = xr.dim() == 1
-    if squeeze:
-        xr, xi = xr[None], xi[None]
-    _check_device_n(xr.shape[-1], "ifft_device")
-    yr, yi = _device_module(backend, "ifft_device").inverse(xr, xi)
-    return (yr[0], yi[0]) if squeeze else (yr, yi)
+    with span("gft.entry.ifft"):
+        xr = _as_tensor(xr, device)
+        xi = _as_tensor(xi, xr.device if device is None else device)
+        if xr.shape != xi.shape:
+            raise ValueError(
+                f"ifft_device: real and imag must have the same shape, got {xr.shape} vs {xi.shape}"
+            )
+        squeeze = xr.dim() == 1
+        if squeeze:
+            xr, xi = xr[None], xi[None]
+        _check_device_n(xr.shape[-1], "ifft_device")
+        yr, yi = _device_module(backend, "ifft_device").inverse(xr, xi)
+        return (yr[0], yi[0]) if squeeze else (yr, yi)
 
 
 # ── One-sided real-input API (numpy.fft.rfft conventions) ────────────────────
@@ -339,9 +343,10 @@ def irfft(input_real, input_imag, backend=None, device=None):
 def rfft_device(x, backend=None, device=None):
     """One-sided forward FFT of (n,) or (B, n) real rows (power-of-two n),
     staying on the tensor's device: the n//2 + 1 bins of :func:`fft_device`."""
-    yr, yi = fft_device(x, backend=backend, device=device)
-    h = yr.shape[-1] // 2 + 1
-    return yr[..., :h], yi[..., :h]
+    with span("gft.entry.rfft"):
+        yr, yi = fft_device(x, backend=backend, device=device)
+        h = yr.shape[-1] // 2 + 1
+        return yr[..., :h], yi[..., :h]
 
 
 def irfft_device(xr, xi, backend=None, device=None):
@@ -353,24 +358,25 @@ def irfft_device(xr, xi, backend=None, device=None):
     bins (``kernels/large.py:inverse_real_half``); ``TORCH_FFT`` rebuilds
     the Hermitian spectrum and keeps the real part of :func:`ifft_device`.
     """
-    xr = _as_tensor(xr, device)
-    xi = _as_tensor(xi, xr.device if device is None else device)
-    if xr.shape != xi.shape:
-        raise ValueError(f"irfft_device: shapes differ: {tuple(xr.shape)} vs {tuple(xi.shape)}")
-    h = xr.shape[-1]
-    n = _one_sided_n(h, "irfft_device")
-    if resolve_backend(backend) is Backend.TORCH:
-        from ..kernels.large import inverse_real_half
+    with span("gft.entry.irfft"):
+        xr = _as_tensor(xr, device)
+        xi = _as_tensor(xi, xr.device if device is None else device)
+        if xr.shape != xi.shape:
+            raise ValueError(f"irfft_device: shapes differ: {tuple(xr.shape)} vs {tuple(xi.shape)}")
+        h = xr.shape[-1]
+        n = _one_sided_n(h, "irfft_device")
+        if resolve_backend(backend) is Backend.TORCH:
+            from ..kernels.large import inverse_real_half
 
-        apply_precision()
-        squeeze = xr.dim() == 1
-        rr, ri = (xr[None], xi[None]) if squeeze else (xr, xi)
-        yr = inverse_real_half(rr, ri, n, scale=1.0 / n)
-        return yr[0] if squeeze else yr
-    xi = xi.clone()
-    xi[..., 0] = 0.0
-    xi[..., h - 1] = 0.0
-    full_r = torch.cat([xr, torch.flip(xr[..., 1:-1], (-1,))], dim=-1)
-    full_i = torch.cat([xi, -torch.flip(xi[..., 1:-1], (-1,))], dim=-1)
-    yr, _ = ifft_device(full_r, full_i, backend=backend)
-    return yr
+            apply_precision()
+            squeeze = xr.dim() == 1
+            rr, ri = (xr[None], xi[None]) if squeeze else (xr, xi)
+            yr = inverse_real_half(rr, ri, n, scale=1.0 / n)
+            return yr[0] if squeeze else yr
+        xi = xi.clone()
+        xi[..., 0] = 0.0
+        xi[..., h - 1] = 0.0
+        full_r = torch.cat([xr, torch.flip(xr[..., 1:-1], (-1,))], dim=-1)
+        full_i = torch.cat([xi, -torch.flip(xi[..., 1:-1], (-1,))], dim=-1)
+        yr, _ = ifft_device(full_r, full_i, backend=backend)
+        return yr

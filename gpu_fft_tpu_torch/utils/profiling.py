@@ -17,6 +17,10 @@ that is not on a CUDA device; nothing falls back to the CPU.  The steps
 A step is captured, so it must be capturable: no host synchronisation and
 no first-time table upload inside it (one eager warm-up call runs before
 capture for that).  Kernel wrappers count a launch when it is captured.
+
+:func:`span` marks the port's layer boundaries (``gft.entry.*``,
+``gft.dispatch``, ``gft.engine.*``, ``gft.launch.*``) as profiler ranges on
+the device trace's clock; with no profiler recording it costs one flag read.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 __all__ = [
     "BenchResult",
@@ -48,6 +53,7 @@ __all__ = [
     "oaconvolve_step",
     "resample_step",
     "roundtrip_sequential_step",
+    "span",
     "stft_roundtrip_step",
     "torch_fft_forward_step",
     "torch_fft_inverse_step",
@@ -519,3 +525,40 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ── Spans ────────────────────────────────────────────────────────────────────
+
+
+class _NoSpan:
+    """The span while no profiler records: a ``with`` block that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return None
+
+
+_NO_SPAN = _NoSpan()
+# The C++ range torch's own compiled kernels use, cheaper than
+# ``record_function``; it shows in a trace as a ``cpu_op``.
+_Range = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.record_function)
+
+
+def span(name: str):
+    """A profiler range named ``name`` around a ``with`` block while a torch
+    profiler records, else one shared no-op context.
+
+    The gate is torch's own flag for fast Python checks
+    (``torch.autograd.profiler._is_profiler_enabled``), true from a
+    profiler's start to its stop: a span costs that one read when no
+    profiler runs.  The range is a ``RecordFunction`` on the host thread,
+    so Kineto lays it on the clock of the CUDA runtime calls and kernels it
+    encloses (:func:`trace`, or any ``torch.profiler.profile``).
+    """
+    if _autograd_profiler._is_profiler_enabled:
+        return _Range(name)
+    return _NO_SPAN
