@@ -58,8 +58,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    numpy / scipy in float64: fft2_device / ifft2_device and rfft2_device /
    irfft2_device on a 512 x 131,072 panel (K3 once each way, the rows at
    B = 512; gate 5*log2(H*W)*eps), the host fft2 / ifft2 / rfft2 / irfft2
-   of a 4,096^2 image and its fft_convolve2d_device with a 33 x 33 kernel
-   at 8,192^2 (torch engines, no launch; 2*5*log2(m1*m2)*eps against
+   of a 4,096^2 image (K1 on the rows and on the columns, B = 4,096 in the
+   whole band) and its fft_convolve2d_device with a 33 x 33 kernel at
+   8,192^2 (rows of 16,384 at B = 16,384: torch engines, no launch;
+   2*5*log2(m1*m2)*eps against
    scipy.signal.fftconvolve), fftn / rfftn and their inverses on a 256^3
    volume, fftn_device of a 1-D 1,024 / 16,384 array (K2 / K1 once), the
    four ndimage Fourier filters on the image's spectrum against
@@ -115,7 +117,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    fast < 2e-2) and ordered full < high < fast with 1e-6 < high and
    1e-4 < fast; the counts, set to 0 before each mode: "high" launches
    none of K1/K2/K3/K1F/K2F/K3F, "fast" launches K2F/K1F/K3F where "full"
-   launches K2/K1/K3 and no fp32 kernel, no plain call in any mode; every
+   launches K2/K1/K3 (K2F/K1F only in their band, B = 1 and n <= 16,384)
+   and no fp32 kernel, no plain call in any mode; every
    K1F/K2F/K3F geometry the mode launched against its plain version
    (max|d| <= 1e-3 max|plain|: a one-ulp fp32 difference before Z's bf16
    rounding moves one intermediate by a bf16 ulp) and against float64,
@@ -131,8 +134,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    ``AXIS0_H_MIN``) and both checked closed after: the packed real forward through fft_device at
    (1 and 3) x (4,096, 32,768, 2^17, 2^21, 2^22) against numpy f64
    (5*log2(n)*eps) with a roundtrip through ifft_device, its half
-   transform's launches pinned (K1 once at B = 1 for 4,096 and 32,768, K3
-   once at 2^21 and 2^22, none where the torch four-step runs it), and at
+   transform's launches pinned (K1 once where n/2 is in the whole band, at
+   4,096, 32,768 and 2^17, K3 once at 2^21 and 2^22), and at
    32,768 under "fast" (K1F once, within 2e-2); fft2 / ifft2 / rfft2 /
    irfft2_device on the 4,096^2 image through the axis-0 branch (four
    transform_axis0 calls, phase 3e's gates), the 512 x 131,072 panel's
@@ -245,7 +248,7 @@ IRFFT_TIMED = ((1, 32768), (1, 65536), (1, 1 << 20), (1, 1 << 22), (16, 65536))
 # Phase 3b: the Parseval gradient at (1, n) and the kernel whose band n is
 # (None: the torch engines, the control); dot tests; forward mode.
 GRAD_SIZES = ((1024, "whole_transform_packed"), (4096, "whole_transform"), (16384, "whole_transform"),
-              (65536, None), (1 << 20, "stage_a"), (1 << 22, "stage_a"))
+              (65536, "whole_transform"), (1 << 20, "stage_a"), (1 << 22, "stage_a"))
 DOT_TRANSFORM = ((1, 4096), (2, 1 << 20))
 DOT_INVERSE_REAL = (1, 1 << 20)
 DOT_IRFFT = (4, 1 << 22)
@@ -264,7 +267,7 @@ FIR_TAPS = 1025
 STREAM = (256, 4096, 257)  # chunks, chunk, taps
 # Phase 3e: the 2-D / N-D path, NATIVE and the examples.
 PANEL = (512, 1 << 17)  # channels x samples: K3 on the row passes at B = 512
-IMAGE = 4096  # square image; the torch four-step at B = 4,096
+IMAGE = 4096  # square image; K1 at B = 4,096, the whole band's batch edge
 CONV_KERNEL = 33  # the image's convolution kernel side: padded to 8,192^2
 VOLUME = 256  # cube side: the direct product on each axis
 NATIVE_SIZES = (1024, 4096, 16384, 65536)
@@ -642,6 +645,21 @@ def band_kernel(b: int, n: int):
     if P.whole_kernel_applies(b, n):
         return "whole_transform_packed" if n <= get_tuning().whole_packed_n_max else "whole_transform"
     return None
+
+
+def fno_launches(cell: dict) -> dict:
+    """K1 / K3 launches of one FNO train step (forward and backward).  Rows
+    longer than 65,536: K3 for the forward rfft, the irfft's staged fold and
+    the rfft's backward (the fold's backward is torch).  1-D rows in the
+    whole band (B = batch x width): K1 for the forward rfft and irfft and
+    for each one's backward.  None for the 2-D cell's 64-point rows."""
+    if cell["dims"] != 1:
+        return {}
+    depth, size = cell["depth"], cell["size"]
+    if size > 65536:
+        return {"stage_a": 3 * depth}
+    kernel = band_kernel(cell["batch"] * cell["width"], size)
+    return {kernel: 4 * depth} if kernel else {}
 
 
 def engine(b: int, n: int, real_input: bool) -> str:
@@ -1464,14 +1482,16 @@ def twod_phase(report: dict, dev, rng, panel=PANEL, image=IMAGE, ktaps=CONV_KERN
         fail(f"phase 3e ran {plain} plain kernel versions on the card")
     expect = {**{f"{f} {h} x {w}": {"stage_a": 1} for f in ("fft2_device", "ifft2_device", "rfft2_device",
                                                               "irfft2_device")},
-              **{f"{f} {image} x {image}": {} for f in ("fft2", "ifft2", "rfft2", "irfft2")},
+              # K1 on the rows and on the columns (B = 4,096 and 2,049 in the band)
+              **{f"{f} {image} x {image}": {"whole_transform": 2} for f in ("fft2", "ifft2", "rfft2", "irfft2")},
               f"fft_convolve2d_device {image}^2 * {ktaps}^2 (m = {m}^2)": {},
               **{f"{f} {volume}^3": {} for f in ("fftn_device", "ifftn_device", "rfftn_device", "irfftn_device")},
-              f"fft2_device {image} x {image} spectrum": {},
+              f"fft2_device {image} x {image} spectrum": {"whole_transform": 2},
               "fftn_device 1-D 1024": {"whole_transform_packed": 1},
               "fftn_device 1-D 16384": {"whole_transform": 1},
-              **{label: {} for label in per_call if label.startswith(("fourier_", "ifft2_device after",
-                                                                      "fft_native", "ifft_native", "fft_batch"))}}
+              **{label: {} for label in per_call if label.startswith(("fourier_", "fft_native", "ifft_native",
+                                                                      "fft_batch"))},
+              **{label: {"whole_transform": 2} for label in per_call if label.startswith("ifft2_device after")}}
     for label, want in expect.items():
         got = {k: v for k, v in per_call[label].items() if v}
         if got != want:
@@ -1637,7 +1657,7 @@ def namespace_phase(report: dict, dev, rng) -> dict:
     b, n, seg = SIGNAL_CSD
     xs, ys = rng.standard_normal((b, n)).astype(np.float32), rng.standard_normal((b, n)).astype(np.float32)
     lbl = f"signal.csd ({b}, {n}) / {seg}"
-    f, pxy = counted(per_call, lbl, lambda: sg.csd(xs, ys, fs=1e3, nperseg=seg), {})
+    f, pxy = counted(per_call, lbl, lambda: sg.csd(xs, ys, fs=1e3, nperseg=seg), {"whole_transform": 2})
     fr, pref = ss.csd(xs.astype(np.float64), ys.astype(np.float64), fs=1e3, nperseg=seg)
     if not (np.iscomplexobj(pxy) and np.allclose(f, fr)):
         fail(f"{lbl}: not complex, or its frequencies differ from scipy's")
@@ -1667,7 +1687,7 @@ def namespace_phase(report: dict, dev, rng) -> dict:
     x = (np.sin(2 * np.pi * 300 * t) * (1 + 0.5 * np.cos(2 * np.pi * 7 * t))
          + 0.1 * rng.standard_normal(n)).astype(np.float32)
     lbl = f"signal.envelope {n} bp_in={bp}"
-    got = counted(per_call, lbl, lambda: sg.envelope(x, bp), {})
+    got = counted(per_call, lbl, lambda: sg.envelope(x, bp), {"whole_transform": 2})
     ref = ss.envelope(x.astype(np.float64), bp)
     # the JAX test's assert_allclose(atol=2e-4, rtol=1e-3) as one number
     sig_row(f"{lbl} vs scipy.signal f64 (|d| - 1e-3 |ref|)", n,
@@ -1789,9 +1809,7 @@ def fno_phase(report: dict, dev) -> dict:
         x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
         model = fno_model(cell, dev, seed=ord(name))
         n = cell["size"] ** cell["dims"]
-        # Rows longer than 65,536: K3 for the forward rfft, the irfft's
-        # staged fold and the rfft's backward (the fold's backward is torch).
-        want = {"stage_a": 3 * cell["depth"]} if cell["dims"] == 1 and cell["size"] > 65536 else {}
+        want = fno_launches(cell)
         lbl = f"FNO({name}) forward + backward {tuple(x.shape)}"
 
         def fwd_bwd():
@@ -2036,7 +2054,8 @@ def parallel_phase(report: dict, dev, rng) -> dict:
         n, seg = WELCH_SHARDED
         x = rng.standard_normal(n).astype(np.float32)
         lbl = f"welch_sharded {n} / {seg}"
-        f, pxx = counted(per_call, lbl, lambda: tp.welch_sharded(tensor(x), mesh, nperseg=seg), {})
+        f, pxx = counted(per_call, lbl, lambda: tp.welch_sharded(tensor(x), mesh, nperseg=seg),
+                         {"whole_transform": 1})
         fr, pref = ss.welch(x.astype(np.float64), nperseg=seg)
         if not np.allclose(f, fr):
             fail(f"{lbl}: its frequencies differ from scipy's")
@@ -2046,7 +2065,7 @@ def parallel_phase(report: dict, dev, rng) -> dict:
         hk = rng.standard_normal(taps).astype(np.float32)
         lbl = f"oaconvolve_sharded {n} * {taps}"
         y = counted(per_call, lbl, lambda: tp.oaconvolve_sharded(tensor(x), tensor(hk), mesh),
-                    {"whole_transform": 1})
+                    {"whole_transform": 3})
         row(f"{lbl} vs scipy.signal.oaconvolve f64 (rel)", n,
             rerr(y, ss.oaconvolve(x.astype(np.float64), hk.astype(np.float64))), 2e-3)
         n = LFILTER_SHARDED
@@ -2054,7 +2073,7 @@ def parallel_phase(report: dict, dev, rng) -> dict:
         bb, aa = ss.butter(4, 0.15)
         lbl = f"lfilter_sharded butter(4) {n}"
         y = counted(per_call, lbl, lambda: tp.lfilter_sharded(bb, aa, tensor(x), mesh, "dp"),
-                    {"whole_transform": 1})
+                    {"whole_transform": 3})
         row(f"{lbl} vs scipy.signal.lfilter f64 (abs)", n,
             float(np.abs(host(y) - ss.lfilter(bb, aa, x.astype(np.float64))).max()), 2e-4)
 
@@ -2075,7 +2094,7 @@ def parallel_phase(report: dict, dev, rng) -> dict:
             else:
                 step, shard = make_gspmd_step(model, opt, mesh_tp, dp_axis="dp", tp_axis="tp")
                 shard()
-            want = {"stage_a": 3 * cell["depth"]} if cell["size"] > 65536 else {}
+            want = fno_launches(cell)
             losses, worst = [], 0.0
             for i in range(FNO_STEPS):
                 loss = float(counted(per_call, f"FNO({name}) {kind} step {i}", lambda: step(xs, ys), want))
@@ -2240,6 +2259,7 @@ def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=
 
     import gpu_fft_tpu_torch as gt
     from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch import plan as P
     from gpu_fft_tpu_torch.kernels import fused as K
 
     six = (*MAIN_PATH_KERNELS, *FAST_KERNELS.values())
@@ -2328,11 +2348,16 @@ def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=
           f"1e-6 < high and 1e-4 < fast")
 
     # The counts by mode: "high" runs no kernel; "fast" runs each fp32
-    # kernel's counterpart where "full" runs it, and no fp32 kernel.
-    for label, full in launches["full"].items():
+    # kernel's counterpart where "full" runs it and no fp32 kernel, but
+    # for K1 / K2 outside K1F / K2F's band (B = 1, n <= 16,384), where it
+    # runs the torch engines.
+    for op, b, n in errs:
+        label = f"{op} ({b}, {n})"
+        full = launches["full"][label]
         if launches["high"][label]:
             fail(f"{label}: 'high' launched {launches['high'][label]}")
-        want = {FAST_KERNELS[k]: v for k, v in full.items()}
+        fast_band = b <= P.WHOLE_FAST_BATCH_MAX and n <= P.WHOLE_FAST_N_MAX
+        want = {FAST_KERNELS[k]: v for k, v in full.items() if k == "stage_a" or fast_band}
         if launches["fast"][label] != want or set(full) - set(FAST_KERNELS):
             fail(f"{label}: 'fast' launched {launches['fast'][label]} where 'full' launched {full}")
     for n in grad_sizes:
@@ -2715,18 +2740,21 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
         with mock.patch.multiple(P, **AXIS0_OPEN):
             if not (P.axis0_applies(IMAGE, IMAGE) and P.axis0_applies(IMAGE, IMAGE // 2 + 1)):
                 fail("the axis-0 gate did not open for the image")
-            (yr, yi), _ = counted(f"fft2_device {IMAGE}^2 axis-0", lambda: gt.fft2_device(img_t), {})
+            # K1 on the rows (B = 4,096, or 2,049 half-spectrum columns'
+            # rows), the axis-0 engine on the columns.
+            k1 = {"whole_transform": 1}
+            (yr, yi), _ = counted(f"fft2_device {IMAGE}^2 axis-0", lambda: gt.fft2_device(img_t), k1)
             record(report, "gate_closed_path", f"fft2_device {IMAGE}^2 axis-0 vs numpy f64 (rel)", nn,
                    cerr(yr, yi, iref), gate(nn))
-            (br, bi), _ = counted(f"ifft2_device {IMAGE}^2 axis-0", lambda: gt.ifft2_device(yr, yi), {})
+            (br, bi), _ = counted(f"ifft2_device {IMAGE}^2 axis-0", lambda: gt.ifft2_device(yr, yi), k1)
             record(report, "gate_closed_path", f"ifft2_device {IMAGE}^2 axis-0 roundtrip (rel)", nn,
                    max(float(np.abs(host(br) - img).max()), float(bi.abs().max())) / float(np.abs(img).max()),
                    gate(nn))
             del yr, yi, br, bi
-            (hr, hi), _ = counted(f"rfft2_device {IMAGE}^2 axis-0", lambda: gt.rfft2_device(img_t), {})
+            (hr, hi), _ = counted(f"rfft2_device {IMAGE}^2 axis-0", lambda: gt.rfft2_device(img_t), k1)
             record(report, "gate_closed_path", f"rfft2_device {IMAGE}^2 axis-0 vs numpy f64 (rel)", nn,
                    cerr(hr, hi, iref[:, : IMAGE // 2 + 1]), gate(nn))
-            back, _ = counted(f"irfft2_device {IMAGE}^2 axis-0", lambda: gt.irfft2_device(hr, hi), {})
+            back, _ = counted(f"irfft2_device {IMAGE}^2 axis-0", lambda: gt.irfft2_device(hr, hi), k1)
             record(report, "gate_closed_path", f"irfft2_device {IMAGE}^2 axis-0 roundtrip (rel)", nn,
                    float(np.abs(host(back) - img).max()) / float(np.abs(img).max()), gate(nn))
             del hr, hi, back, iref

@@ -6,8 +6,8 @@ and each has a second one for ``GPU_FFT_TPU_PRECISION=fast``, where the JAX
 kernels' dots run at bf16x1 (``config.mosaic_precision()``):
 
 * ``whole_transform`` (K1) and ``whole_transform_packed`` (K2): the whole
-  four-step of a B = 1 transform with 1024 <= n <= 16384 in one launch, a
-  radix FFT on one thread-block cluster per transform
+  four-step of a (B, n) transform with n = 128 * n1, 1024 <= n <= 65536,
+  in one launch, a radix FFT on one thread-block cluster per row
   (``csrc/whole_transform.cu``; launch shape from :func:`whole_geometry`);
 * ``stage_a`` (K3): column DFT + twiddle, the first half of every staged
   transform, with the plan's factored twiddle: a radix FFT per column of the

@@ -4,9 +4,11 @@ Port of ``gpu_fft_tpu/kernels/large.py:transform_any`` and ``_staged``.  The
 engine is picked by (B, n) with the same predicates as the JAX package
 (plan.py, tuning.py):
 
-* B = 1, 1024 <= n <= 16384: the whole transform in ONE kernel launch —
-  the packed-table variant (K2) up to ``whole_packed_n_max``, else K1
-  (K2F / K1F, their bf16 tensor-core counterparts, under "fast");
+* the whole-transform band (``plan.whole_kernel_applies``: on the H100
+  1024 <= n <= 65536, B <= 4096 and B * n <= 2^26; under "fast" B = 1 and
+  n <= 16384): the whole transform in ONE kernel launch — the packed-table
+  variant (K2) up to ``whole_packed_n_max``, else K1 (K2F / K1F, their bf16
+  tensor-core counterparts, under "fast");
 * other n <= FUSED_MAX: the direct DFT or the four-step, as torch
   contractions (kernels/fused_torch.py);
 * n > FUSED_MAX: staged — the stage-A kernel (K3, K3F under "fast") over
@@ -161,9 +163,13 @@ def _through(function, body, xr, xi, key):
 
 
 def _whole(xr, xi, key):
-    """K1 or K2 on B = 1 rows in the band, ``key`` = (n, sign, scale)."""
+    """K1 or K2 on the rows of a (B, n) batch in the band, ``key`` = (n, sign, scale)."""
     n, sign, scale = key
     dev = xr.device
+    # The kernels read rows densely; a strided view (a 2-D pass's columns,
+    # a frame's segments) is copied once, as the torch engines' first
+    # contraction would.
+    xr, xi = _contiguous(xr), _contiguous(xi)
     if n <= get_tuning().whole_packed_n_max:
         plan = on_device(get_whole_packed_plan, n, sign, scale, device=dev)
         with span("gft.engine.whole"):
@@ -212,8 +218,8 @@ def _self_transpose(apply, real_input: bool, gr, gi):
 
 
 class _WholeTransform(torch.autograd.Function):
-    """K1 (``whole_transform``) or K2 (``whole_transform_packed``) on a B = 1
-    row in the band, ``key`` = (n, sign, scale): the scale folded into the
+    """K1 (``whole_transform``) or K2 (``whole_transform_packed``) on a (B, n)
+    batch in the band, ``key`` = (n, sign, scale): the scale folded into the
     plan is real, so the transpose carries it unchanged."""
 
     @staticmethod

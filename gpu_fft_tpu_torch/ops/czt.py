@@ -1,7 +1,7 @@
 """Chirp-z transform and zoom FFT over the library's pow2 path.
 
 Port of ``gpu_fft_tpu/ops/czt.py``.  The two L-point transforms are
-``kernels/large.py:transform_any``'s (K1/K2 at B = 1 in the whole band, K3
+``kernels/large.py:transform_any``'s (K1/K2 in the whole-transform band, K3
 staged); the f64 host tables are the JAX package's, cached on the device.
 
 The CZT evaluates the z-transform on a logarithmic spiral

@@ -103,16 +103,23 @@ def axis0_applies(h: int, w: int) -> bool:
     return AXIS0_H_MIN <= h <= FUSED_MAX and h & (h - 1) == 0 and h > w // 2
 
 
+#: The band under "fast": K1F / K2F (``csrc/whole_bf16.cuh``) serve
+#: n1 = n/128 <= 128 and were swept at B = 1 only, so there the band stays
+#: the v5e one, B = 1 and n <= 16,384.
+WHOLE_FAST_N_MAX = 1 << 14
+WHOLE_FAST_BATCH_MAX = 1
+
+
 def whole_kernel_applies(b: int, n: int) -> bool:
     """Whether a (b, n) fused-size transform runs as ONE whole-transform
-    kernel launch (kernels/fused.py:whole_transform[_packed])."""
+    kernel launch (kernels/fused.py:whole_transform[_packed]): the tuning
+    row's band, under "fast" (read at call time) K1F / K2F's."""
     t = get_tuning()
-    return (
-        t.whole_n_min <= n <= t.whole_n_max
-        and b <= t.whole_batch_max
-        and n % 128 == 0
-        and n >= 1024
-    )
+    if n < max(t.whole_n_min, 1024) or n % 128:
+        return False
+    if config.PRECISION == "fast":
+        return n <= WHOLE_FAST_N_MAX and b <= WHOLE_FAST_BATCH_MAX
+    return n <= t.whole_n_max and b <= t.whole_batch_max and b * n <= t.whole_samples_max
 
 
 def fused_split(n: int, b: int) -> tuple[int, int]:
@@ -420,11 +427,13 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
     >>> p = describe_plan(1024); (p["path"], p["kernel"])
     ('whole', 'whole_transform_packed')
     >>> describe_plan(4096)["kernel"], describe_plan(4096, batch=2)["path"]
-    ('whole_transform', 'fourstep')
-    >>> p = describe_plan(65536, batch=1); (p["layout"], p["split"])
+    ('whole_transform', 'whole')
+    >>> p = describe_plan(65536, batch=16); (p["path"], p["split"])
+    ('whole', (512, 128))
+    >>> p = describe_plan(65536, batch=2048); (p["layout"], p["split"])
     ('half-spectrum', (256, 256))
-    >>> p = describe_plan(65536, batch=1, real_input=False); p["layout"]
-    'transpose'
+    >>> p = describe_plan(65536, batch=2048, real_input=False); p["layout"]
+    'folded'
     >>> p = describe_plan(1 << 20); (p["path"], p["split"], p["stage_b_split"])
     ('staged', (128, 8192), (64, 128))
     """

@@ -5,6 +5,7 @@ size, and against earlier builds, on one card.
     python -m gpu_fft_tpu_torch.scripts.time_whole [--quick] [--no-sweep]
         [--baseline SRC.cu] [--baseline-lm SRC.cu]
         [--fast] [--baseline-bf16 SRC.cu]
+    python -m gpu_fft_tpu_torch.scripts.time_whole --band [--quick]
 
 1. Sweep (left out with ``--no-sweep``): K1 at B = 1 for n = 1,024 …
    65,536, and at B = 16 and 64 for n = 4,096 and 16,384, real forward and
@@ -39,6 +40,22 @@ size, and against earlier builds, on one card.
    turns (new, old, old, new), beside the fp32 K2 / K1 on the same inputs and
    ``torch.fft`` on complex32 (cuFFT's half precision).
 
+6. With ``--band``, only the band sweep, the measurement behind the
+   whole-transform band of the ``h100`` tuning row (``whole_n_max``,
+   ``whole_batch_max``, ``whole_samples_max``): at each (B, n) of
+   ``BAND_N`` x ``BAND_B`` with B * n <= ``BAND_SAMPLES_MAX``, the real
+   forward (sign -1) and the complex inverse (sign +1, scale 1/n) through
+   ``kernels/large.py:transform_any``, once with the band forced open (K2 at
+   n = 1,024, K1 above) and once forced shut (the torch four-step the
+   dispatch takes outside the band), in turns (whole, torch, torch, whole).
+   Each side: ``device_ms``, the profiler's device time of every kernel a
+   call launches, and ``host_ms``, the host's time in the call (bursts of
+   calls with no synchronise inside, the median burst over its calls),
+   each the median of its two turns; the two outputs agree within 1e-5 of
+   max|torch|.  ``edge`` holds, per n, the largest swept B up to which the
+   whole kernel's device time beats the torch engine's at every swept B
+   and in both directions.  Writes ``chiprun_out/time_whole_band.json``.
+
 Times: ``device_ms``, the profiler's device time of the kernels whose name
 holds ``whole_kernel`` (``fused_lm_kernel`` for the earlier S1,
 ``whole_bf16_kernel`` for K1F / K2F; all kernels for ``torch.fft``), median of the profiles (5 of 50 calls; 3 of 20 with
@@ -66,6 +83,10 @@ AB_CASES = (("whole_transform_packed", 1024), ("whole_transform", 4096), ("whole
 #: S1's shapes: ``ablate_engines``' and the uneven split (1, 32,768).
 LM_CASES = ((1, 4096), (1, 16384), (1, 65536), (16, 4096), (16, 65536), (64, 4096), (1, 32768))
 TOL = 1e-5
+#: The band sweep's grid (``--band``), capped at B * n <= BAND_SAMPLES_MAX.
+BAND_N = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
+BAND_B = (1, 2, 4, 16, 64, 194, 256, 1024, 2048, 4096)
+BAND_SAMPLES_MAX = 1 << 26
 FAST_TOL = 1e-3  # K1F / K2F vs their plain version, relative to max|plain|
 BF16_SWEEP = ((1024, 1), (2048, 1), (4096, 1), (8192, 1), (16384, 1), (4096, 16), (4096, 64), (16384, 16),
               (16384, 64))
@@ -120,6 +141,102 @@ def graph_ms(fn, calls: int, replays: int) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / calls)
     return statistics.median(samples)
+
+
+def host_ms(fn, calls: int, bursts: int) -> float:
+    """Median over ``bursts`` of the host's time (ms) per call in a burst of
+    ``calls`` calls of ``fn``, synchronised before each burst and after it,
+    not inside: what the host spends in the call while the card works."""
+    import time
+
+    import torch
+
+    samples = []
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def band_sweep(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
+    """The band sweep (module docstring, item 6): K1/K2 against the torch
+    four-step through ``transform_any`` at every (B, n) of the grid."""
+    import torch
+
+    from ..config import apply_precision
+    from ..kernels import large as L
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_whole needs a CUDA card")
+    apply_precision()
+    dev = torch.device("cuda")
+    profiles = 2 if quick else 3
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    res: dict = {"card": card, "torch": torch.__version__, "quick": quick, "band": [], "edge": {}}
+    out = Path(out_dir) / "time_whole_band.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shut = L.whole_kernel_applies
+    wins: dict = {}
+    for n in BAND_N:
+        for b in (b for b in BAND_B if b * n <= BAND_SAMPLES_MAX):
+            # ~2^24 samples a profile at the large shapes, 5 to 50 calls.
+            calls = max(5, min(50, (1 << 24) // (b * n)))
+            for complex_ in (False, True):
+                sign, scale = (1, 1.0 / n) if complex_ else (-1, None)
+                xr = torch.randn(b, n, generator=gen, device=dev)
+                xi = torch.randn(b, n, generator=gen, device=dev) if complex_ else None
+
+                def call(xr=xr, xi=xi, n=n, sign=sign, scale=scale):
+                    return L.transform_any(xr, xi, n, sign, scale)
+
+                row = {"b": b, "n": n, "kind": "complex inv 1/n" if complex_ else "real fwd", "calls": calls,
+                       "device_ms": {"whole": [], "torch": []}, "host_ms": {"whole": [], "torch": []}}
+                outs = {}
+                try:
+                    for side in ("whole", "torch", "torch", "whole"):
+                        L.whole_kernel_applies = (lambda b, n: True) if side == "whole" else (lambda b, n: False)
+                        outs[side] = call()
+                        # A profile that records no kernel (CUPTI missed the
+                        # calls) is taken again, up to three times.
+                        t = None
+                        for _ in range(3):
+                            t = device_ms(call, None, calls, profiles) if t is None else t
+                        row["device_ms"][side].append(t)
+                        row["host_ms"][side].append(host_ms(call, calls, 2 * profiles))
+                finally:
+                    L.whole_kernel_applies = shut
+                want = outs["torch"]
+                ref = max(float(w.abs().max()) for w in want)
+                row["max_abs_err"] = max(float((g - w).abs().max()) for g, w in zip(outs["whole"], want))
+                row["ok"] = row["max_abs_err"] <= TOL * ref
+                for key in ("device_ms", "host_ms"):
+                    row[key] = {k: None if None in v else statistics.median(v) for k, v in row[key].items()}
+                dm = row["device_ms"]
+                row["speedup"] = None if None in dm.values() else dm["torch"] / dm["whole"]
+                wins.setdefault(n, []).append((b, row["ok"] and (row["speedup"] or 0.0) > 1.0))
+                res["band"].append(row)
+                print(json.dumps(row), flush=True)
+                out.write_text(json.dumps(res, indent=1))
+                del xr, xi, outs, want
+                torch.cuda.empty_cache()
+    for n, rows in wins.items():
+        edge = 0
+        for b in sorted({b for b, _ in rows}):
+            if not all(ok for bb, ok in rows if bb == b):
+                break
+            edge = b
+        res["edge"][str(n)] = edge
+    print("edge (largest B up to which K1/K2 win at every swept B, both directions):", json.dumps(res["edge"]))
+    out.write_text(json.dumps(res, indent=1))
+    print(f"wrote {out}")
+    return res
 
 
 def build_baseline(src: Path, signatures: dict):
@@ -446,6 +563,10 @@ if __name__ == "__main__":
     ap.add_argument("--baseline-lm", help="an earlier fused_lm.cu (no geometry arguments) to time against")
     ap.add_argument("--fast", action="store_true", help="sweep K1F / K2F instead of K1 / S1")
     ap.add_argument("--baseline-bf16", help="an earlier whole_bf16.cu (no geometry arguments) to time against")
+    ap.add_argument("--band", action="store_true", help="only the band sweep: K1/K2 against the torch four-step")
     args = ap.parse_args()
+    if args.band:
+        band_sweep(quick=args.quick)
+        raise SystemExit(0)
     main(quick=args.quick, baseline=args.baseline, baseline_lm=args.baseline_lm, sweep=not args.no_sweep,
          fast=args.fast, baseline_bf16=args.baseline_bf16)

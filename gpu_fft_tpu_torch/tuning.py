@@ -2,11 +2,12 @@
 transform path reads.
 
 The JAX package keys one row per TPU generation (``gpu_fft_tpu/tuning.py``).
-The port keeps that shape with two rows: ``h100``, uncalibrated, carrying the
-v5e gate values, and ``cpu-approx``, the same values for the CPU tests.
-Identical gates mean the port takes the same engine as the JAX package for
-every (B, n), so the tests compare like with like.  Re-tuning the gates on
-H100 measurements is later work.
+The port keeps that shape with two rows: ``h100`` and ``cpu-approx``, the
+same values for the CPU tests.  The whole-transform band (``whole_n_max``,
+``whole_batch_max``, ``whole_samples_max``) is measured on an H100
+(``scripts/time_whole.py --band``) and wider than the v5e's; every other
+gate carries the v5e value, unmeasured, so outside the band the port takes
+the same engine as the JAX package for every (B, n).
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ class ChipTuning:
       the column tiles and stage B folds per row.
     * ``irfft_direct_k128``: the direct half inverse at n >= 256 contracts
       K = n/2 and adds the Nyquist row as a broadcast.
-    * ``whole_*``: the (B, n) band that runs the whole transform as one kernel;
-      ``whole_packed_n_max`` picks the packed-table variant inside it.
+    * ``whole_*``: the (B, n) band that runs the whole transform as one kernel
+      (whole_n_min <= n <= whole_n_max, B <= whole_batch_max and
+      B * n <= whole_samples_max); ``whole_packed_n_max`` picks the
+      packed-table variant inside it.
     * ``stage_a_wide_ct*``: the wider stage-A column tile at large n2.
     """
 
@@ -59,6 +62,7 @@ class ChipTuning:
     whole_n_min: int
     whole_n_max: int
     whole_batch_max: int
+    whole_samples_max: int
     whole_packed_n_max: int
     stage_a_wide_ct: int
     stage_a_wide_ct_n2_min: int
@@ -80,13 +84,17 @@ _H100 = ChipTuning(
     irfft_half_staged_min=1 << 18,
     irfft_direct_k128=True,
     whole_n_min=1 << 10,
-    whole_n_max=1 << 14,
-    whole_batch_max=1,
+    whole_n_max=1 << 16,
+    whole_batch_max=4096,
+    whole_samples_max=1 << 26,
     whole_packed_n_max=1 << 10,
     stage_a_wide_ct=2048,
     stage_a_wide_ct_n2_min=8192,
     calibrated=False,
-    note="v5e gate values carried over unmeasured; re-tune on H100 measurements",
+    note=(
+        "whole band measured on an H100 80GB HBM3 (time_whole.py --band: K1/K2 beat the torch four-step "
+        "at every swept (B, n), n 1,024-65,536, B 1-4,096, B*n <= 2^26); other gates v5e values, unmeasured"
+    ),
 )
 
 TUNING = {

@@ -53,12 +53,18 @@ def _signal(kind, b, n, g, dev):
     return x
 
 
+WHOLE_SIZES = [("whole_transform", n) for n in (1024, 2048, 4096, 8192, 16384, 32768, 65536)] + [
+    ("whole_transform_packed", n) for n in (1024, 2048, 4096, 8192, 16384)
+]
+
+
+# B = 1, 2, 3 at every size; B = 16 and 194 (a whole-band batch, Welch's
+# 194 segments) at 1,024, 16,384 and 65,536.
 @pytest.mark.parametrize(
-    "name,n",
-    [("whole_transform", n) for n in (1024, 2048, 4096, 8192, 16384, 32768, 65536)]
-    + [("whole_transform_packed", n) for n in (1024, 2048, 4096, 8192, 16384)],
+    "name,n,b",
+    [(name, n, b) for name, n in WHOLE_SIZES for b in (1, 2, 3)]
+    + [(name, n, b) for name, n in WHOLE_SIZES if n in (1024, 16384, 65536) for b in (16, 194)],
 )
-@pytest.mark.parametrize("b", [1, 2, 3])
 @pytest.mark.parametrize("complex_", [False, True])
 @pytest.mark.parametrize("signal", ["randn", "dc", "impulse"])
 def test_whole_kernel(dev, name, n, b, complex_, signal):
@@ -166,7 +172,7 @@ def test_stage_a_kernel_irfft_col_tiles(dev, n, ct, signal):
 IRFFT_CASES = [(1, 256, None), (1, 1024, "whole_transform_packed"), (1, 4096, "whole_transform"),
                (1, 16384, "whole_transform"), (1, 65536, None), (1, 1 << 17, "stage_a"),
                (1, 1 << 18, "stage_a"), (1, 1 << 20, "stage_a"), (1, 1 << 22, "stage_a"),
-               (16, 65536, None), (64, 4096, None)]
+               (16, 65536, None), (64, 4096, "whole_transform")]
 
 
 @pytest.mark.parametrize("b,n,kernel", IRFFT_CASES)
@@ -481,7 +487,8 @@ def test_firstream_step_launches_k1_twice(dev):
     ("czt_device 2^16", {"stage_a": 2}),
     ("czt_device 1000", {"whole_transform": 2}),
     ("fht_device 2^20", {"stage_a": 2}),
-    ("oaconvolve_device (8, 2^20) * 1025", {"whole_transform": 1}),
+    # the taps' spectrum, then the blocks forward and back, each K1 at B > 1
+    ("oaconvolve_device (8, 2^20) * 1025", {"whole_transform": 3}),
 ])
 def test_filtering_calls_launch_the_expected_kernels(dev, call, want):
     """The K1/K2/K3 launches of each call where the dispatch sends it, and no

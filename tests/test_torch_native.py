@@ -154,12 +154,12 @@ def test_env_native_routes_the_host_api(built, monkeypatch):
 
 
 def test_warmup_runs_each_shape_on_the_cpu():
-    """Each (B, n) forward and inverse once: K2's plain version at (1, 1,024)
-    both ways, the torch engines at B = 2."""
+    """Each (B, n) forward and inverse once: K2's plain version at 1,024 and
+    K1's at 4,096 both ways, at B = 1 and 2 (both in the whole band)."""
     K.reset_counts()
     gt.warmup(sizes=(1024, 4096), batches=(1, 2), device="cpu")
-    assert K.COUNTS["whole_transform_packed"].plain_calls == 2
-    assert K.COUNTS["whole_transform"].plain_calls == 2
+    assert K.COUNTS["whole_transform_packed"].plain_calls == 4
+    assert K.COUNTS["whole_transform"].plain_calls == 4
     K.reset_counts()
     gt.warmup(sizes=(1024,), inverse=False, device="cpu")
     assert K.COUNTS["whole_transform_packed"].plain_calls == 1

@@ -95,10 +95,24 @@ def test_packed_plan_guard_is_a_recorded_divergence():
     _assert_tables_equal(jplan.get_whole_packed_plan(16384, -1), tplan.get_whole_packed_plan(16384, -1))
 
 
+# The whole-transform band on the H100 (``tuning._H100``), from the sweep of
+# K1/K2 against the torch four-step (``scripts/time_whole.py --band``):
+# K1/K2 won at every swept (B, n), n 1,024 ... 65,536, B 1 ... 4,096 with
+# B * n <= 2^26, so the band is that swept set's edge.
+H100_BAND = {"whole_n_max": 1 << 16, "whole_batch_max": 4096, "whole_samples_max": 1 << 26}
+
+
+def _h100_band(b, n):
+    """Whether (b, n) lies in the H100's whole-transform band ("full")."""
+    return 1024 <= n <= 65536 and n % 128 == 0 and b <= 4096 and b * n <= 1 << 26
+
+
 @pytest.mark.parametrize("b", [1, 2, 3, 16, 64])
 @pytest.mark.parametrize("n", [2, 256, 512, 1024, 2048, 4096, 16384, 32768, 65536])
 def test_dispatch_predicates_match(b, n):
-    assert tplan.whole_kernel_applies(b, n) == jplan.whole_kernel_applies(b, n)
+    """The four-step's predicates are the JAX package's; the whole band is
+    the H100's, wider than the v5e band the JAX package keeps."""
+    assert tplan.whole_kernel_applies(b, n) == _h100_band(b, n)
     assert tplan.wide_split_applies(b, n) == jplan.wide_split_applies(b, n)
     assert tplan.use_folded_layout(b, n) == jplan.use_folded_layout(b, n)
     assert tplan.half_spectrum_applies(n) == jplan.half_spectrum_applies(n)
@@ -115,11 +129,15 @@ def test_staged_split_matches(log_n):
 
 
 def test_tuning_rows_carry_the_v5e_gates():
+    """Every gate but the whole band's is the v5e value; the band is the
+    H100's measured one, on both rows (``cpu-approx`` mirrors ``h100``)."""
     v5e = jtuning.TUNING["v5e"]
     for row in ttuning.TUNING.values():
         assert row.calibrated is False
         for f in ttuning.ChipTuning.__dataclass_fields__:
-            if f not in ("name", "calibrated", "note"):
+            if f in H100_BAND:
+                assert getattr(row, f) == H100_BAND[f], f
+            elif f not in ("name", "calibrated", "note"):
                 assert getattr(row, f) == getattr(v5e, f), f
     assert set(ttuning.TUNING) == {"h100", "cpu-approx"}
 
@@ -173,19 +191,26 @@ def test_describe_plan_matches_jax_outside_the_band(n, b, real_input):
     assert (got["n"], got["batch"], got["real_input"]) == (n, b, real_input)
 
 
-def test_describe_plan_dispatch_map():
+def test_describe_plan_dispatch_map(monkeypatch):
     """``tests/test_plan.py::test_describe_plan_dispatch_map`` on the port;
-    at (1, 16,384) the port names the band (K1) where JAX says folded."""
+    in the H100 band ((1 ... 4,096, 1,024 ... 65,536), B * n <= 2^26) the
+    port names K1 / K2 where JAX says fourstep, so the four-step's layouts
+    show past its batch edge, and the transpose layout under "fast", whose
+    band stops at (1, 16,384)."""
+    from gpu_fft_tpu_torch import config
+
     d = tplan.describe_plan
     assert d(512)["path"] == "direct" and d(512)["engine"] == "torch matmul"
-    p = d(4096, batch=64)
+    p = d(4096, batch=8192)
     assert p["path"] == "fourstep" and p["wide"] and p["split"] == (32, 128)
     assert p["layout"] == "folded" and p["engine"] == "torch four-step"
-    assert d(65536, batch=1)["layout"] == "half-spectrum"
-    assert d(65536, batch=1, real_input=False)["layout"] == "transpose"
-    assert d(65536, batch=2, real_input=False)["layout"] == "folded"
+    assert d(65536, batch=1025)["layout"] == "half-spectrum"
+    assert d(65536, batch=1025, real_input=False)["layout"] == "folded"
+    for b in (1, 16, 1024):
+        assert (d(65536, batch=b)["path"], d(65536, batch=b)["kernel"]) == ("whole", "whole_transform")
     assert (d(16384)["path"], d(16384)["kernel"], d(16384)["layout"]) == ("whole", "whole_transform", None)
-    assert d(16384, batch=2)["layout"] == "folded"
+    assert (d(16384, batch=2)["path"], d(16384, batch=4097)["layout"]) == ("whole", "folded")
+    assert (d(1024, batch=194)["path"], d(1024, batch=194)["kernel"]) == ("whole", "whole_transform_packed")
     s = d(1 << 20)
     assert s["path"] == "staged" and s["split"] == (128, 8192) and s["engine"] == "K3 stage_a + torch stage B"
     assert s["layout"] == "half-spectrum"
@@ -194,6 +219,9 @@ def test_describe_plan_dispatch_map():
     for bad in (100, 0, 1 << 30):
         with pytest.raises(ValueError):
             d(bad)
+    monkeypatch.setattr(config, "PRECISION", "fast")
+    assert d(65536, batch=1, real_input=False)["layout"] == "transpose"
+    assert d(16384, batch=2)["layout"] == "folded"
 
 
 @pytest.mark.parametrize("real_input", [True, False])
@@ -212,3 +240,60 @@ def test_describe_plan_names_the_path_transform_any_takes(b, n, real_input):
     ran = {k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls}
     want = {"whole": {info.get("kernel"): 1}, "staged": {"stage_a": 1}}.get(info["path"], {})
     assert ran == want, (info, ran)
+
+
+# ── The whole-transform band: the engine ``transform_any`` takes ────────────
+
+# (mode, b, n, engine): "whole" is K1/K2 (K1F/K2F under "fast"); "torch" any
+# of the torch engines, no kernel.
+BAND_CASES = [
+    ("full", 1, 32768, "whole"),
+    ("full", 1, 65536, "whole"),
+    ("full", 16, 65536, "whole"),
+    ("full", 194, 1024, "whole"),
+    ("full", 3, 4096, "whole"),
+    ("full", 4097, 1024, "torch"),  # one past the batch edge
+    ("full", 4, 512, "torch"),  # under the band's n
+    ("fast", 1, 16384, "whole"),
+    ("fast", 1, 1024, "whole"),
+    ("fast", 2, 4096, "torch"),
+    ("fast", 1, 32768, "torch"),
+    ("high", 1, 4096, "torch"),
+    ("high", 3, 1024, "torch"),
+]
+
+
+def _engines(prof):
+    return [e.name for e in prof.events() if e.name.startswith("gft.engine.")]
+
+
+@pytest.mark.parametrize("real_input", [True, False])
+@pytest.mark.parametrize("mode,b,n,engine", BAND_CASES)
+def test_transform_any_takes_the_band_engine(monkeypatch, mode, b, n, engine, real_input):
+    """The engine span and the kernels' plain-call counts of one
+    ``transform_any`` call on the CPU: K1/K2 in the H100 band under "full";
+    the band of K1F/K2F (B = 1, n <= 16,384) under "fast"; no kernel under
+    "high"; the torch engines outside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels.large import transform_any
+
+    monkeypatch.setattr(config, "PRECISION", mode)
+    # Both "high" cases lie in the band: transform_any, not the predicate, bypasses it.
+    assert tplan.whole_kernel_applies(b, n) == (engine == "whole" or mode == "high")
+    x = torch.zeros(b, n)
+    K.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        transform_any(x, None if real_input else torch.zeros(b, n), n, -1)
+    ran = {k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls}
+    fast = "_bf16" if mode == "fast" else ""
+    if engine == "whole":
+        assert _engines(prof) == ["gft.engine.whole"]
+        assert ran == {("whole_transform_packed" if n <= 1024 else "whole_transform") + fast: 1}
+    else:
+        (name,) = _engines(prof)
+        assert name in ("gft.engine.direct", "gft.engine.fourstep", "gft.engine.fourstep_folded",
+                        "gft.engine.fourstep_half")
+        assert ran == {}

@@ -125,7 +125,12 @@ def test_fft_device_16384_runs_the_whole_engine_under_dispatch():
 
 
 def test_fft_device_65536_runs_a_four_step_under_dispatch():
-    (chain,) = _chains(_profiled(lambda: gt.fft_device(_signal(65536))))
+    """(1, 65,536) runs the whole engine (the H100 band reaches 65,536); a
+    four-step engine still runs under dispatch one past the band's batch
+    edge, at (4,097, 1,024)."""
+    assert _chains(_profiled(lambda: gt.fft_device(_signal(65536)))) == [
+        ("gft.entry.fft", "gft.dispatch", "gft.engine.whole")]
+    (chain,) = _chains(_profiled(lambda: gt.fft_device(_signal(1024, 4097))))
     assert chain[:2] == ("gft.entry.fft", "gft.dispatch")
     assert chain[2] in ("gft.engine.fourstep", "gft.engine.fourstep_half", "gft.engine.fourstep_folded")
     assert len(chain) == 3
@@ -244,6 +249,5 @@ def test_spans_add_no_device_operation_under_a_cuda_only_profile(dev, n):
     one = ops(1)
     assert not any(name.startswith("gft.") for name in one)
     assert len(ops(4)) == 4 * len(one)
-    if n == 16384:
-        assert len(one) == 1  # K1 alone
+    assert len(one) == 1  # K1 alone
     assert np.isfinite(float(gt.fft_device(x)[0].abs().max()))

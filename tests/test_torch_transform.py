@@ -2,7 +2,9 @@
 
 ``transform_any`` is compared engine for engine: the same (B, n) must reach
 the same kernel in both packages (the JAX side's Pallas kernels run in
-interpret mode).  The public API (fft, ifft, fft_batch, ifft_batch, psd) and
+interpret mode), except inside the port's whole-transform band on the H100
+(B > 1 or n > 16,384), wider than the v5e band the JAX package keeps, where
+the port runs K1/K2 and the JAX package its four-step.  The public API (fft, ifft, fft_batch, ifft_batch, psd) and
 the reference demo are compared end to end.
 
 Tolerance: max |port - JAX| <= 1e-5 * max |JAX| (fp32 on both sides from
@@ -22,12 +24,22 @@ from gpu_fft_tpu_torch.kernels.large import transform_any
 
 RTOL = 1e-5
 KERNELS = ("whole_transform", "whole_transform_packed", "stage_a")
-SHAPES = [(1, 256), (1, 1024), (1, 4096), (2, 4096), (16, 4096), (1, 65536), (1, 1 << 17)]
-# The kernel each (B, n) reaches (gpu_fft_tpu/kernels/large.py:transform_any).
+SHAPES = [(1, 256), (1, 1024), (1, 4096), (2, 4096), (16, 4096), (1, 65536), (1, 1 << 17), (3, 32768),
+          (194, 1024)]
+# The kernel each (B, n) reaches in the JAX package
+# (gpu_fft_tpu/kernels/large.py:transform_any, the v5e band).
 EXPECTED = {
     (1, 1024): "whole_transform_packed",
     (1, 4096): "whole_transform",
     (1, 1 << 17): "stage_a",
+}
+# ... and in the port, where it differs: the H100 band's K1/K2.
+EXPECTED_PORT = {
+    (2, 4096): "whole_transform",
+    (16, 4096): "whole_transform",
+    (1, 65536): "whole_transform",
+    (3, 32768): "whole_transform",
+    (194, 1024): "whole_transform_packed",
 }
 
 
@@ -96,11 +108,35 @@ def test_transform_any_matches_jax(jax_results, b, n, direction):
     else:
         got = transform_any(torch.from_numpy(xr), torch.from_numpy(xi), n, 1, scale=1.0 / n)
     _assert_close([g.numpy() for g in got], ref[direction])
-    # Same engine: the kernel the JAX path ran is the one the port ran.
+    # Same engine: the kernel the JAX path ran is the one the port ran,
+    # but for the port's wider band.
     assert ref[f"{direction}_ran"] == ({EXPECTED[(b, n)]} if (b, n) in EXPECTED else set())
     ran = {name for name in KERNELS if K.COUNTS[name].plain_calls}
-    assert ran == ref[f"{direction}_ran"]
+    assert ran == ({EXPECTED_PORT[(b, n)]} if (b, n) in EXPECTED_PORT else ref[f"{direction}_ran"])
     assert all(K.COUNTS[name].launches == 0 for name in KERNELS)
+
+
+def test_band_hands_the_kernels_contiguous_rows(monkeypatch):
+    """A strided batch in the band (a 2-D pass's columns) reaches K1 as
+    contiguous rows, which the CUDA wrappers require, and transforms as the
+    same rows made contiguous first."""
+    import gpu_fft_tpu_torch.kernels.large as L
+
+    seen = []
+    real = L.whole_transform
+
+    def spy(xr, xi, plan):
+        seen.append((xr.is_contiguous(), xi is None or xi.is_contiguous()))
+        return real(xr, xi, plan)
+
+    monkeypatch.setattr(L, "whole_transform", spy)
+    xr, xi = (torch.from_numpy(a).t() for a in _inputs(4096, 8))  # (8, 4096) views, stride 8
+    assert not xr.is_contiguous()
+    got = transform_any(xr, xi, 4096, 1, scale=1.0 / 4096)
+    assert seen == [(True, True)]
+    want = transform_any(xr.contiguous(), xi.contiguous(), 4096, 1, scale=1.0 / 4096)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("length", [1, 2, 100, 1000, 4096, 20000])
