@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    and K3 of the transform path (K3 also at each ct that the levers
    harness sets at 2^18, and on the staged real-output inverse's complex
    input, sign +1, on the first ceil((n2/2 + 1) / ct) column tiles, at
-   2^18 … 2^24 for ct = 512, 1,024, 2,048); K3-legacy (K3's radix kernel
+   2^18 … 2^24 for ct = 512, 1,024, 2,048); K4 (stage B of a complex
+   staged transform) at B = 1 at 2^17, 2^20, 2^22 and 2^24 and at the
+   matched filter's (64, 128, 8,192), the forward unscaled and the inverse
+   with 1/n in its store; K3-legacy (K3's radix kernel
    reading a materialized twiddle) at every ablate_large shape and in its
    complex, rows and col_tiles forms, S2 at n1 = 32, 128 and 256, and S3 of
    the stage-A ablation harnesses, with S3's error against float64 (gate
@@ -42,7 +45,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    and numpy in float64 with the JAX package's tests' gates: welch (mean
    and median), csd, coherence, spectrogram_scipy, stft_scipy /
    istft_scipy, the STFT roundtrip, ShortTimeFFT, periodogram (2^22 on K3,
-   48,000 mixed, 1,000,003 Bluestein with two K3 launches) and
+   48,000 mixed, 1,000,003 Bluestein with two K3 and two K4 launches) and
    fft_exact / ifft_exact; the engine each estimator's transform took;
 3d. the filtering path at full size, counted from 0, against scipy.signal
    / scipy.fft in float64 with the JAX package's tests' gates:
@@ -50,14 +53,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    fft_convolve_device at m = 2^21 (three K3 launches), FIRStream (256
    chunks of 4,096, 257 taps, K1 twice a step), lfilter_device and
    sosfiltfilt (8, 2^20), resample_poly_device 3/2, decimate (iir, fir),
-   hilbert_device 2^20 (two K3), resample_device, dct/idct at (1, 2^20)
+   hilbert_device 2^20 (two K3, one K4), resample_device, dct/idct at (1, 2^20)
    (one K3 each) and (64, 4,096), types 1/3/4 and DSTs at 48,000, czt at
-   2^16 (two K3) and 1,000 (two K1), zoom_fft, fht / ifht at 2^20 and
+   2^16 (two K3, two K4) and 1,000 (two K1), zoom_fft, fht / ifht at 2^20 and
    10,000; each row's launches, no plain call;
 3e. the 2-D / N-D path, NATIVE and the examples, counted from 0, against
    numpy / scipy in float64: fft2_device / ifft2_device and rfft2_device /
-   irfft2_device on a 512 x 131,072 panel (K3 once each way, the rows at
-   B = 512; gate 5*log2(H*W)*eps), the host fft2 / ifft2 / rfft2 / irfft2
+   irfft2_device on a 512 x 131,072 panel (K3 once each way, K4 on the
+   inverses' complex rows, the rows at B = 512; gate 5*log2(H*W)*eps), the host fft2 / ifft2 / rfft2 / irfft2
    of a 4,096^2 image (K1 on the rows and on the columns, B = 4,096 in the
    whole band) and its fft_convolve2d_device with a 33 x 33 kernel at
    8,192^2 (rows of 16,384 at B = 16,384: torch engines, no launch;
@@ -78,12 +81,12 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    512 x 512 and hfft at 4,096, each on a CUDA complex64 tensor and through
    ``scipy.fft.set_backend(compat.backend)`` on numpy input, against
    scipy.fft in float64 (5*log2(N)*eps for powers of two, else 3e-5);
-   signal.hilbert at 2^20 (K3 twice), csd (8, 2^20) / 4,096, stft / istft
+   signal.hilbert at 2^20 (K3 twice, K4 once), csd (8, 2^20) / 4,096, stft / istft
    at 2^16, czt at 1,000, hilbert2 on 512^2 and envelope at 2^16 against
    scipy.signal in float64 on the JAX tests' gates; the FNO at the
    published widths on synthetic fields, (a) Burgers FNO1d B = 20 at 8,192,
    (b) Navier-Stokes FNO2d B = 20 at 64^2 with 10 input steps, (c) FNO1d
-   at 2^18, B = 2 (K3 three times a layer): a forward and backward against
+   at 2^18, B = 2 (K3 three times a layer, K4 once): a forward and backward against
    a float64 twin on torch.fft (output 2*5*log2(N)*eps, gradients 1e-4)
    and 20 Adam steps whose loss falls; each call's launches, no plain
    call, every geometry against its plain version; ``python -m
@@ -99,7 +102,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (8, 512, 512), each against numpy f64 (5*log2(N)*eps); ``welch_sharded``
    2^20 / 4,096 (1e-4), ``oaconvolve_sharded`` 2^21 * 1,025 (2e-3),
    ``lfilter_sharded`` butter(4) 2^20 (2e-4 abs) against scipy.signal f64;
-   ``make_data_parallel_step`` on FNO (c) (K3 12 times a step) and
+   ``make_data_parallel_step`` on FNO (c) (K3 12, K4 4 times a step) and
    ``make_gspmd_step`` (FSDP2, dp = tp = 1) on FNO (a), each step's loss and
    parameters against the single-device step from the same weights (1e-5),
    20 steps whose loss falls; every serving kind at (1, 1,024), (1, 4,096),
@@ -135,7 +138,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    (1 and 3) x (4,096, 32,768, 2^17, 2^21, 2^22) against numpy f64
    (5*log2(n)*eps) with a roundtrip through ifft_device, its half
    transform's launches pinned (K1 once where n/2 is in the whole band, at
-   4,096, 32,768 and 2^17, K3 once at 2^21 and 2^22), and at
+   4,096, 32,768 and 2^17, K3 and K4 once at 2^21 and 2^22), and at
    32,768 under "fast" (K1F once, within 2e-2); fft2 / ifft2 / rfft2 /
    irfft2_device on the 4,096^2 image through the axis-0 branch (four
    transform_axis0 calls, phase 3e's gates), the 512 x 131,072 panel's
@@ -157,7 +160,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    forward and on complex inverse input, beside torch.fft.fft and
    torch.fft.ifft; K3 at 2^20 and 2^22 on real input with the real path's
    rows and on complex input with the inverse plan, the ifft path, and on
-   the irfft path's column tiles; K3-legacy at 2^20 on real and complex
+   the irfft path's column tiles; K4 on the inverse at (64, 128, 8,192),
+   2^17 and 2^22 against its bytes bound, 16 B a point; K3-legacy at 2^20 on real and complex
    input, all rows, and at the real path's rows, against the radix bound
    and, beside it, the JAX bodies' dense (Karatsuba) count, its device
    time also with L2 flushed before each call (the time its shares of
@@ -234,10 +238,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5  # kernel vs plain, relative to max|plain|: both fp32, TF32 would be ~50x over
 EPS32 = 1.1920929e-07
-MAIN_PATH_KERNELS = ("whole_transform", "whole_transform_packed", "stage_a")
+MAIN_PATH_KERNELS = ("whole_transform", "whole_transform_packed", "stage_a", "stage_b")
+# A counter whose entry has another name in kernels/fused.py and large.py
+# (K4's counter is "stage_b"; large.stage_b is the torch engine).
+ENTRIES = {"stage_b": "stage_b_kernel"}
 CALIBRATION_KERNELS = ("fused_fft_lm", "operand_probe", "copy_min")
-# The transform-path kernels the calibration scripts also drive.
-CALIBRATION_PATH_KERNELS = (*CALIBRATION_KERNELS, *MAIN_PATH_KERNELS)
+# The transform-path kernels the calibration scripts also drive (not K4:
+# none of them runs a complex staged transform).
+CALIBRATION_PATH_KERNELS = (*CALIBRATION_KERNELS, *(k for k in MAIN_PATH_KERNELS if k != "stage_b"))
 LM_CASES = ((1, 4096), (1, 16384), (1, 65536), (16, 4096), (16, 65536), (64, 4096), (1, 32768))
 # The real-output path: B = 1 sizes, batches, the staged sizes where K3 runs
 # on half the column tiles, and the shapes timed in phase 4.
@@ -245,6 +253,11 @@ IRFFT_SIZES = (256, 1024, 4096, 16384, 65536, 1 << 17, 1 << 20, 1 << 22, 1 << 24
 IRFFT_BATCHES = ((16, 65536), (64, 4096))
 IRFFT_STAGED = (1 << 18, 1 << 20, 1 << 22, 1 << 24)
 IRFFT_TIMED = ((1, 32768), (1, 65536), (1, 1 << 20), (1, 1 << 22), (16, 65536))
+# K4's (B, n) in phase 2: B = 1 across its n2 range (1,024 ... 65,536) and
+# the matched filter's 64 rows of 2^20; phase 4 times STAGE_B_TIMED, the
+# first row the kernels line's (PERF.md's kernel table has the three).
+STAGE_B_CASES = ((1, 1 << 17), (1, 1 << 20), (1, 1 << 22), (1, 1 << 24), (64, 1 << 20))
+STAGE_B_TIMED = ((64, 1 << 20), (1, 1 << 17), (1, 1 << 22))
 # Phase 3b: the Parseval gradient at (1, n) and the kernel whose band n is
 # (None: the torch engines, the control); dot tests; forward mode.
 GRAD_SIZES = ((1024, "whole_transform_packed"), (4096, "whole_transform"), (16384, "whole_transform"),
@@ -276,7 +289,7 @@ NATIVE_BATCH = 16
 # complex transforms at B = 1: (n, launches the dispatch gives); 1,000 is
 # the mixed four-step (25 x 40, torch), 1,009 Bluestein on K1 at m = 2,048.
 COMPAT_FFT = ((1024, {"whole_transform_packed": 1}), (4096, {"whole_transform": 1}),
-              (16384, {"whole_transform": 1}), (1 << 20, {"stage_a": 1}), (1000, {}),
+              (16384, {"whole_transform": 1}), (1 << 20, {"stage_a": 1, "stage_b": 1}), (1000, {}),
               (1009, {"whole_transform": 2}))
 COMPAT_REAL = ((4096, {"whole_transform": 1}), (1 << 20, {"stage_a": 1}))
 COMPAT_IMAGE = 512
@@ -390,6 +403,15 @@ def stage_a_bound(n1: int, n2: int, rows: int, complex_: bool, ct: int | None, n
     twiddle = rows * ncols if ct is None else rows * (ncols // ct + ct)
     nbytes = 4 * (batch * ((2 if complex_ else 1) * n1 * ncols + 2 * rows * ncols) + 2 * n1 + 2 * twiddle)
     return bound(flop, "fp32", nbytes)
+
+
+def stage_b_bound(b: int, n1: int, n2: int):
+    """K4 on (b, n1, n2): per row of n2 a radix-2 FFT's 5 n2 log2 n2 FLOP
+    and 6 a point for the row four-step's twiddle; Y read once and the
+    spectrum written once, 16 bytes a complex point (the tables stay in
+    L2)."""
+    points = b * n1 * n2
+    return bound(points * (5 * (n2.bit_length() - 1) + 6), "fp32", 16 * points)
 
 
 def dense_stage_a_bound(n1: int, n2: int, rows: int, complex_: bool = False):
@@ -522,7 +544,7 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str =
 
 def capture_launches(module, names=MAIN_PATH_KERNELS) -> tuple[dict, object]:
     """Wraps kernel entries of ``module`` (by default the dispatch's
-    ``large.stage_a``, ``large.whole_transform``,
+    ``large.stage_a``, ``large.stage_b_kernel``, ``large.whole_transform``,
     ``large.whole_transform_packed``) so that the first input of every
     distinct launch geometry is kept, cloned: (kernel, input shape, real or
     complex, plan, tile arguments) -> (xr, xi, args, kwargs).  An entry
@@ -533,7 +555,7 @@ def capture_launches(module, names=MAIN_PATH_KERNELS) -> tuple[dict, object]:
     import torch
 
     seen = {}
-    originals = {name: getattr(module, name) for name in names}
+    originals = {name: getattr(module, ENTRIES.get(name, name)) for name in names}
 
     def wrap(name, fn):
         def call(xr, xi, *args, **kw):
@@ -546,11 +568,11 @@ def capture_launches(module, names=MAIN_PATH_KERNELS) -> tuple[dict, object]:
         return call
 
     for name, fn in originals.items():
-        setattr(module, name, wrap(name, fn))
+        setattr(module, ENTRIES.get(name, name), wrap(name, fn))
 
     def restore():
         for name, fn in originals.items():
-            setattr(module, name, fn)
+            setattr(module, ENTRIES.get(name, name), fn)
 
     return seen, restore
 
@@ -567,8 +589,9 @@ def check_geometries(report: dict, geometries: dict, phase: str) -> None:
           f"(gate max|d| <= {TOL} max|plain|):")
     while geometries:
         (name, shape, real, *_), (gx, gy, args, kw) = geometries.popitem()
-        got = getattr(K, name)(gx, gy, *args, **kw)
-        want = getattr(K, name + "_plain")(gx, gy, *args, **kw)
+        entry = ENTRIES.get(name, name)
+        got = getattr(K, entry)(gx, gy, *args, **kw)
+        want = getattr(K, entry + "_plain")(gx, gy, *args, **kw)
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         scale = max(float(w.abs().max()) for w in want)
         ok = err <= TOL * scale
@@ -647,17 +670,41 @@ def band_kernel(b: int, n: int):
     return None
 
 
+def launches_of(b: int, n: int, complex_input: bool) -> dict:
+    """The launches of one "full" ``transform_any`` call on a (b, n) batch:
+    the band's kernel once, and after K3 the stage B wherever
+    ``plan.describe_plan`` names K4 (complex rows; a real input's
+    half-spectrum stage B is torch)."""
+    from gpu_fft_tpu_torch import plan as P
+
+    kernel = band_kernel(b, n)
+    out = {kernel: 1} if kernel else {}
+    if kernel == "stage_a" and "K4" in P.describe_plan(n, b, not complex_input)["engine"]:
+        out["stage_b"] = 1
+    return out
+
+
+def summed(*launches: dict, times: int = 1) -> dict:
+    """Launch dicts added key by key, each ``times`` over."""
+    out = {}
+    for d in launches:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + times * v
+    return out
+
+
 def fno_launches(cell: dict) -> dict:
-    """K1 / K3 launches of one FNO train step (forward and backward).  Rows
-    longer than 65,536: K3 for the forward rfft, the irfft's staged fold and
-    the rfft's backward (the fold's backward is torch).  1-D rows in the
+    """K1 / K3 / K4 launches of one FNO train step (forward and backward).
+    Rows longer than 65,536: K3 for the forward rfft, the irfft's staged fold
+    and the rfft's backward, K4 for that backward's complex stage B (the
+    fold's backward is torch).  1-D rows in the
     whole band (B = batch x width): K1 for the forward rfft and irfft and
     for each one's backward.  None for the 2-D cell's 64-point rows."""
     if cell["dims"] != 1:
         return {}
     depth, size = cell["depth"], cell["size"]
     if size > 65536:
-        return {"stage_a": 3 * depth}
+        return {"stage_a": 3 * depth, "stage_b": depth}
     kernel = band_kernel(cell["batch"] * cell["width"], size)
     return {kernel: 4 * depth} if kernel else {}
 
@@ -670,7 +717,7 @@ def engine(b: int, n: int, real_input: bool) -> str:
 
     kernel = band_kernel(b, n)
     if kernel == "stage_a":
-        return "staged: K3 + torch stage B"
+        return "staged: " + P.describe_plan(n, b, real_input)["engine"]
     if kernel:
         return {"whole_transform_packed": "K2", "whole_transform": "K1"}[kernel]
     if n <= DIRECT_MAX:
@@ -714,7 +761,8 @@ def grad_phase(report: dict, dev, rng, grad_sizes=GRAD_SIZES, dot_transform=DOT_
         xs = host(x)
         record(report, "grad_path", f"grad Parseval n={n} ({engine(1, n, True)})", n,
                float(np.abs(host(g) - 2 * n * xs).max() / (2 * n * np.abs(xs).max())), 2 * gate(n))
-        want = {k: 2 if k == kernel else 0 for k in launched}
+        # The real forward, then its backward: a complex transform of the cotangent.
+        want = {k: 0 for k in launched} | summed(launches_of(1, n, False), launches_of(1, n, True))
         if launched != want or plain:
             fail(f"grad n={n}: launches {launched} and {plain} plain calls, expected {want} and none")
         per_size[n] = launched
@@ -906,11 +954,11 @@ def analysis_phase(report: dict, dev, rng, welch_shape=WELCH_SHAPE, pair_shape=P
         fail(f"phase 3c ran {plain} plain kernel versions on the card")
     if launched["stage_a"] < 1:
         fail("stage_a was launched no time on the analysis path")
-    for n in periodogram_sizes:  # Bluestein: one launch for each of its two m-point transforms
-        kernel = band_kernel(1, 1 << (2 * n - 2).bit_length())
+    for n in periodogram_sizes:  # Bluestein: the launches of its two complex m-point transforms
+        want = summed(launches_of(1, 1 << (2 * n - 2).bit_length(), True), times=2)
         got = per_size[f"periodogram {n}"]
-        if n & (n - 1) and mixed_split(n) is None and got != {k: 2 if k == kernel else 0 for k in got}:
-            fail(f"periodogram n={n}: launches {got}, expected two of {kernel}")
+        if n & (n - 1) and mixed_split(n) is None and got != {k: 0 for k in got} | want:
+            fail(f"periodogram n={n}: launches {got}, expected {want}")
     report.update(analysis_launches=launched, analysis_launches_per_call=per_size, analysis_engines=engines)
     return launched
 
@@ -1161,10 +1209,10 @@ def filter_phase(report: dict, dev, rng, rows=FILTER_ROWS, fir_taps=FIR_TAPS, st
         if launched[kernel] < 1:
             fail(f"{kernel} was launched no time on the filtering path")
     expect = {f"fft_convolve_device (1, {n}) * 4097 (m = 2^21)": {"stage_a": 3},
-              f"hilbert_device {n}": {"stage_a": 2},
+              f"hilbert_device {n}": {"stage_a": 2, "stage_b": 1},
               f"dct_device type 2 ortho {(1, n)}": {"stage_a": 1},
               f"idct_device type 2 ortho {(1, n)}": {"stage_a": 1},
-              f"czt_device n = m = {nc}": {"stage_a": 2},
+              f"czt_device n = m = {nc}": {"stage_a": 2, "stage_b": 2},
               "czt_device n = m = 1000": {"whole_transform": 2}}
     for label, want in expect.items():
         got = {k: v for k, v in per_call[label].items() if v}
@@ -1480,8 +1528,9 @@ def twod_phase(report: dict, dev, rng, panel=PANEL, image=IMAGE, ktaps=CONV_KERN
         print(f"    {label}: {got}")
     if plain:
         fail(f"phase 3e ran {plain} plain kernel versions on the card")
-    expect = {**{f"{f} {h} x {w}": {"stage_a": 1} for f in ("fft2_device", "ifft2_device", "rfft2_device",
-                                                              "irfft2_device")},
+    # The rows by K3; K4 after it where the rows are complex (the inverses).
+    expect = {**{f"{f} {h} x {w}": {"stage_a": 1} for f in ("fft2_device", "rfft2_device")},
+              **{f"{f} {h} x {w}": {"stage_a": 1, "stage_b": 1} for f in ("ifft2_device", "irfft2_device")},
               # K1 on the rows and on the columns (B = 4,096 and 2,049 in the band)
               **{f"{f} {image} x {image}": {"whole_transform": 2} for f in ("fft2", "ifft2", "rfft2", "irfft2")},
               f"fft_convolve2d_device {image}^2 * {ktaps}^2 (m = {m}^2)": {},
@@ -1652,7 +1701,7 @@ def namespace_phase(report: dict, dev, rng) -> dict:
     n = SIGNAL_HILBERT
     x = rng.standard_normal(n).astype(np.float32)
     lbl = f"signal.hilbert {n}"
-    got = counted(per_call, lbl, lambda: sg.hilbert(x), {"stage_a": 2})
+    got = counted(per_call, lbl, lambda: sg.hilbert(x), {"stage_a": 2, "stage_b": 1})
     sig_row(f"{lbl} vs scipy.signal f64 (rel)", n, rel(got, ss.hilbert(x.astype(np.float64))), 3e-5)
     b, n, seg = SIGNAL_CSD
     xs, ys = rng.standard_normal((b, n)).astype(np.float32), rng.standard_normal((b, n)).astype(np.float32)
@@ -1786,8 +1835,8 @@ def fno_phase(report: dict, dev) -> dict:
     on the card: one forward and backward against the float64 twin
     (``fft_twin``; output 2*5*log2(N)*eps of max|twin|, every parameter's
     gradient 1e-4 of max|twin's|), then ``FNO_STEPS`` Adam steps (lr 1e-3)
-    whose loss must fall; launches pinned (K3 three times a layer at
-    2^18, none at the published grids), no plain call, every geometry
+    whose loss must fall; launches pinned (K3 three times and K4 once a
+    layer at 2^18, none at the published grids), no plain call, every geometry
     against its plain version; then ``python -m
     gpu_fft_tpu_torch.examples.fno`` to its OK line.  Returns the launches
     of this half (counted from 0)."""
@@ -2021,7 +2070,8 @@ def parallel_phase(report: dict, dev, rng) -> dict:
         row(f"{lbl} vs numpy f64 (rel)", h * w, cerr(yr, yi, ref), gate(h * w))
         del ref
         lbl = f"ifft2_sharded {h} x {w}"
-        br, bi = counted(per_call, lbl, lambda: tp.ifft2_sharded(yr, yi, mesh, sp_axis="dp"), {"stage_a": 1})
+        br, bi = counted(per_call, lbl, lambda: tp.ifft2_sharded(yr, yi, mesh, sp_axis="dp"),
+                         {"stage_a": 1, "stage_b": 1})
         row(f"{lbl} vs input, roundtrip (rel)", h * w,
             max(rerr(br, x), float(np.abs(host(bi)).max()) / float(np.abs(x).max())), gate(h * w))
         del xt, yr, yi, br, bi, x
@@ -2036,12 +2086,11 @@ def parallel_phase(report: dict, dev, rng) -> dict:
         # Batch sharding: no collective.
         for b, n in BATCH_SHARDED:
             x = rng.standard_normal((b, n)).astype(np.float32)
-            want = once((b, n))
             lbl = f"fft_batch_sharded ({b}, {n})"
-            yr, yi = counted(per_call, lbl, lambda: tp.fft_batch_sharded(tensor(x), mesh), want)
+            yr, yi = counted(per_call, lbl, lambda: tp.fft_batch_sharded(tensor(x), mesh), launches_of(b, n, False))
             row(f"{lbl} vs numpy f64 (rel)", n, cerr(yr, yi, np.fft.fft(x.astype(np.float64), axis=-1)), gate(n))
             lbl = f"ifft_batch_sharded ({b}, {n})"
-            br, _ = counted(per_call, lbl, lambda: tp.ifft_batch_sharded(yr, yi, mesh), want)
+            br, _ = counted(per_call, lbl, lambda: tp.ifft_batch_sharded(yr, yi, mesh), launches_of(b, n, True))
             row(f"{lbl} vs input, roundtrip (rel)", n, rerr(br, x), gate(n))
         b, hh, ww = BATCH_2D
         x = rng.standard_normal(BATCH_2D).astype(np.float32)
@@ -2078,7 +2127,7 @@ def parallel_phase(report: dict, dev, rng) -> dict:
             float(np.abs(host(y) - ss.lfilter(bb, aa, x.astype(np.float64))).max()), 2e-4)
 
         # The mesh train steps against the single-device step from the same
-        # weights: the data-parallel step on FNO (c) (K3 12 times a step), the
+        # weights: the data-parallel step on FNO (c) (K3 12, K4 4 times a step), the
         # FSDP2 step with dp = tp = 1 on FNO (a).
         report["parallel_fno"] = {}
         for name, kind in (("c", "data_parallel"), ("a", "gspmd")):
@@ -2350,18 +2399,19 @@ def precision_phase(report: dict, dev, rng, shapes=PRECISION_SHAPES, grad_sizes=
     # The counts by mode: "high" runs no kernel; "fast" runs each fp32
     # kernel's counterpart where "full" runs it and no fp32 kernel, but
     # for K1 / K2 outside K1F / K2F's band (B = 1, n <= 16,384), where it
-    # runs the torch engines.
+    # runs the torch engines, and for K4, which has no "fast" form (the
+    # torch stage B runs).
     for op, b, n in errs:
         label = f"{op} ({b}, {n})"
         full = launches["full"][label]
         if launches["high"][label]:
             fail(f"{label}: 'high' launched {launches['high'][label]}")
         fast_band = b <= P.WHOLE_FAST_BATCH_MAX and n <= P.WHOLE_FAST_N_MAX
-        want = {FAST_KERNELS[k]: v for k, v in full.items() if k == "stage_a" or fast_band}
-        if launches["fast"][label] != want or set(full) - set(FAST_KERNELS):
+        want = {FAST_KERNELS[k]: v for k, v in full.items() if k == "stage_a" or k in FAST_KERNELS and fast_band}
+        if launches["fast"][label] != want or set(full) - {*FAST_KERNELS, "stage_b"}:
             fail(f"{label}: 'fast' launched {launches['fast'][label]} where 'full' launched {full}")
     for n in grad_sizes:
-        want = {FAST_KERNELS[k]: v for k, v in grads["full", n].items()}
+        want = {FAST_KERNELS[k]: v for k, v in grads["full", n].items() if k in FAST_KERNELS}
         if grads["high", n] or grads["fast", n] != want:
             fail(f"grad n={n}: 'high' launched {grads['high', n]}, 'fast' {grads['fast', n]} (want {want})")
     fast_launches = {k: sum(c.get(k, 0) for c in launches["fast"].values()) for k in FAST_KERNELS.values()}
@@ -2700,9 +2750,8 @@ def gate_closed_phase(report: dict, dev, rng) -> dict:
                 for b in (1, 3):
                     x = rng.standard_normal((b, n)).astype(np.float32)
                     xt = torch.from_numpy(x).to(dev)
-                    half = band_kernel(b, n // 2)
                     (yr, yi), launched = counted(f"packed fft ({b}, {n})", lambda: gt.fft_device(xt),
-                                                 {half: 1} if half else {})
+                                                 launches_of(b, n // 2, True))
                     ref = sf.fft(x.astype(np.float64), axis=-1, workers=-1)
                     record(report, "gate_closed_path", f"packed fft ({b}, {n}) {launched} vs numpy f64 (rel)", n,
                            cerr(yr, yi, ref), gate(n))
@@ -3089,6 +3138,22 @@ def main() -> None:
             del xr, xi, got, want
         torch.cuda.synchronize()
 
+    # K4 at the shapes the staged path gives it: B = 1 at 2^17, 2^20, 2^22
+    # and 2^24 (n1 = 256), and the matched filter's (64, 128, 8,192); the
+    # forward unscaled, the inverse with 1/n in its store.
+    for b, n in STAGE_B_CASES:
+        for sign in (-1, 1):
+            plan = P.on_device(P.get_stage_a_plan, n, sign, P.stage_a_ct_full_range(n), device=dev)
+            n1, n2 = plan["n1"], plan["n2"]
+            args = (n1, n2, plan["stage_b"], P.on_device(P.get_stage_b_twiddle, n2, sign, device=dev),
+                    1.0 / n if sign > 0 else None)
+            yr, yi = randn(b, n1, n2), randn(b, n1, n2)
+            compare("stage_b", f"({b}, {n1}, {n2}) sign {sign:+d}{' 1/n' if sign > 0 else ''} "
+                    f"{K.stage_b_geometry(n1, n2 // 128)}", K.stage_b_kernel(yr, yi, *args),
+                    K.stage_b_kernel_plain(yr, yi, *args))
+            del yr, yi
+        torch.cuda.synchronize()
+
     # K3-legacy: every (n, n1) of the ablate_large sweep (materialized
     # twiddle, real input as staged_fft gives it), and the complex, rows and
     # col_tiles forms of the wrapper.
@@ -3253,6 +3318,9 @@ def main() -> None:
     for name, n in need:
         if per_size[n][name] < 1:
             fail(f"{name} was not launched by the main path at n={n}")
+    for n in (1 << 20, 1 << 22):  # K4: the complex inverse's stage B, the real forward's is torch
+        if per_size[n]["stage_b"] != 1:
+            fail(f"stage_b was launched {per_size[n]['stage_b']} times by the main path at n={n}, expected 1")
     for name, count in main_launches.items():
         if count < 1:
             fail(f"{name} was launched no time on the main path")
@@ -3428,6 +3496,19 @@ def main() -> None:
         time_pair(f"{name} B=1 n={n} complex inv 1/n", name,
                   lambda: kern(x, xi, inv), lambda: plain(x, xi, inv),
                   whole_bound(n, True), lambda: torch.fft.ifft(z))
+    # K4 as the inverse runs it (1/n in its store): first the matched
+    # filter's (64, 128, 8,192), the kernels line's row, then B = 1 at 2^17
+    # and 2^22.  No one PyTorch call computes stage B (library: none).
+    for b, n in STAGE_B_TIMED:
+        plan = P.on_device(P.get_stage_a_plan, n, 1, P.stage_a_ct_full_range(n), device=dev)
+        n1, n2 = plan["n1"], plan["n2"]
+        args = (n1, n2, plan["stage_b"], P.on_device(P.get_stage_b_twiddle, n2, 1, device=dev), 1.0 / n)
+        yr, yi = randn(b, n1, n2), randn(b, n1, n2)
+        rec = time_pair(f"stage_b ({b}, {n1}, {n2}) inv 1/n", "stage_b",
+                        lambda: K.stage_b_kernel(yr, yi, *args), lambda: K.stage_b_kernel_plain(yr, yi, *args),
+                        stage_b_bound(b, n1, n2))
+        rec.update(geometry=K.stage_b_geometry(n1, n2 // 128))
+        del yr, yi
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
@@ -3698,6 +3779,8 @@ def main() -> None:
         "whole_transform": ("gpu_fft_tpu_torch/csrc/whole_transform.cu", "gpu_fft_tpu/kernels/fused.py:424"),
         "stage_a": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:188"),
         "stage_a_legacy": ("gpu_fft_tpu_torch/csrc/stage_a.cu", "gpu_fft_tpu/kernels/fused.py:153"),
+        "stage_b": ("gpu_fft_tpu_torch/csrc/stage_b.cu",
+                    "none: stage B is XLA einsums, gpu_fft_tpu/kernels/fused_jnp.py:142 stage_b_jnp"),
         "whole_transform_packed_bf16": ("gpu_fft_tpu_torch/csrc/whole_bf16.cu", "gpu_fft_tpu/kernels/fused.py:383"),
         "whole_transform_bf16": ("gpu_fft_tpu_torch/csrc/whole_bf16.cu", "gpu_fft_tpu/kernels/fused.py:424"),
         "stage_a_bf16": ("gpu_fft_tpu_torch/csrc/stage_a_bf16.cu", "gpu_fft_tpu/kernels/fused.py:188"),

@@ -4,6 +4,8 @@
 //   * whole_kernel<N2, COMPLEX, LM>: one length-n FFT per row, n = n1 * N2,
 //     on one thread-block cluster per row (K1 and K2 at N2 = 128,
 //     whole_transform.cu; S1 at N2 = 64, 128 or 256, fused_lm.cu);
+//   * whole_stage1: whole_kernel's stage 1, also the row transforms' of
+//     stage B (K4, stage_b.cu);
 //   * dft<R> and stockham_pass: the column DFTs of stage A (K3, stage_a.cu).
 //
 // Everything here has internal linkage, so that each kernel source compiles
@@ -159,6 +161,35 @@ __device__ __forceinline__ void load_tw(float2* tw, int T, int lNs, int lW, cons
   }
 }
 
+// Stage 1 of the whole transform on a block's (n1, W) tile of the (n1, N2)
+// view, W = 2^lW columns: column DFTs of length n1 = 2^ln1 in radix-8
+// passes, the last of radix 8, 4 or 2 (2^lRl) from 2^lNsl.  The first pass
+// reads x (from_x), the last writes Z = P * TW as columns [c][k1] (column
+// stride ldz), tw holding the twiddle of its outputs (load_tw).
+template <class FromX>
+__device__ __forceinline__ void whole_stage1(int T, int ln1, int lW, int ldz, const float2* w1, float s,
+                                             float2* tile, const float2 (&tw)[E], FromX from_x) {
+  const int lRl = ln1 % 3 == 0 ? 3 : ln1 % 3, lNsl = ln1 - lRl;
+  auto block_sync = [] { __syncthreads(); };
+  auto no_sync = [] {};
+  auto tile1 = [&](int, int m, int l) { return tile[(l << lW) + m]; };
+  auto to_tile1 = [&](int, int m, int l, float2 v) { tile[(l << lW) + m] = v; };
+  auto to_z = [&](int e, int m, int l, float2 v) { tile[m * ldz + l] = cmul(v, tw[e]); };
+  if (lNsl == 0) {  // n1 = 8: one pass
+    stockham_pass<8>(T, ln1, 0, lW, w1, s, from_x, no_sync, to_z);
+  } else {
+    stockham_pass<8>(T, ln1, 0, lW, w1, s, from_x, no_sync, to_tile1);
+    for (int lNs = 3; lNs < lNsl; lNs += 3) {
+      __syncthreads();
+      stockham_pass<8>(T, ln1, lNs, lW, w1, s, tile1, block_sync, to_tile1);
+    }
+    __syncthreads();
+    if (lRl == 3) stockham_pass<8>(T, ln1, lNsl, lW, w1, s, tile1, block_sync, to_z);
+    else if (lRl == 2) stockham_pass<4>(T, ln1, lNsl, lW, w1, s, tile1, block_sync, to_z);
+    else stockham_pass<2>(T, ln1, lNsl, lW, w1, s, tile1, block_sync, to_z);
+  }
+}
+
 // Block (rank r of cluster b): stage 1 on columns [r W, (r+1) W) of row b,
 // stage 2 on its rows [r M2, (r+1) M2), W = N2 / C, M2 = n1 / C.  LM: S1's
 // tables, whose F2 has no imaginary part: Im w_N2^c = s sin(2 pi c / N2)
@@ -217,29 +248,13 @@ __global__ void __launch_bounds__(1024) whole_kernel(const float* __restrict__ x
   };
 
   // ── Stage 1: column DFTs of length n1 on the (n1, W) tile [a][c] ────────
-  // The first pass reads x, the last writes Z = P * TW as columns [c][k1].
   const float* xrb = xr + base + rank * W;
   const float* xib = COMPLEX ? xi + base + rank * W : nullptr;
   auto from_x = [&](int, int m, int l) {
     return make_float2(__ldg(xrb + ((size_t)l << LOG_N2) + m),
                        COMPLEX ? __ldg(xib + ((size_t)l << LOG_N2) + m) : 0.f);
   };
-  auto tile1 = [&](int, int m, int l) { return tile[(l << lW) + m]; };
-  auto to_tile1 = [&](int, int m, int l, float2 v) { tile[(l << lW) + m] = v; };
-  auto to_z = [&](int e, int m, int l, float2 v) { tile[m * ldz + l] = cmul(v, tw[e]); };
-  if (lNsl == 0) {  // n1 = 8: one pass
-    stockham_pass<8>(T, ln1, 0, lW, w1, s, from_x, no_sync, to_z);
-  } else {
-    stockham_pass<8>(T, ln1, 0, lW, w1, s, from_x, no_sync, to_tile1);
-    for (int lNs = 3; lNs < lNsl; lNs += 3) {
-      __syncthreads();
-      stockham_pass<8>(T, ln1, lNs, lW, w1, s, tile1, block_sync, to_tile1);
-    }
-    __syncthreads();
-    if (lRl == 3) stockham_pass<8>(T, ln1, lNsl, lW, w1, s, tile1, block_sync, to_z);
-    else if (lRl == 2) stockham_pass<4>(T, ln1, lNsl, lW, w1, s, tile1, block_sync, to_z);
-    else stockham_pass<2>(T, ln1, lNsl, lW, w1, s, tile1, block_sync, to_z);
-  }
+  whole_stage1(T, ln1, lW, ldz, w1, s, tile, tw, from_x);
   cluster_sync();  // every block's Z is in its shared memory
 
   // ── Stage 2: row DFTs of length N2 on the (M2, N2) tile [k1][c] ────────

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # xr, xi, f1r, f1i, twr, twi, f2r, f2i, yr, yi,
     # batch, n1, cluster, threads, smem_bytes, stream
@@ -44,6 +44,9 @@ _SIGNATURES = {
     # xr, xi, f1r, f1i, twr, twi, yr, yi,
     # batch, n1, n2, rows, ncols, width, threads, smem_bytes, stream
     "gft_stage_a_full": [_P] * 8 + [_I] * 8 + [_P],
+    # xr, xi, f1r, f1i, f2r, f2i, twr, twi, yr, yi,
+    # batch, n1, m1, rows, cluster, threads, smem_bytes, scale, stream
+    "gft_stage_b": [_P] * 10 + [_I] * 7 + [_F, _P],
     # x, f_stack, twr, twi, yr, yi, n1, n2, bn, stream
     "gft_stage_a_manual": [_P] * 6 + [_I] * 3 + [_P],
     # xr, xi, img1, img2, twr, twi, yr, yi,

@@ -16,6 +16,14 @@ kernels' dots run at bf16x1 (``config.mosaic_precision()``):
   twiddle it launches K3-legacy, the same radix kernel reading that table
   (counted as ``stage_a_legacy``).
 
+* ``stage_b_kernel`` (K4): stage B of a complex staged transform under
+  "full", the row four-step of length n2 = 128 * m1 over stage A's
+  (B, n1, n2) output with the digit reversal and the transform's scale in
+  its store, in one launch (``csrc/stage_b.cu``; launch shape from
+  :func:`stage_b_geometry`).  It replaces no Pallas kernel: the JAX package
+  leaves stage B to XLA, and its plain version is the torch engine
+  ``fused_torch.stage_b``.
+
 * ``whole_transform_bf16`` (K1F), ``whole_transform_packed_bf16`` (K2F) and
   ``stage_a_bf16`` (K3F, and K3-legacy-fast, K3LF, on a legacy plan,
   counted as ``stage_a_legacy_bf16``): the same functions as the JAX
@@ -38,7 +46,7 @@ n2 = 64, 128 or 256 for the left-matmul four-step (S1, :mod:`.engines`).
 
 Each wrapper keeps the JAX signature and calls one operator of the
 ``gpu_fft_tpu_torch`` library (``torch.ops.gpu_fft_tpu_torch.whole_transform``,
-``whole_transform_packed``, ``stage_a`` and the three ``*_bf16``), its
+``whole_transform_packed``, ``stage_a``, ``stage_b`` and the three ``*_bf16``), its
 tables as a tensor list: the
 CPU kernel of an operator runs the plain torch version (``*_plain``), the
 CUDA kernel launches the Hopper kernel or raises, and a fake kernel gives
@@ -62,7 +70,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import config
 from ..utils.profiling import span
 from . import _build
-from .fused_torch import _stage_a_twiddle, stage_a_torch
+from .fused_torch import _stage_a_twiddle, stage_a_torch, stage_b
 
 __all__ = [
     "COUNTS",
@@ -84,6 +92,12 @@ __all__ = [
     "stage_a_geometry",
     "stage_a_launch_shape",
     "stage_a_plain",
+    "stage_b_geometry",
+    "stage_b_kernel",
+    "stage_b_kernel_plain",
+    "stage_b_launch",
+    "stage_b_launch_shapes",
+    "stage_b_tables",
     "swizzled_image",
     "whole_geometry",
     "whole_slices",
@@ -118,6 +132,7 @@ COUNTS = {
     "whole_transform_packed": LaunchCount(),
     "stage_a": LaunchCount(),
     "stage_a_legacy": LaunchCount(),
+    "stage_b": LaunchCount(),
     "whole_transform_bf16": LaunchCount(),
     "whole_transform_packed_bf16": LaunchCount(),
     "stage_a_bf16": LaunchCount(),
@@ -559,6 +574,132 @@ def stage_a(xr, xi, n1: int, n2: int, tables, col_tile: int, col_tiles=None, row
         r, ncols, _ = stage_a_launch_shape(xr.shape[0], n1, n2, tables, col_tile, col_tiles, rows)
         _on_cpu(xr, "stage_a")  # raises for any device but CUDA
     return _OPS.stage_a(xr, xi, [tables[k] for k in names], n1, n2, col_tile, r, ncols)
+
+
+# ── K4: stage B ──────────────────────────────────────────────────────────────
+
+#: K4's launch shape by m1 = n2 / 128: (G, C), G consecutive rows k1 a
+#: cluster, C blocks a row (``csrc/stage_b.cu``).  G = 8 makes every store
+#: fill whole 32-byte sectors; a row needs C >= m1 / 64 blocks of 1,024
+#: threads and a cluster holds at most 16 blocks, so G = 16 / C above
+#: m1 = 128.  Each entry is the fastest (G, C) of ``scripts/time_stage_b.py
+#: --sweep`` at B·n1 = 1,024 and 8,192 rows (an H100 80GB HBM3 at 700 W):
+#: at the matched filter's (64, 128, 8,192) C = 2 takes 0.959 ms, C = 1
+#: 0.998 and G = 4 1.176.  At 128 rows (B = 1) it is the fastest too, but
+#: at n2 = 4,096, where (8, 2) is 10% faster (0.0108 against 0.0119 ms),
+#: and at 16,384, where (4, 4) is 8% faster (0.0461 against 0.0499 ms):
+#: a few microseconds, so the rule keys on m1 alone.
+_STAGE_B_SHAPE = {8: (8, 1), 16: (8, 1), 32: (8, 1), 64: (8, 2), 128: (8, 2), 256: (4, 4), 512: (2, 8)}
+_MAX_CLUSTER = 16
+
+
+def stage_b_launch_shapes(n1: int, m1: int) -> list[tuple[int, int]]:
+    """Every (G, C) K4 takes for rows of n2 = 128 * ``m1`` under a stage-A
+    split of ``n1`` rows a signal: G and C powers of two, G <= 8, C blocks
+    of 32 to 1,024 threads a row, G <= n1 and G * C <= min(16, m1)."""
+    least = max(1, m1 // 64)
+    return [(1 << i, c) for i in range(4) for c in (least << j for j in range(5))
+            if (1 << i) <= n1 and (1 << i) * c <= min(_MAX_CLUSTER, m1) and c <= m1 // 2]
+
+
+def stage_b_geometry(n1: int, m1: int, shape: tuple[int, int] | None = None) -> tuple[int, int, int, int]:
+    """(rows, cluster, threads, smem_bytes) of K4 over a (B, ``n1``, 128 *
+    ``m1``) stage-A output: ``rows`` = G consecutive rows k1 a cluster of
+    ``cluster`` = G * C blocks, each of n2 / (8 C) threads, with K1's shared
+    memory at n1 = m1 (:func:`whole_smem_bytes`).  ``shape`` = (G, C), one
+    of :func:`stage_b_launch_shapes`; by default the rule's pick, G capped at
+    ``n1``."""
+    if not _pow2_in(m1, 8, 512) or not _pow2_in(n1, 1, 1 << 30):
+        raise ValueError(f"stage_b kernel: m1 = n2/128 must be a power of two in [8, 512] and n1 a "
+                         f"power of two (n1={n1}, m1={m1})")
+    if shape is None:
+        g, c = _STAGE_B_SHAPE[m1]
+        shape = (min(g, n1), c)
+    if shape not in stage_b_launch_shapes(n1, m1):
+        raise ValueError(f"stage_b kernel: (G, C) = {shape} is not a launch shape at n1={n1}, m1={m1}")
+    g, c = shape
+    return g, g * c, m1 * _N2 // (_VALUES * c), whole_smem_bytes(m1, c)
+
+
+_STAGE_B_TABLES = ("f1r", "f1i", "f1s", "f1d", "f2r", "f2i", "f2s", "f2d", "twr", "twi")
+
+
+def stage_b_tables(t: dict, tw: dict) -> list:
+    """The ``stage_b`` operator's table list: the stage-B tables ``t`` (the
+    plain version's), then K4's twiddle ``tw`` laid out (m1, 128)."""
+    return [t[k] for k in _STAGE_B_TABLES] + [tw["twr"], tw["twi"]]
+
+
+def stage_b_kernel_plain(yr, yi, n1: int, n2: int, t: dict, tw: dict, scale: float | None = None):
+    """Plain torch version of :func:`stage_b_kernel`, with its signature:
+    the torch engine ``fused_torch.stage_b`` on the stage-B tables ``t``
+    (which hold ``tw``'s values laid out (128, m1)), times ``scale``."""
+    rr, ri = stage_b(yr, yi, n1, n2, t)
+    if scale is None or scale == 1.0:
+        return rr, ri
+    return rr * scale, ri * scale
+
+
+def _stage_b_cpu(yr, yi, tables, n1, scale):
+    COUNTS["stage_b"].plain_calls += 1
+    t = dict(zip(_STAGE_B_TABLES, tables), m1=tables[0].shape[0], m2=_N2)
+    tw = dict(zip(("twr", "twi"), tables[len(_STAGE_B_TABLES):]))
+    return stage_b_kernel_plain(yr, yi, n1, yr.shape[-1], t, tw, scale)
+
+
+def stage_b_launch(yr, yi, tables: list, n1: int, scale: float, geometry: tuple[int, int, int, int]):
+    """Launch K4 on CUDA tensors: ``tables`` as the operator takes them (the
+    stage-B tables, then the (m1, 128) twiddle), ``geometry`` one of
+    :func:`stage_b_geometry` (a sweep times each)."""
+    b, n2 = yr.shape[0], yr.shape[-1]
+    m1 = n2 // _N2
+    t = dict(zip((*_STAGE_B_TABLES, "twr_k", "twi_k"), tables))
+    read = {"yr": yr, "yi": yi, **{k: t[k] for k in ("f1r", "f1i", "f2r", "f2i", "twr_k", "twi_k")}}
+    shapes = {"yr": (b, n1, n2), "yi": (b, n1, n2), "f1r": (m1, m1), "f1i": (m1, m1), "f2r": (_N2, _N2),
+              "f2i": (_N2, _N2), "twr_k": (m1, _N2), "twi_k": (m1, _N2)}
+    _check("stage_b", yr.device, read, shapes)
+    out_r = torch.empty((b, n1 * n2), dtype=torch.float32, device=yr.device)
+    out_i = torch.empty_like(out_r)
+    rows, cluster, threads, smem = geometry
+    _launch(COUNTS, "stage_b", _build.library().gft_stage_b, _ptr(yr), _ptr(yi), _ptr(t["f1r"]),
+            _ptr(t["f1i"]), _ptr(t["f2r"]), _ptr(t["f2i"]), _ptr(t["twr_k"]), _ptr(t["twi_k"]), _ptr(out_r),
+            _ptr(out_i), b, n1, m1, rows, cluster, threads, smem, scale, _stream(yr.device))
+    return out_r, out_i
+
+
+def _stage_b_cuda(yr, yi, tables, n1, scale):
+    return stage_b_launch(yr, yi, tables, n1, scale, stage_b_geometry(n1, yr.shape[-1] // _N2))
+
+
+def _stage_b_fake(yr, yi, tables, n1, scale):
+    out = yr.new_empty((yr.shape[0], n1 * yr.shape[-1]))
+    return out, torch.empty_like(out)
+
+
+def stage_b_kernel(yr, yi, n1: int, n2: int, t: dict, tw: dict, scale: float | None = None):
+    """Stage B of a complex staged transform in one launch (K4): the row
+    transforms of length n2 = 128 * m1 of stage A's (B, n1, n2) output
+    ``yr``, ``yi``, stored in natural order (flat k1 + n1 * k2) times
+    ``scale``.  ``t``: the stage-A plan's ``stage_b`` tables; ``tw``:
+    :func:`plan.get_stage_b_twiddle` (the twiddle (m1, 128)), both on the
+    input's device.  Returns split-complex (B, n1 * n2).  On a CPU tensor
+    the plain version (the torch engine ``fused_torch.stage_b``, then the
+    scale).  On every device ``yr`` and ``yi`` must be contiguous fp32
+    (B, n1, n2), as the kernel reads them; off the CPU a shape the kernel
+    cannot take raises ValueError before the device is looked at.  No
+    "fast" form: the dispatch takes the torch engine under "high" and
+    "fast"."""
+    for name, y in (("yr", yr), ("yi", yi)):
+        if y is None or y.dim() != 3 or tuple(y.shape) != (yr.shape[0], n1, n2):
+            raise ValueError(f"stage_b kernel: yr and yi must both be (B, {n1}, {n2}), got "
+                             f"{tuple(yr.shape)} and {None if yi is None else tuple(yi.shape)}")
+        if y.dtype != torch.float32 or not y.is_contiguous():
+            raise ValueError(f"stage_b kernel: {name} must be contiguous float32")
+    if t["m1"] * t["m2"] != n2 or t["m2"] != _N2:
+        raise ValueError(f"stage_b kernel: n2={n2} is not the plan's {t['m1']} x {t['m2']}")
+    if not _on_cpu(yr, "stage_b"):
+        stage_b_geometry(n1, n2 // _N2)
+    return _OPS.stage_b(yr, yi, stage_b_tables(t, tw), n1, 1.0 if scale is None else float(scale))
 
 
 # ── K1F / K2F / K3F: the "fast" kernels on the bf16 tensor cores ─────────────
@@ -1150,6 +1291,8 @@ _SCHEMAS = {
                                     _whole_packed_bf16_cpu, _whole_bf16_cuda_packed, _whole_fake),
     "stage_a_bf16": ("(Tensor xr, Tensor? xi, Tensor[] tables, int n1, int n2, int col_tile, int rows, "
                      "int ncols) -> (Tensor, Tensor)", _stage_a_bf16_cpu, _stage_a_bf16_cuda, _stage_a_fake),
+    "stage_b": ("(Tensor yr, Tensor yi, Tensor[] tables, int n1, float scale) -> (Tensor, Tensor)",
+                _stage_b_cpu, _stage_b_cuda, _stage_b_fake),
 }
 for _name, (_schema, _cpu, _cuda, _fake) in _SCHEMAS.items():
     _LIB.define(_name + _schema)

@@ -13,7 +13,9 @@ engine is picked by (B, n) with the same predicates as the JAX package
   contractions (kernels/fused_torch.py);
 * n > FUSED_MAX: staged — the stage-A kernel (K3, K3F under "fast") over
   the (n1, n2) view, then the row four-step with the digit reversal folded
-  into its output order (or, for forced-small plans, a recursive row
+  into its output order: under "full" on complex rows the stage-B kernel
+  (K4, ``stage_b_kernel``) with the transform's scale in its store, else
+  the torch contractions (or, for forced-small plans, a recursive row
   transform).
 
 Ahead of these, a real forward with ``rfft_pack_applies`` runs as ONE
@@ -40,7 +42,7 @@ these paths sits inside a ``torch.autograd.Function`` whose backward and
 forward-mode rules run the same dispatch again:
 
 * :class:`_WholeTransform` (K1/K2 in the band) and :class:`_StagedTransform`
-  (the whole staged body: K3 and the torch stage B).  A transform is a
+  (the whole staged body: K3 and stage B, K4 or torch).  A transform is a
   symmetric complex-linear map (F^T = F), so its real-form transpose is
   conj . T . conj: the backward is the Function itself on the conjugated
   cotangent, the JVP the Function on the tangent.  Both call ``apply``, so
@@ -83,6 +85,7 @@ from ..plan import (
     get_pack_tables,
     get_stage_a_plan,
     get_stage_b_irfft_plan,
+    get_stage_b_twiddle,
     get_whole_packed_plan,
     get_whole_plan,
     half_spectrum_applies,
@@ -92,13 +95,14 @@ from ..plan import (
     rfft_pack_applies,
     stage_a_ct_full_range,
     stage_a_real_rows,
+    stage_b_kernel_applies,
     use_folded_layout,
     whole_kernel_applies,
     wide_split_applies,
 )
 from ..tuning import get_tuning
 from ..utils.profiling import span
-from .fused import stage_a, whole_transform, whole_transform_packed
+from .fused import stage_a, stage_b_kernel, whole_transform, whole_transform_packed
 from .fused_torch import (
     _tracked,
     fused_fft,
@@ -123,8 +127,9 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
 
     ``xi`` may be None (real input).  Unnormalized unless ``scale`` is given
     (1/n for a normalized inverse): at fused sizes it is folded into the last
-    table, at staged sizes applied after.  Natural output order, on the
-    input's device.
+    table; at staged sizes the staged body applies it, in K4's store where
+    K4 runs (``stage_b_kernel_applies``) and as a multiply after any other
+    stage B.  Natural output order, on the input's device.
     """
     with span("gft.dispatch"):
         dev = xr.device
@@ -147,10 +152,7 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
             with span("gft.engine." + plan.kind):
                 return fused_fft(xr, xi, plan)
 
-        if scale is not None:
-            yr, yi = transform_any(xr, xi, n, sign)
-            return yr * scale, yi * scale
-        return _through(_StagedTransform, _staged, xr, xi, (n, sign))
+        return _through(_StagedTransform, _staged, xr, xi, (n, sign, scale))
 
 
 # ── Autodiff seams ───────────────────────────────────────────────────────────
@@ -245,7 +247,8 @@ class _WholeTransform(torch.autograd.Function):
 
 
 class _StagedTransform(torch.autograd.Function):
-    """The staged body :func:`_staged` (K3 and stage B), ``key`` = (n, sign)."""
+    """The staged body :func:`_staged` (K3 and stage B), ``key`` = (n, sign,
+    scale): the scale is real, so the transpose carries it unchanged."""
 
     @staticmethod
     def forward(xr, xi, key):
@@ -303,12 +306,16 @@ class _StageAFold(torch.autograd.Function):
 
 def _staged(xr, xi, key):
     """The staged (n > FUSED_MAX) body of :func:`transform_any`, ``key`` =
-    (n, sign)."""
-    n, sign = key
+    (n, sign, scale).  Under "full" a complex stage B runs as K4, with the
+    scale in its store; after any other stage B the scale is a multiply."""
+    n, sign, scale = key
     b = xr.shape[0]
-    plan = on_device(get_stage_a_plan, n, sign, stage_a_ct_full_range(n), device=xr.device)
+    dev = xr.device
+    plan = on_device(get_stage_a_plan, n, sign, stage_a_ct_full_range(n), device=dev)
     n1, n2 = plan["n1"], plan["n2"]
     half = xi is None and half_spectrum_applies(n) and plan["stage_b"] is not None
+    k4 = not half and plan["stage_b"] is not None and stage_b_kernel_applies(n2)
+    tw = on_device(get_stage_b_twiddle, n2, sign, device=dev) if k4 else None
     x3r = xr.reshape(b, n1, n2)
     x3i = None if xi is None else xi.reshape(b, n1, n2)
     with span("gft.engine.stage_a"):
@@ -319,17 +326,20 @@ def _staged(xr, xi, key):
             yr, yi = stage_a(x3r, x3i, n1, n2, plan, plan["ct"], rows=half_rows)
 
     with span("gft.engine.stage_b"):
+        if k4:  # K3's output is contiguous; the plain stage A's is not
+            return stage_b_kernel(yr.contiguous(), yi.contiguous(), n1, n2, plan["stage_b"], tw, scale)
         if plan["stage_b"] is not None:
-            if half:
-                return stage_b_half(yr, yi, n1, n2, plan["stage_b"])
-            return stage_b(yr, yi, n1, n2, plan["stage_b"])
-
-        # Forced-small plans: row transforms of length n2, then the digit
-        # reversal (flat k = k1 + n1 * k2).
-        rr, ri = transform_any(yr.reshape(b * n1, n2), yi.reshape(b * n1, n2), n2, sign)
-        out_r = rr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
-        out_i = ri.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+            engine = stage_b_half if half else stage_b
+            out_r, out_i = engine(yr, yi, n1, n2, plan["stage_b"])
+        else:
+            # Forced-small plans: row transforms of length n2, then the digit
+            # reversal (flat k = k1 + n1 * k2).
+            rr, ri = transform_any(yr.reshape(b * n1, n2), yi.reshape(b * n1, n2), n2, sign)
+            out_r = rr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+            out_i = ri.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+    if scale is None:
         return out_r, out_i
+    return out_r * scale, out_i * scale
 
 
 @functools.lru_cache(maxsize=None)

@@ -37,10 +37,12 @@ __all__ = [
     "get_rfft_direct_packed_plan",
     "get_stage_a_plan",
     "get_stage_b_irfft_plan",
+    "get_stage_b_twiddle",
     "get_whole_packed_plan",
     "get_whole_plan",
     "on_device",
     "rfft_pack_applies",
+    "stage_b_kernel_applies",
 ]
 
 
@@ -378,6 +380,15 @@ def stage_b_plannable(n2: int) -> bool:
     return n2 % 128 == 0 and n2 >= 256
 
 
+def stage_b_kernel_applies(n2: int) -> bool:
+    """Whether a complex stage B of rows n2 runs as ONE launch of K4
+    (kernels/fused.py:stage_b_kernel) rather than the torch contractions:
+    "full" precision (read at call time), the row four-step's m2 = 128 split,
+    m1 = n2 / 128 a power of two in [8, 512] (n2 = 1,024 ... 65,536: every
+    staged n from 2^17 to MAX_N with the default n1)."""
+    return config.PRECISION == "full" and stage_b_plannable(n2) and 1024 <= n2 <= FUSED_MAX
+
+
 def stage_a_col_tile(n1: int, n2: int) -> int:
     """Default stage-A column tile, clamped to n2."""
     return min(256 if n1 >= 512 else 512, n2)
@@ -436,6 +447,8 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
     'folded'
     >>> p = describe_plan(1 << 20); (p["path"], p["split"], p["stage_b_split"])
     ('staged', (128, 8192), (64, 128))
+    >>> p["engine"], describe_plan(1 << 20, real_input=False)["engine"]
+    ('K3 stage_a + torch stage B', 'K3 stage_a + K4 stage_b')
     """
     if n < 2 or n & (n - 1):
         raise ValueError(f"describe_plan requires power-of-two n >= 2, got {n}")
@@ -473,10 +486,11 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
         return out
     n1 = _stage_a_n1(n)
     n2 = n // n1
+    k4 = not half and stage_b_kernel_applies(n2)
     out.update(
         path="staged",
         engine={"full": "K3 stage_a", "fast": "K3F stage_a_bf16", "high": "torch stage_a"}[mode]
-        + " + torch stage B",
+        + (" + K4 stage_b" if k4 else " + torch stage B"),
         split=(n1, n2),
         layout="half-spectrum" if half and stage_b_plannable(n2) else "folded",
         stage_b_split=(n2 // 128, 128) if stage_b_plannable(n2) else None,
@@ -524,6 +538,15 @@ def get_stage_a_plan(n: int, sign: int, ct: int | None = None) -> dict[str, Any]
             "twr": btwr, "twi": btwi,
         }
     return plan
+
+
+@functools.lru_cache(maxsize=None)
+def get_stage_b_twiddle(n2: int, sign: int) -> dict:
+    """Stage B's row twiddle w_n2^(k c) laid out (m1, 128) = [k, c], as K4
+    reads it, coalesced along c (:func:`get_stage_a_plan`'s ``stage_b``
+    holds the same values (128, m1) for the torch contractions)."""
+    twr, twi = twiddle_table(n2 // 128, 128, n2, sign)
+    return {"twr": twr, "twi": twi}
 
 
 def get_stage_b_irfft_plan(n: int, scale: float | None = None) -> dict | None:

@@ -110,6 +110,7 @@ OWN_KERNELS = (
     "operand_probe_kernel",
     "stage_a_dot_wgmma_kernel",
     "stage_a_radix_kernel",
+    "stage_b_kernel",
     "whole_bf16_kernel",
     "whole_kernel",
 )

@@ -214,7 +214,9 @@ def _graph_nodes(t):
 def test_band_output_carries_the_function_and_backward_runs_the_kernel(n, kernel, function, cplx):
     """Each band's output has the port's Function as its grad_fn, and a grad
     runs the band's kernel twice, forward and backward (on the CPU its plain
-    version: the card launches the kernel there)."""
+    version: the card launches the kernel there).  A staged grad also runs
+    K4 (``stage_b``) on each complex stage B: the backward's, and for
+    complex input the forward's."""
     a, b = _arrays(n, (1, n), (1, n))
     ins = [_t(a, True), _t(b, True)] if cplx else [_t(a, True)]
     K.reset_counts()
@@ -222,7 +224,9 @@ def test_band_output_carries_the_function_and_backward_runs_the_kernel(n, kernel
     assert type(yr.grad_fn).__name__ == type(yi.grad_fn).__name__ == function
     torch.autograd.grad(_power(yr, yi, torch), ins)
     assert K.COUNTS[kernel].plain_calls == 2 and K.COUNTS[kernel].launches == 0
-    assert sum(c.plain_calls for c in K.COUNTS.values()) == 2
+    k4 = (2 if cplx else 1) if kernel == "stage_a" else 0
+    assert K.COUNTS["stage_b"].plain_calls == k4
+    assert sum(c.plain_calls for c in K.COUNTS.values()) == 2 + k4
 
 
 def test_staged_fold_carries_its_function():

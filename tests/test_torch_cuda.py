@@ -179,7 +179,8 @@ IRFFT_CASES = [(1, 256, None), (1, 1024, "whole_transform_packed"), (1, 4096, "w
 def test_irfft_on_card(dev, b, n, kernel):
     """rfft_device against numpy's rfft, irfft_device against numpy's irfft
     (float64) and torch.fft.irfft, within 5 log2(n) eps, and the kernel the
-    dispatch sends the inverse to (or none)."""
+    dispatch sends the inverse to (or none); a staged size below the staged
+    fold's gate runs the complex inverse, K3 and then K4."""
     rng = np.random.default_rng(n + b)
     x = rng.standard_normal((b, n)).astype(np.float32)
     gate = 5 * np.log2(n) * np.finfo(np.float32).eps
@@ -192,7 +193,8 @@ def test_irfft_on_card(dev, b, n, kernel):
     K.reset_counts()
     y = gt.irfft_device(sr_t, si_t)
     ran = {k for k, c in K.COUNTS.items() if c.launches}
-    assert ran == ({kernel} if kernel else set()) and all(c.plain_calls == 0 for c in K.COUNTS.values())
+    k4 = {"stage_b"} if n > 65536 and not P.irfft_half_staged_applies(n) else set()
+    assert ran == ({kernel} | k4 if kernel else set()) and all(c.plain_calls == 0 for c in K.COUNTS.values())
     want = np.fft.irfft(sr.astype(np.float64) + 1j * si.astype(np.float64), n=n, axis=-1)
     peak = np.abs(want).max()
     assert np.abs(y.cpu().numpy() - want).max() <= gate * peak
@@ -365,6 +367,74 @@ def test_roundtrip_on_card(dev, n):
     assert np.abs(gt.ifft(re, im, device="cuda")[:n] - x).max() <= gate * np.abs(x).max()
 
 
+# K4 at every n2 of the staged path: n = 2^17 ... 2^23 (n1 = 128) and 2^24
+# (n1 = 256), at B = 1, 3 and 64 where B n <= 2^26.
+STAGE_B_CASES = [(b, n) for n in (1 << e for e in range(17, 25)) for b in (1, 3, 64) if b * n <= 1 << 26]
+
+
+@pytest.mark.parametrize("b,n", STAGE_B_CASES)
+@pytest.mark.parametrize("sign,scaled", [(-1, False), (1, False), (1, True)])
+def test_stage_b_kernel(dev, b, n, sign, scaled):
+    """K4 on stage A's (B, n1, n2) layout: one launch, no plain call; against
+    its plain version (the torch ``stage_b`` times the scale, 1e-5) and each
+    row's DFT in float64 stored at k1 + n1 k2 (5 log2(n) eps of max|ref|)."""
+    plan = P.on_device(P.get_stage_a_plan, n, sign, None, device=dev)
+    n1, n2, t = plan["n1"], plan["n2"], plan["stage_b"]
+    tw = P.on_device(P.get_stage_b_twiddle, n2, sign, device=dev)
+    g = torch.Generator(device=dev).manual_seed(n + b)
+    yr, yi = (torch.randn(b, n1, n2, device=dev, generator=g) for _ in "ri")
+    scale = 1.0 / n if scaled else None
+    K.reset_counts()
+    got = K.stage_b_kernel(yr, yi, n1, n2, t, tw, scale)
+    torch.cuda.synchronize()
+    assert (K.COUNTS["stage_b"].launches, K.COUNTS["stage_b"].plain_calls) == (1, 0)
+    _close(got, K.stage_b_kernel_plain(yr, yi, n1, n2, t, tw, scale))
+    z = torch.complex(yr.double(), yi.double())
+    ref = (torch.fft.fft(z) if sign < 0 else torch.fft.ifft(z) * n2) * (scale or 1.0)
+    ref = ref.transpose(1, 2).reshape(b, n)
+    err = max(float((got[0] - ref.real).abs().max()), float((got[1] - ref.imag).abs().max()))
+    assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("b,n", [(1, 1 << 17), (2, 1 << 20), (1, 1 << 24)])
+def test_staged_complex_call_runs_k4_once_with_the_scale_in_its_store(dev, b, n):
+    """A complex staged transform under "full": K3 then K4, one launch each;
+    with ``scale`` = 1/n (a power of two) the result is the unscaled one
+    times 1/n bit for bit; against torch.fft.ifft (5 log2(n) eps)."""
+    from gpu_fft_tpu_torch.kernels.large import transform_any
+
+    g = torch.Generator(device=dev).manual_seed(b + n)
+    xr, xi = (torch.randn(b, n, device=dev, generator=g) for _ in "ri")
+    transform_any(xr, xi, n, 1, scale=1.0 / n)
+    torch.cuda.synchronize()
+    K.reset_counts()
+    sr, si = transform_any(xr, xi, n, 1, scale=1.0 / n)
+    torch.cuda.synchronize()
+    got = {k: (c.launches, c.plain_calls) for k, c in K.COUNTS.items() if c.launches or c.plain_calls}
+    assert got == {"stage_a": (1, 0), "stage_b": (1, 0)}, got
+    ur, ui = transform_any(xr, xi, n, 1)
+    assert torch.equal(sr, ur * (1.0 / n)) and torch.equal(si, ui * (1.0 / n))
+    ref = torch.fft.ifft(torch.complex(xr, xi).to(torch.complex128))
+    err = max(float((sr - ref.real).abs().max()), float((si - ref.imag).abs().max()))
+    assert err <= 5 * np.log2(n) * np.finfo(np.float32).eps * float(ref.abs().max())
+
+
+def test_ifft_device_gradcheck_runs_k4_in_the_backward(dev):
+    """``gradcheck`` (fast mode: one random projection each way) of
+    ``ifft_device`` at 2^17: the map is linear, so a unit step is exact but
+    for fp32 rounding; its backward runs the staged body again, K4 included."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    xr, xi = (torch.randn(1, 1 << 17, device=dev, generator=g).requires_grad_() for _ in "ri")
+    K.reset_counts()
+    assert torch.autograd.gradcheck(lambda a, b: gt.ifft_device(a, b), (xr, xi), eps=1.0, atol=1e-5, rtol=1e-3,
+                                    fast_mode=True)
+    assert K.COUNTS["stage_b"].launches >= 3 and K.COUNTS["stage_b"].plain_calls == 0
+    K.reset_counts()
+    yr, yi = gt.ifft_device(xr, xi)
+    torch.autograd.grad((yr * yr + yi * yi).sum(), (xr, xi))
+    assert K.COUNTS["stage_b"].launches == 2  # forward and backward
+
+
 def test_wrapper_rejects_bad_tables(dev):
     plan = P.on_device(P.get_whole_plan, 4096, -1, None, device=dev)
     x = torch.zeros(1, 4096, device=dev)
@@ -481,18 +551,18 @@ def test_firstream_step_launches_k1_twice(dev):
 
 @pytest.mark.parametrize("call,want", [
     ("fft_convolve_device 2^20 * 4097", {"stage_a": 3}),
-    ("hilbert_device 2^20", {"stage_a": 2}),
+    ("hilbert_device 2^20", {"stage_a": 2, "stage_b": 1}),
     ("dct_device 2^20", {"stage_a": 1}),
     ("idct_device 2^20", {"stage_a": 1}),
-    ("czt_device 2^16", {"stage_a": 2}),
+    ("czt_device 2^16", {"stage_a": 2, "stage_b": 2}),
     ("czt_device 1000", {"whole_transform": 2}),
     ("fht_device 2^20", {"stage_a": 2}),
     # the taps' spectrum, then the blocks forward and back, each K1 at B > 1
     ("oaconvolve_device (8, 2^20) * 1025", {"whole_transform": 3}),
 ])
 def test_filtering_calls_launch_the_expected_kernels(dev, call, want):
-    """The K1/K2/K3 launches of each call where the dispatch sends it, and no
-    plain version on the card."""
+    """The K1/K2/K3 launches of each call where the dispatch sends it (K4 on
+    each complex staged transform), and no plain version on the card."""
     g = torch.Generator(device=dev).manual_seed(3)
     n = 1 << 20
     fns = {
@@ -566,7 +636,7 @@ def test_filtering_steps_chain_in_cuda_graphs(dev, name, shape):
 
 @pytest.mark.parametrize("call,want", [
     ("fft2_device (4, 2^17)", {"stage_a": 1}),
-    ("ifft2_device (4, 2^17)", {"stage_a": 1}),
+    ("ifft2_device (4, 2^17)", {"stage_a": 1, "stage_b": 1}),
     ("rfft2_device (4, 2^17)", {"stage_a": 1}),
     ("fft2_device (256, 256)", {}),
     ("fftn_device 1-D 1024", {"whole_transform_packed": 1}),
@@ -656,7 +726,7 @@ def test_examples_run_on_the_card(dev):
     ("fft 1024", {"whole_transform_packed": 1}),
     ("fft 4096", {"whole_transform": 1}),
     ("ifft 16384", {"whole_transform": 1}),
-    ("fft 2^20", {"stage_a": 1}),
+    ("fft 2^20", {"stage_a": 1, "stage_b": 1}),
     ("fft 1009", {"whole_transform": 2}),
     ("fft 1000", {}),
     ("rfft 4096", {"whole_transform": 1}),
@@ -703,7 +773,8 @@ def test_compat_calls_launch_the_expected_kernels(dev, call, want):
 def test_fno1d_long_record_step_launches_k3_three_times_a_layer(dev):
     """FNO1d (modes 16, width 64, depth 1) at L = 2^18, B = 2: one train
     step runs K3 for the forward rfft, the irfft's staged fold and the
-    rfft's backward, and no plain version."""
+    rfft's backward, K4 in that backward (a complex transform), and no
+    plain version."""
     from gpu_fft_tpu_torch.models import FNO1d, make_train_step
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -718,7 +789,7 @@ def test_fno1d_long_record_step_launches_k3_three_times_a_layer(dev):
     loss = step(x, y)
     torch.cuda.synchronize()
     got = _launches()
-    assert {kk: v[0] for kk, v in got.items() if v[0]} == {"stage_a": 3}, got
+    assert {kk: v[0] for kk, v in got.items() if v[0]} == {"stage_a": 3, "stage_b": 1}, got
     assert all(p == 0 for _, p in got.values()), got
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
@@ -727,13 +798,21 @@ def test_fno1d_long_record_step_launches_k3_three_times_a_layer(dev):
 
 
 @pytest.mark.parametrize("name,n", [("whole_transform_packed", 1024), ("whole_transform", 4096),
-                                    ("stage_a", 1 << 20)])
+                                    ("stage_a", 1 << 20), ("stage_b", 1 << 20)])
 def test_kernel_operators_on_the_card(dev, name, n):
     """Each ``torch.ops.gpu_fft_tpu_torch`` operator launches its kernel on a
     CUDA tensor (one launch, no plain call) and agrees with its plain
     version; a captured CUDA graph replays it."""
     g = torch.Generator(device=dev).manual_seed(n)
-    if name == "stage_a":
+    if name == "stage_b":
+        plan = P.on_device(P.get_stage_a_plan, n, 1, None, device=dev)
+        n1, n2, t = plan["n1"], plan["n2"], plan["stage_b"]
+        tw = P.on_device(P.get_stage_b_twiddle, n2, 1, device=dev)
+        yr, yi = (torch.randn(2, n1, n2, device=dev, generator=g) for _ in "ri")
+        tables = K.stage_b_tables(t, tw)
+        op = lambda: torch.ops.gpu_fft_tpu_torch.stage_b(yr, yi, tables, n1, 1.0 / n)  # noqa: E731
+        want = K.stage_b_kernel_plain(yr, yi, n1, n2, t, tw, 1.0 / n)
+    elif name == "stage_a":
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2 = plan["n1"], plan["n2"]
         x = torch.randn(1, n1, n2, device=dev, generator=g)
@@ -980,8 +1059,8 @@ def test_fast_mode_launches_its_kernels_on_card(dev, n, kernel, monkeypatch):
 @pytest.mark.parametrize("n,kernel", [(32768, "whole_transform"), (1 << 21, "stage_a")])
 def test_packed_real_forward_launches_one_kernel_on_card(dev, n, kernel):
     """The gate-closed packed real forward (``plan.RFFT_PACK_MIN`` opened for
-    the test): the n/2-point complex transform is one launch of K1 or K3,
-    and the spectrum is within 5 log2(n) eps of numpy in float64."""
+    the test): the n/2-point complex transform is one launch of K1, or of K3
+    and K4, and the spectrum is within 5 log2(n) eps of numpy in float64."""
     from unittest import mock
 
     x = torch.randn(1, n, device=dev, generator=torch.Generator(device=dev).manual_seed(n))
@@ -990,7 +1069,7 @@ def test_packed_real_forward_launches_one_kernel_on_card(dev, n, kernel):
     with mock.patch.object(P, "RFFT_PACK_MIN", 8):
         yr, yi = gt.fft_device(x)
     ran = {k: c.launches for k, c in K.COUNTS.items() if c.launches or c.plain_calls}
-    assert ran == {kernel: 1}
+    assert ran == {kernel: 1, **({"stage_b": 1} if kernel == "stage_a" else {})}
     err = max(np.abs(yr.cpu().numpy() - ref.real).max(), np.abs(yi.cpu().numpy() - ref.imag).max())
     assert err / np.abs(ref).max() <= 5 * np.log2(n) * np.finfo(np.float32).eps
     assert not P.rfft_pack_applies(1, n)

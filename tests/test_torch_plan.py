@@ -213,6 +213,7 @@ def test_describe_plan_dispatch_map(monkeypatch):
     assert (d(1024, batch=194)["path"], d(1024, batch=194)["kernel"]) == ("whole", "whole_transform_packed")
     s = d(1 << 20)
     assert s["path"] == "staged" and s["split"] == (128, 8192) and s["engine"] == "K3 stage_a + torch stage B"
+    assert d(1 << 20, real_input=False)["engine"] == "K3 stage_a + K4 stage_b"
     assert s["layout"] == "half-spectrum"
     assert d(1 << 20, real_input=False)["layout"] == "folded"
     assert s["stage_b_split"] == (64, 128)
@@ -238,7 +239,8 @@ def test_describe_plan_names_the_path_transform_any_takes(b, n, real_input):
     K.reset_counts()
     transform_any(x, None if real_input else torch.zeros(b, n), n, -1)
     ran = {k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls}
-    want = {"whole": {info.get("kernel"): 1}, "staged": {"stage_a": 1}}.get(info["path"], {})
+    staged = {"stage_a": 1, **({"stage_b": 1} if info.get("engine", "").endswith("K4 stage_b") else {})}
+    want = {"whole": {info.get("kernel"): 1}, "staged": staged}.get(info["path"], {})
     assert ran == want, (info, ran)
 
 

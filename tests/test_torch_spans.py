@@ -149,6 +149,17 @@ def test_staged_transform_has_stage_a_and_stage_b():
     assert all(c[:2] == ("gft.entry.fft", "gft.dispatch") for c in chains)
 
 
+def test_staged_complex_inverse_runs_its_stage_b_as_k4():
+    """Under "full" a complex staged transform's stage B is K4 (on the CPU
+    its plain version, no launch span), inside ``gft.engine.stage_b``."""
+    K.reset_counts()
+    chains = _chains(_profiled(lambda: gt.ifft_device(_signal(1 << 17), _signal(1 << 17, seed=1))))
+    assert [c[-1] for c in chains] == ["gft.engine.stage_a", "gft.engine.stage_b"]
+    assert all(c[:2] == ("gft.entry.ifft", "gft.dispatch") for c in chains)
+    assert (K.COUNTS["stage_b"].plain_calls, K.COUNTS["stage_b"].launches) == (1, 0)
+    K.reset_counts()
+
+
 def test_spans_leave_the_result_unchanged():
     x = _signal(16384)
     want = gt.fft_device(x)
@@ -225,6 +236,24 @@ def test_launch_span_sits_inside_the_whole_engine_on_the_card(dev):
     assert _chains(prof) == [("gft.entry.fft", "gft.dispatch", "gft.engine.whole",
                               "gft.launch.whole_transform")]
     assert K.COUNTS["whole_transform"].launches == 1
+    K.reset_counts()
+
+
+@pytest.mark.cuda
+def test_staged_inverse_launches_k3_and_k4_in_their_engines_on_the_card(dev):
+    """A staged complex inverse: K3 under ``gft.engine.stage_a``, K4 under
+    ``gft.engine.stage_b``, each launch span innermost, one launch each."""
+    xr, xi = _signal(1 << 20, 2).to(dev), _signal(1 << 20, 2, seed=1).to(dev)
+    gt.ifft_device(xr, xi)
+    torch.cuda.synchronize()
+    K.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gt.ifft_device(xr, xi)
+        torch.cuda.synchronize()
+    assert _chains(prof) == [("gft.entry.ifft", "gft.dispatch", "gft.engine.stage_a", "gft.launch.stage_a"),
+                             ("gft.entry.ifft", "gft.dispatch", "gft.engine.stage_b", "gft.launch.stage_b")]
+    assert (K.COUNTS["stage_a"].launches, K.COUNTS["stage_b"].launches) == (1, 1)
+    assert any("stage_b_kernel" in e.key for e in prof.key_averages())
     K.reset_counts()
 
 

@@ -272,5 +272,51 @@ def test_recursive_stage_b_matches_folded(monkeypatch, complex_):
         return dict(real_plan(*a), stage_b=None)
 
     monkeypatch.setattr(tlarge, "get_stage_a_plan", without_stage_b)
+    K.reset_counts()
     got = transform_any(*args)
     _assert_close([g.numpy() for g in got], [w.numpy() for w in want])
+    assert K.COUNTS["stage_b"].plain_calls == 0  # K4 needs the stage-B tables
+
+
+MODES = ("full", "high", "fast")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("complex_", [False, True])
+def test_staged_stage_b_engine_by_mode(monkeypatch, mode, complex_):
+    """K4 (``stage_b_kernel``; on the CPU its plain version) takes the stage B
+    of a complex staged transform under "full"; the torch engines take every
+    other: the real input's half spectrum, and "high" and "fast"."""
+    import gpu_fft_tpu_torch.kernels.large as tlarge
+    from gpu_fft_tpu_torch import config
+
+    monkeypatch.setattr(config, "PRECISION", mode)
+    calls = []
+    for name in ("stage_b", "stage_b_half"):
+        engine = getattr(tlarge, name)
+        monkeypatch.setattr(tlarge, name, lambda *a, _e=engine, _n=name: calls.append(_n) or _e(*a))
+    n = 1 << 17
+    xr, xi = _inputs(2, n)
+    K.reset_counts()
+    transform_any(torch.from_numpy(xr), torch.from_numpy(xi) if complex_ else None, n, 1, scale=1.0 / n)
+    k4 = mode == "full" and complex_
+    assert K.COUNTS["stage_b"].plain_calls == int(k4)
+    assert calls == ([] if k4 else ["stage_b" if complex_ else "stage_b_half"])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("n", [1 << 17, 1 << 18])
+def test_scaled_staged_transform_is_the_unscaled_one_times_the_scale(monkeypatch, mode, complex_, n):
+    """``scale`` = 1/n at a staged size: the staged body applies it in every
+    mode (K4 in its store under "full" on complex input, a multiply after
+    the torch stage B elsewhere).  1/n is a power of two, so each is the
+    unscaled transform times 1/n, bit for bit."""
+    from gpu_fft_tpu_torch import config
+
+    monkeypatch.setattr(config, "PRECISION", mode)
+    xr, xi = (torch.from_numpy(a) for a in _inputs(1, n))
+    xi = xi if complex_ else None
+    ur, ui = transform_any(xr, xi, n, 1)
+    sr, si = transform_any(xr, xi, n, 1, scale=1.0 / n)
+    assert torch.equal(sr, ur * (1.0 / n)) and torch.equal(si, ui * (1.0 / n))
