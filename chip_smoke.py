@@ -657,31 +657,21 @@ def count_delta(before: dict) -> tuple[dict, int]:
 
 
 def band_kernel(b: int, n: int):
-    """The kernel ``kernels/large.py:transform_any`` launches for a (b, n)
-    transform (K1, K2 or K3), or None where the torch engines run it."""
+    """The first kernel ``kernels/large.py:transform_any`` launches for a (b, n)
+    transform (K1, K2 or K3, by ``plan.route``), or None where the torch
+    engines run it."""
     from gpu_fft_tpu_torch import plan as P
-    from gpu_fft_tpu_torch.config import FUSED_MAX
-    from gpu_fft_tpu_torch.tuning import get_tuning
 
-    if n > FUSED_MAX:
-        return "stage_a"
-    if P.whole_kernel_applies(b, n):
-        return "whole_transform_packed" if n <= get_tuning().whole_packed_n_max else "whole_transform"
-    return None
+    kernels = P.route(b, n).kernels
+    return P.KERNELS[kernels[0]] if kernels else None
 
 
 def launches_of(b: int, n: int, complex_input: bool) -> dict:
-    """The launches of one "full" ``transform_any`` call on a (b, n) batch:
-    the band's kernel once, and after K3 the stage B wherever
-    ``plan.describe_plan`` names K4 (complex rows; a real input's
-    half-spectrum stage B is torch)."""
+    """The launches of one ``transform_any`` call on a (b, n) batch, by
+    ``plan.route``: the band's kernel, or K3 and, on complex rows, K4."""
     from gpu_fft_tpu_torch import plan as P
 
-    kernel = band_kernel(b, n)
-    out = {kernel: 1} if kernel else {}
-    if kernel == "stage_a" and "K4" in P.describe_plan(n, b, not complex_input)["engine"]:
-        out["stage_b"] = 1
-    return out
+    return summed(*({P.KERNELS[k]: 1} for k in P.route(b, n, real_input=not complex_input).kernels))
 
 
 def summed(*launches: dict, times: int = 1) -> dict:
@@ -711,22 +701,11 @@ def fno_launches(cell: dict) -> dict:
 
 def engine(b: int, n: int, real_input: bool) -> str:
     """The engine ``kernels/large.py:transform_any`` takes for a (b, n)
-    transform: the band's kernel, a torch engine, or the staged path."""
+    transform, as ``plan.describe_plan`` names it."""
     from gpu_fft_tpu_torch import plan as P
-    from gpu_fft_tpu_torch.config import DIRECT_MAX
 
-    kernel = band_kernel(b, n)
-    if kernel == "stage_a":
-        return "staged: " + P.describe_plan(n, b, real_input)["engine"]
-    if kernel:
-        return {"whole_transform_packed": "K2", "whole_transform": "K1"}[kernel]
-    if n <= DIRECT_MAX:
-        return "torch direct DFT"
-    if real_input and P.half_spectrum_applies(n):
-        return "torch four-step, half spectrum"
-    folded = P.use_folded_layout(b, n)
-    return (f"torch four-step, {'wide' if P.wide_split_applies(b, n) else 'balanced'} split, "
-            f"{'folded' if folded else 'transposes'}")
+    d = P.describe_plan(n, b, real_input)
+    return f"{d['path']}: {d['engine']}" + (f", {d['layout']}" if d["layout"] else "")
 
 
 def grad_phase(report: dict, dev, rng, grad_sizes=GRAD_SIZES, dot_transform=DOT_TRANSFORM,

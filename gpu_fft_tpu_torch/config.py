@@ -30,9 +30,8 @@ KARATSUBA = True
 #                       within the 5*log2(N)*eps roundtrip gate;
 #   "high"           -- the torch engines take bf16x3 products (each operand
 #                       split a = hi + lo in bf16, hi*hi + hi*lo + lo*hi
-#                       summed in fp32); the kernels K1/K2/K3 are not used:
-#                       the band falls through to the engines and stage A
-#                       runs as a torch product (kernels/large.py);
+#                       summed in fp32); the kernels K1/K2/K3 are not used
+#                       (``plan.route``);
 #   "fast"           -- bf16x1 products (the operands rounded to bf16, fp32
 #                       accumulation) in the engines, and K1/K2/K3 run their
 #                       bf16 tensor-core counterparts K1F/K2F/K3F.

@@ -1,40 +1,10 @@
 """The transform dispatch: any power-of-two n from 2 to MAX_N, batched rows.
 
-Port of ``gpu_fft_tpu/kernels/large.py:transform_any`` and ``_staged``.  The
-engine is picked by (B, n) with the same predicates as the JAX package
-(plan.py, tuning.py):
-
-* the whole-transform band (``plan.whole_kernel_applies``: on the H100
-  1024 <= n <= 65536, B <= 4096 and B * n <= 2^26; under "fast" B = 1 and
-  n <= 16384): the whole transform in ONE kernel launch — the packed-table
-  variant (K2) up to ``whole_packed_n_max``, else K1 (K2F / K1F, their bf16
-  tensor-core counterparts, under "fast");
-* other n <= FUSED_MAX: the direct DFT or the four-step, as torch
-  contractions (kernels/fused_torch.py);
-* n > FUSED_MAX: staged — the stage-A kernel (K3, K3F under "fast") over
-  the (n1, n2) view, then the row four-step with the digit reversal folded
-  into its output order: under "full" on complex rows the stage-B kernel
-  (K4, ``stage_b_kernel``) with the transform's scale in its store, else
-  the torch contractions (or, for forced-small plans, a recursive row
-  transform).
-
-Ahead of these, a real forward with ``rfft_pack_applies`` runs as ONE
-n/2-point complex transform (:func:`_real_packed_fft`), so on K1 for
-n/2 in the band and on K3 above FUSED_MAX.  Its gate
-(``plan.RFFT_PACK_MIN``) is closed, as in the JAX package.
-
-Under ``GPU_FFT_TPU_PRECISION=high`` no kernel runs, as in the JAX package,
-whose Mosaic kernels have no bf16x3 form: the band falls through to the
-torch engines, and stage A (and the staged irfft's stage A) runs as the
-torch product ``stage_a_torch``, with no half-row cut.  The mode is read at
-call time (``config.PRECISION``).
-
-:func:`inverse_real` and :func:`inverse_real_half` (``gpu_fft_tpu/kernels/
-large.py``) are the real-output inverses: the Hermitian fold at
-n >= ``irfft_half_min`` (fused) and n >= ``irfft_half_staged_min`` (K3 on
-half the column tiles, then the per-row fold), else ``transform_any`` with
-the imaginary part dropped (K1/K2 in their band); the direct folded tables
-at n <= DIRECT_MAX.
+Port of ``gpu_fft_tpu/kernels/large.py:transform_any`` and ``_staged``.  What
+a (B, n) call runs is decided in one place, ``plan.route`` (shown by
+``plan.describe_plan``); each function here takes the route once and runs
+the engine it names, in the span it names.  :func:`inverse_real` and
+:func:`inverse_real_half` are the real-output inverses.
 
 Autodiff (``gpu_fft_tpu/kernels/large.py``'s seams): the kernels fill their
 outputs through ctypes, which autograd cannot see, so each kernel call on
@@ -52,20 +22,16 @@ forward-mode rules run the same dispatch again:
   backward the written-out transpose ``stage_a_torch_transpose``.
 
 None saves a tensor: each map is linear, so a rule needs only its key
-(n, sign, scale; n and the kept column tiles).  A call whose inputs no
-autodiff mode sees runs the wrapped body straight (``_through``), since
-``apply`` costs host time.  On the CPU the same rules run over the plain
-versions.  ``vmap`` is not supported (nor in the JAX package
-at staged sizes): fold extra axes into B.
+(n, sign, scale, and K1/K2's route; n, the kept column tiles and the
+route).  A call whose inputs no autodiff mode sees runs the wrapped body
+straight (``_through``), since ``apply`` costs host time.  On the CPU the
+same rules run over the plain versions.  ``vmap`` is not supported (nor in
+the JAX package at staged sizes): fold extra axes into B.
 
 Profiler spans (``utils/profiling.py:span``): the body of each dispatch
-function is ``gft.dispatch`` (a recursive call nests), and each engine it
-hands a call to is ``gft.engine.<name>``: ``whole`` (K1/K2/K1F/K2F),
-``direct`` and ``fourstep`` (``fused_fft``, by the plan's kind),
-``fourstep_folded``, ``fourstep_half``, ``packed_real``, ``stage_a`` and
-``stage_b`` (the staged body's two halves, the staged fold's too),
-``irfft_fold`` (``fused_irfft``) and ``irfft_direct``.  Plans are looked up
-in dispatch, outside the engine's span.
+function is ``gft.dispatch`` (a recursive call nests), and each engine runs
+in the ``gft.engine.*`` span its route names.  Plans are looked up in
+dispatch, outside the engine's span.
 """
 
 from __future__ import annotations
@@ -75,8 +41,6 @@ import functools
 import numpy as np
 import torch
 
-from .. import config
-from ..config import DIRECT_MAX, FUSED_MAX
 from ..plan import (
     get_fused_plan,
     get_irfft_direct_k128_plan,
@@ -88,19 +52,12 @@ from ..plan import (
     get_stage_b_twiddle,
     get_whole_packed_plan,
     get_whole_plan,
-    half_spectrum_applies,
-    irfft_half_applies,
-    irfft_half_staged_applies,
     on_device,
-    rfft_pack_applies,
+    route,
     stage_a_ct_full_range,
     stage_a_real_rows,
-    stage_b_kernel_applies,
-    use_folded_layout,
-    whole_kernel_applies,
-    wide_split_applies,
+    staged_route,
 )
-from ..tuning import get_tuning
 from ..utils.profiling import span
 from .fused import stage_a, stage_b_kernel, whole_transform, whole_transform_packed
 from .fused_torch import (
@@ -128,31 +85,25 @@ def transform_any(xr, xi, n: int, sign: int, scale: float | None = None):
     ``xi`` may be None (real input).  Unnormalized unless ``scale`` is given
     (1/n for a normalized inverse): at fused sizes it is folded into the last
     table; at staged sizes the staged body applies it, in K4's store where
-    K4 runs (``stage_b_kernel_applies``) and as a multiply after any other
-    stage B.  Natural output order, on the input's device.
+    the route runs K4 and as a multiply after any other stage B.  Natural
+    output order, on the input's device.
     """
     with span("gft.dispatch"):
-        dev = xr.device
-        if xi is None and sign == -1 and n >= 8 and rfft_pack_applies(xr.shape[0], n):
-            with span("gft.engine.packed_real"):
+        r = route(xr.shape[0], n, real_input=xi is None, sign=sign)
+        if r.path == "whole":
+            return _through(_WholeTransform, _whole, xr, xi, (n, sign, scale, r))
+        if r.path == "packed_real":
+            with span(r.spans[0]):
                 return _real_packed_fft(xr, n, scale)
-        if n <= FUSED_MAX:
-            b = xr.shape[0]
-            if whole_kernel_applies(b, n) and config.PRECISION != "high":
-                return _through(_WholeTransform, _whole, xr, xi, (n, sign, scale))
-            if xi is None and half_spectrum_applies(n):
-                plan = on_device(get_fused_plan, n, sign, False, scale, device=dev)
-                if plan.kind == "fourstep":
-                    with span("gft.engine.fourstep_half"):
-                        return fused_fft_half(xr, plan)
-            plan = on_device(get_fused_plan, n, sign, wide_split_applies(b, n), scale, device=dev)
-            if plan.kind == "fourstep" and use_folded_layout(b, n):
-                with span("gft.engine.fourstep_folded"):
-                    return fused_fft_folded(xr, xi, plan)
-            with span("gft.engine." + plan.kind):
-                return fused_fft(xr, xi, plan)
-
-        return _through(_StagedTransform, _staged, xr, xi, (n, sign, scale))
+        if r.path == "staged":
+            return _through(_StagedTransform, _staged, xr, xi, (n, sign, scale))
+        plan = on_device(get_fused_plan, n, sign, r.wide, scale, device=xr.device)
+        with span(r.spans[0]):
+            if r.layout == "half-spectrum":
+                return fused_fft_half(xr, plan)
+            if r.layout == "folded":
+                return fused_fft_folded(xr, xi, plan)
+            return fused_fft(xr, xi, plan)
 
 
 # ── Autodiff seams ───────────────────────────────────────────────────────────
@@ -165,28 +116,26 @@ def _through(function, body, xr, xi, key):
 
 
 def _whole(xr, xi, key):
-    """K1 or K2 on the rows of a (B, n) batch in the band, ``key`` = (n, sign, scale)."""
-    n, sign, scale = key
-    dev = xr.device
+    """K1 or K2 (the route's kernel) on the rows of a (B, n) batch in the
+    band, ``key`` = (n, sign, scale, route)."""
+    n, sign, scale, r = key
     # The kernels read rows densely; a strided view (a 2-D pass's columns,
     # a frame's segments) is copied once, as the torch engines' first
     # contraction would.
     xr, xi = _contiguous(xr), _contiguous(xi)
-    if n <= get_tuning().whole_packed_n_max:
-        plan = on_device(get_whole_packed_plan, n, sign, scale, device=dev)
-        with span("gft.engine.whole"):
-            return whole_transform_packed(xr, xi, plan)
-    plan = on_device(get_whole_plan, n, sign, scale, device=dev)
-    with span("gft.engine.whole"):
-        return whole_transform(xr, xi, plan)
+    packed = r.kernel in ("K2", "K2F")
+    plan = on_device(get_whole_packed_plan if packed else get_whole_plan, n, sign, scale, device=xr.device)
+    with span(r.spans[0]):
+        return (whole_transform_packed if packed else whole_transform)(xr, xi, plan)
 
 
 def _stage_a_fold(x3r, x3i, key):
-    """K3 with the inverse plan (default tile) on the first ``tiles`` column
-    tiles of a (B, n1, n2) view, ``key`` = (n, tiles)."""
-    n, tiles = key
+    """Stage A with the inverse plan (default tile) on the first ``tiles``
+    column tiles of a (B, n1, n2) view, ``key`` = (n, tiles, route): K3,
+    or the torch product where the route names no kernel."""
+    n, tiles, r = key
     plan = on_device(get_stage_a_plan, n, +1, None, device=x3r.device)
-    if config.PRECISION == "high":
+    if r.kernel is None:
         yr, yi = stage_a_torch(x3r, x3i, plan)
         cols = tiles * plan["ct"]
         return yr[:, :, :cols], yi[:, :, :cols]
@@ -221,8 +170,8 @@ def _self_transpose(apply, real_input: bool, gr, gi):
 
 class _WholeTransform(torch.autograd.Function):
     """K1 (``whole_transform``) or K2 (``whole_transform_packed``) on a (B, n)
-    batch in the band, ``key`` = (n, sign, scale): the scale folded into the
-    plan is real, so the transpose carries it unchanged."""
+    batch in the band, ``key`` = (n, sign, scale, route): the scale folded
+    into the plan is real, so the transpose carries it unchanged."""
 
     @staticmethod
     def forward(xr, xi, key):
@@ -274,8 +223,8 @@ class _StagedTransform(torch.autograd.Function):
 
 class _StageAFold(torch.autograd.Function):
     """K3 over a (B, n1, n2) view with the inverse plan (sign +1, default
-    tile), the first ``tiles`` column tiles kept: ``key`` = (n, tiles).  The
-    JVP is K3 on the tangent; the backward the transpose
+    tile), the first ``tiles`` column tiles kept: ``key`` = (n, tiles,
+    route).  The JVP is K3 on the tangent; the backward the transpose
     ``stage_a_torch_transpose`` (the JAX package transposes its einsum
     engine there), whose torch ops autograd differentiates again."""
 
@@ -305,38 +254,37 @@ class _StageAFold(torch.autograd.Function):
 
 
 def _staged(xr, xi, key):
-    """The staged (n > FUSED_MAX) body of :func:`transform_any`, ``key`` =
-    (n, sign, scale).  Under "full" a complex stage B runs as K4, with the
-    scale in its store; after any other stage B the scale is a multiply."""
+    """The staged body of :func:`transform_any`, ``key`` = (n, sign, scale),
+    on its own inputs' route (``plan.staged_route``).  K4 applies the scale
+    in its store; after any other stage B the scale is a multiply."""
     n, sign, scale = key
     b = xr.shape[0]
     dev = xr.device
+    r = staged_route(b, n, real_input=xi is None)
     plan = on_device(get_stage_a_plan, n, sign, stage_a_ct_full_range(n), device=dev)
-    n1, n2 = plan["n1"], plan["n2"]
-    half = xi is None and half_spectrum_applies(n) and plan["stage_b"] is not None
-    k4 = not half and plan["stage_b"] is not None and stage_b_kernel_applies(n2)
-    tw = on_device(get_stage_b_twiddle, n2, sign, device=dev) if k4 else None
+    n1, n2 = r.split
+    tw = on_device(get_stage_b_twiddle, n2, sign, device=dev) if r.stage_b == "K4" else None
     x3r = xr.reshape(b, n1, n2)
     x3i = None if xi is None else xi.reshape(b, n1, n2)
-    with span("gft.engine.stage_a"):
-        if config.PRECISION == "high":
+    with span(r.spans[0]):
+        if r.kernel is None:
             yr, yi = stage_a_torch(x3r, x3i, plan)
         else:
-            half_rows = stage_a_real_rows(n1) if half else None
+            half_rows = stage_a_real_rows(n1) if r.layout == "half-spectrum" else None
             yr, yi = stage_a(x3r, x3i, n1, n2, plan, plan["ct"], rows=half_rows)
 
-    with span("gft.engine.stage_b"):
-        if k4:  # K3's output is contiguous; the plain stage A's is not
+    with span(r.spans[1]):
+        if r.stage_b == "K4":  # K3's output is contiguous; the plain stage A's is not
             return stage_b_kernel(yr.contiguous(), yi.contiguous(), n1, n2, plan["stage_b"], tw, scale)
-        if plan["stage_b"] is not None:
-            engine = stage_b_half if half else stage_b
-            out_r, out_i = engine(yr, yi, n1, n2, plan["stage_b"])
-        else:
-            # Forced-small plans: row transforms of length n2, then the digit
-            # reversal (flat k = k1 + n1 * k2).
+        if r.stage_b == "recursive":
+            # Row transforms of length n2, then the digit reversal (flat
+            # k = k1 + n1 * k2).
             rr, ri = transform_any(yr.reshape(b * n1, n2), yi.reshape(b * n1, n2), n2, sign)
             out_r = rr.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
             out_i = ri.reshape(b, n1, n2).transpose(1, 2).reshape(b, n)
+        else:
+            engine = stage_b_half if r.stage_b == "half" else stage_b
+            out_r, out_i = engine(yr, yi, n1, n2, plan["stage_b"])
     if scale is None:
         return out_r, out_i
     return out_r * scale, out_i * scale
@@ -387,36 +335,36 @@ def _real_packed_fft(xr, n: int, scale):
 
 
 def inverse_real(xr, xi, n: int, scale: float | None = None):
-    """Real-output inverse of a HERMITIAN (B, n) spectrum.
+    """Real-output inverse of a HERMITIAN (B, n) spectrum, on its route.
 
-    From ``irfft_half_min`` to FUSED_MAX the conjugate half of the input is
-    folded before the contractions (:func:`fused_irfft`).  From
-    ``irfft_half_staged_min`` the staged inverse runs K3 on only the first
-    ceil((n2/2 + 1) / ct) column tiles of the (n1, n2) view, at the plan's
-    default tile (the post-twiddle output is conjugate-symmetric over
-    columns), rebuilds the rest by flips (:func:`irfft_fold_columns`) and
-    folds stage B per row.  Elsewhere :func:`transform_any` with the
-    imaginary part dropped.  Unnormalized unless ``scale`` is given; at the
-    fold sizes it lives in the tables.  Correct only for Hermitian input.
+    The fused fold folds the conjugate half of the input before the
+    contractions (:func:`fused_irfft`).  The staged fold runs stage A on
+    only the first ceil((n2/2 + 1) / ct) column tiles of the (n1, n2) view,
+    at the plan's default tile (the post-twiddle output is
+    conjugate-symmetric over columns), rebuilds the rest by flips
+    (:func:`irfft_fold_columns`) and folds stage B per row.  Elsewhere
+    :func:`transform_any` with the imaginary part dropped.  Unnormalized
+    unless ``scale`` is given; at the fold sizes it lives in the tables.
+    Correct only for Hermitian input.
     """
     with span("gft.dispatch"):
         dev = xr.device
-        if 16 <= n <= FUSED_MAX and irfft_half_applies(n):
+        r = route(xr.shape[0], n, real_output=True)
+        if r.path == "irfft_fold":
             plan = on_device(get_irfft_plan, n, scale, None, device=dev)
-            with span("gft.engine.irfft_fold"):
+            with span(r.spans[0]):
                 return fused_irfft(xr, xi, plan)
-        if n > FUSED_MAX and irfft_half_staged_applies(n):
+        if r.path == "irfft_fold_staged":
             bt = on_device(get_stage_b_irfft_plan, n, scale, device=dev)
-            if bt is not None:
-                b = xr.shape[0]
-                plan = on_device(get_stage_a_plan, n, +1, None, device=dev)
-                n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
-                tiles = -(-(n2 // 2 + 1) // ct)
-                with span("gft.engine.stage_a"):
-                    yr, yi = _through(_StageAFold, _stage_a_fold, xr.reshape(b, n1, n2),
-                                      xi.reshape(b, n1, n2), (n, tiles))
-                with span("gft.engine.stage_b"):
-                    return stage_b_irfft_from_half(*irfft_fold_columns(yr, yi, bt), bt)
+            b = xr.shape[0]
+            plan = on_device(get_stage_a_plan, n, +1, None, device=dev)
+            n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
+            tiles = -(-(n2 // 2 + 1) // ct)
+            with span(r.spans[0]):
+                yr, yi = _through(_StageAFold, _stage_a_fold, xr.reshape(b, n1, n2),
+                                  xi.reshape(b, n1, n2), (n, tiles, r))
+            with span(r.spans[1]):
+                return stage_b_irfft_from_half(*irfft_fold_columns(yr, yi, bt), bt)
         yr, _ = transform_any(xr, xi, n, +1, scale=scale)
         return yr
 
@@ -425,7 +373,7 @@ def inverse_real_half(xr, xi, n: int, scale: float | None = None):
     """Real-output inverse from the ONE-SIDED (B, h = n/2 + 1) spectrum.
 
     At n <= DIRECT_MAX two real products against the folded tables
-    (:func:`irfft_direct_half`, or the K = n/2 form at n >= 256 where
+    (:func:`irfft_direct_half`, or the K = n/2 form on the route's
     ``irfft_direct_k128``).  Above, the Hermitian mirror
     X[n - k] = conj(X[k]) is rebuilt (two flips and two concatenations) and
     :func:`inverse_real` runs.  DC/Nyquist imaginary parts are ignored on
@@ -436,13 +384,14 @@ def inverse_real_half(xr, xi, n: int, scale: float | None = None):
         if xr.shape[-1] != h:
             raise ValueError(f"inverse_real_half expects {h} bins for n={n}, got {xr.shape[-1]}")
         dev = xr.device
-        if n <= DIRECT_MAX:
-            if n >= 256 and get_tuning().irfft_direct_k128:
-                plan = on_device(get_irfft_direct_k128_plan, n, scale, device=dev)
-                with span("gft.engine.irfft_direct"):
-                    return irfft_direct_half_k128(xr, xi, plan)
+        r = route(xr.shape[0], n, real_output=True, one_sided=True)
+        if r.path == "irfft_direct_k128":
+            plan = on_device(get_irfft_direct_k128_plan, n, scale, device=dev)
+            with span(r.spans[0]):
+                return irfft_direct_half_k128(xr, xi, plan)
+        if r.path == "irfft_direct":
             plan = on_device(get_irfft_direct_plan, n, scale, device=dev)
-            with span("gft.engine.irfft_direct"):
+            with span(r.spans[0]):
                 return irfft_direct_half(xr, xi, plan)
         mid_i = xi[:, 1 : h - 1]
         zero = xi.new_zeros(xi.shape[0], 1)

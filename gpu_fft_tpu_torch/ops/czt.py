@@ -1,8 +1,8 @@
 """Chirp-z transform and zoom FFT over the library's pow2 path.
 
 Port of ``gpu_fft_tpu/ops/czt.py``.  The two L-point transforms are
-``kernels/large.py:transform_any``'s (K1/K2 in the whole-transform band, K3
-staged); the f64 host tables are the JAX package's, cached on the device.
+``kernels/large.py:transform_any``'s, on ``plan.route``'s engine; the f64
+host tables are the JAX package's, cached on the device.
 
 The CZT evaluates the z-transform on a logarithmic spiral
 ``z_k = a * w**(-k)``, k = 0..m-1:

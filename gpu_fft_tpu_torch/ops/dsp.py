@@ -3,9 +3,9 @@ signal, Fourier resampling, shifts and the small host helpers.
 
 Port of ``gpu_fft_tpu/ops/dsp.py``.  Every transform here is the library's
 own: ``kernels/large.py:transform_any`` / ``inverse_real`` for power-of-two
-lengths (K1/K2 in the whole-transform band, K3 staged) and the exact
-transforms of ``ops/exact.py`` for any other length.  The host API takes
-numpy and returns numpy and runs on ``device`` (default ``"cuda"``);
+lengths (on ``plan.route``'s engine) and the exact transforms of
+``ops/exact.py`` for any other length.  The host API takes numpy and returns
+numpy and runs on ``device`` (default ``"cuda"``);
 ``*_device`` functions take and return tensors on the tensor's device.
 
 ``hilbert2`` and ``envelope_scipy`` are numpy host code on the complex

@@ -18,7 +18,7 @@ modeled FLOPs:
 
   realized as a = x * conj(w); X = conj(w) * IFFT_m(FFT_m(a) * B), B the
   FFT_m of the wrapped chirp (a numpy f64 table).  The two m-point
-  transforms are ``transform_any``'s: K1/K2 in the whole band, K3 staged.
+  transforms are ``transform_any``'s, on ``plan.route``'s engine.
 
 Every table angle is reduced mod its period in exact int64 before the f64
 exponential, so the tables carry half an ulp; the tables are bit-identical

@@ -4,10 +4,9 @@ Port of ``gpu_fft_tpu/ops/fft2d.py``.  Row transforms with the batch folded
 into the leading dim, one transpose, column transforms, the transpose back.
 Conventions match ``numpy.fft.fft2``: split-complex f32 in and out,
 unnormalized forward, 1/(H*W) on the inverse, and any side length: power-of-
-two sides run ``kernels/large.py:transform_any`` (K1/K2 in the whole band,
-K3 on rows longer than FUSED_MAX, the torch engines elsewhere), other
-lengths run exactly by Bluestein (``ops/exact.py:_bluestein``), never by
-padding.
+two sides run ``kernels/large.py:transform_any`` (``plan.route``'s
+engine), other lengths run exactly by Bluestein (``ops/exact.py:_bluestein``),
+never by padding.
 
 Where ``plan.axis0_applies(H, W)`` the column pass runs in place over axis
 0 instead (``kernels/fused_torch.py:transform_axis0``), as in the JAX

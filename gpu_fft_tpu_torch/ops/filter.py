@@ -645,8 +645,8 @@ class FIRStream:
     The kernel's spectrum at the chunk's padded transform length
     m = next_pow2(chunk + taps - 1) is computed once, on ``device``; each
     :meth:`step` pays one forward and one inverse transform of its chunk
-    (in the whole-transform band, 1,024 <= m <= 65,536, both are one launch
-    of the whole kernel) and carries the length-(taps - 1) convolution tail
+    (each one launch of the whole kernel where ``plan.route`` names it) and
+    carries the length-(taps - 1) convolution tail
     into the next chunk.  ``step`` is pure, state in and state out::
 
         stream = FIRStream(h, chunk=4096, batch=B, device="cuda")

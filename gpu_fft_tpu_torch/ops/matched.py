@@ -11,8 +11,8 @@ its one-sided PSD S, frequency spacing Δf):
 * the complex SNR ρ = q · 4Δf / √σ².
 
 All templates of the block go through ONE batched inverse,
-``ifft_device`` on the (T, N) buffer (so ``kernels/large.py:transform_any``:
-K1/K2 in the whole-transform band, K3 and stage B above 65,536).  No step
+``ifft_device`` on the (T, N) buffer (so ``kernels/large.py:transform_any``,
+on ``plan.route``'s engine).  No step
 reads a value back to the host.  The body is the profiler span
 ``gft.entry.matched_filter``; ``COUNTS["matched_filter"]`` counts calls and
 templates filtered.

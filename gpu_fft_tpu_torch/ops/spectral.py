@@ -7,9 +7,7 @@ batched one-sided transform over every segment; ``periodogram`` runs one
 exact transform of the whole signal (``ops/exact.py``: any n).  scipy.signal
 semantics; every ``*_device`` form stays on the tensor's device and is
 differentiable, the host forms take numpy and return numpy.  Which engine a
-segment transform takes is the dispatch's (``kernels/large.py``): the
-segments of the whole-transform band (B rows of n = 1,024 ... 65,536) go to
-K1/K2 in one launch, others to the torch four-steps, staged n to K3.
+segment transform takes is ``plan.route``'s (``describe_plan`` shows it).
 ``lombscargle`` is host float64 numpy, as in the JAX package.
 """
 

@@ -1,4 +1,7 @@
-"""Transform planning: factorization, dispatch predicates and cached tables.
+"""Transform planning: factorization, the route and cached tables.
+
+:func:`route` decides what a (B, n) transform runs; the dispatch
+(``kernels/large.py``), :func:`describe_plan` and the cost model read it.
 
 A plan holds the f64-generated f32 DFT and twiddle tables for one
 (n, direction[, scale]) and is cached as numpy arrays, exactly as in the JAX
@@ -12,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from .tuning import get_tuning
 
 __all__ = [
     "FusedPlan",
+    "Route",
     "axis0_applies",
     "balanced_split",
     "clear_device_cache",
@@ -42,11 +46,12 @@ __all__ = [
     "get_whole_plan",
     "on_device",
     "rfft_pack_applies",
+    "route",
     "stage_b_kernel_applies",
 ]
 
 
-# ── Dispatch predicates (shared by kernels/large.py:transform_any) ───────────
+# ── Dispatch predicates (read by route) ──────────────────────────────────────
 
 
 def wide_split_applies(b: int, n: int) -> bool:
@@ -420,18 +425,108 @@ def _stage_a_n1(n: int) -> int:
     return n1
 
 
-def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
-    """Explain how a (batch, n) transform will dispatch, by the same
-    predicates :func:`kernels.large.transform_any` reads (JAX:
-    ``gpu_fft_tpu.plan.describe_plan``).
+# ── The route: what a transform runs ─────────────────────────────────────────
 
-    Pure arithmetic: no table is built and no device is touched.  Unlike
-    the JAX function it names the whole-transform band, where one launch of
-    K2 (``whole_transform_packed``) or K1 (``whole_transform``) does the
-    whole transform; there the JAX one says ``fourstep``.  It follows the
-    precision mode of the call (``precision``): under "fast" the band and
-    stage A name K2F / K1F / K3F, under "high" the band is the four-step
-    and stage A a torch product, as ``transform_any`` runs them.
+#: A route's kernels by ``kernels/fused.py:COUNTS`` name (F: the bf16 form).
+KERNELS = {
+    "K1": "whole_transform",
+    "K2": "whole_transform_packed",
+    "K1F": "whole_transform_bf16",
+    "K2F": "whole_transform_packed_bf16",
+    "K3": "stage_a",
+    "K3F": "stage_a_bf16",
+    "K4": "stage_b",
+}
+
+
+class Route(NamedTuple):
+    """What one (B, n) transform runs (:func:`route`): its ``path``, the
+    ``gft.engine.*`` ``spans`` it opens in order, the ``kernel`` of the
+    whole transform or of stage A (None where torch runs), ``split``,
+    ``layout`` and ``wide`` as :func:`describe_plan` names them, the staged
+    path's ``stage_b`` (``K4``, ``torch``, ``half`` or ``recursive``) and
+    the ``inner`` route of a nested transform (the packed n/2 one, the
+    recursive rows)."""
+
+    path: str
+    spans: tuple
+    kernel: str | None = None
+    split: tuple | None = None
+    layout: str | None = None
+    wide: bool = False
+    stage_b: str | None = None
+    inner: Route | None = None
+
+    @property
+    def kernels(self) -> tuple:
+        """The kernels one call launches, in order (:data:`KERNELS` keys)."""
+        own = (self.kernel,) if self.kernel else ()
+        own += ("K4",) if self.stage_b == "K4" else ()
+        return own + (self.inner.kernels if self.inner else ())
+
+
+_STAGED = ("gft.engine.stage_a", "gft.engine.stage_b")
+_STAGE_A_KERNEL = {"full": "K3", "fast": "K3F"}  # none under "high"
+
+
+def route(b: int, n: int, *, real_input: bool = False, sign: int = -1, real_output: bool = False,
+          one_sided: bool = False) -> Route:
+    """The route of ``kernels/large.py:transform_any`` on a (b, n) batch, or
+    with ``real_output`` of ``inverse_real`` (``one_sided``:
+    ``inverse_real_half``), from the predicates above (their one caller on
+    the dispatch path), the tuning row and the precision mode, read at call
+    time: under "high" no kernel runs (the JAX package's kernels have no
+    bf16x3 form), under "fast" the kernels take their bf16 forms."""
+    mode = config.PRECISION
+    if real_output:
+        if one_sided and n <= DIRECT_MAX:
+            k128 = n >= 256 and get_tuning().irfft_direct_k128
+            return Route("irfft_direct_k128" if k128 else "irfft_direct", ("gft.engine.irfft_direct",))
+        if 16 <= n <= FUSED_MAX and irfft_half_applies(n):
+            return Route("irfft_fold", ("gft.engine.irfft_fold",), split=balanced_split(n))
+        if n > FUSED_MAX and irfft_half_staged_applies(n):
+            n1 = _stage_a_n1(n)
+            if stage_b_plannable(n // n1):  # the per-row fold's tables (get_stage_b_irfft_plan)
+                return Route("irfft_fold_staged", _STAGED, _STAGE_A_KERNEL.get(mode), (n1, n // n1))
+        return route(b, n, sign=+1)  # the complex inverse, its real part kept
+    if real_input and sign == -1 and n >= 8 and rfft_pack_applies(b, n):
+        inner = route(b, n // 2)
+        return Route("packed_real", ("gft.engine.packed_real",) + inner.spans, split=inner.split, inner=inner)
+    if n > FUSED_MAX:
+        return staged_route(b, n, real_input=real_input)
+    if whole_kernel_applies(b, n) and mode != "high":
+        kernel = ("K2" if n <= get_tuning().whole_packed_n_max else "K1") + ("F" if mode == "fast" else "")
+        return Route("whole", ("gft.engine.whole",), kernel, (n // 128, 128))
+    if n <= DIRECT_MAX:
+        return Route("direct", ("gft.engine.direct",), split=(n, 1), wide=wide_split_applies(b, n))
+    if real_input and half_spectrum_applies(n):
+        return Route("fourstep", ("gft.engine.fourstep_half",), split=balanced_split(n), layout="half-spectrum")
+    if use_folded_layout(b, n):
+        return Route("fourstep", ("gft.engine.fourstep_folded",), split=fused_split(n, b), layout="folded",
+                     wide=wide_split_applies(b, n))
+    return Route("fourstep", ("gft.engine.fourstep",), split=fused_split(n, b), layout="transpose",
+                 wide=wide_split_applies(b, n))
+
+
+def staged_route(b: int, n: int, *, real_input: bool) -> Route:
+    """:func:`route` past FUSED_MAX, which the staged body takes for its own
+    inputs (a backward's cotangent may be real where the input was not)."""
+    n1 = _stage_a_n1(n)
+    n2 = n // n1
+    kernel = _STAGE_A_KERNEL.get(config.PRECISION)
+    if not stage_b_plannable(n2):
+        inner = route(b * n1, n2)
+        return Route("staged", _STAGED + inner.spans, kernel, (n1, n2), "folded", stage_b="recursive", inner=inner)
+    if real_input and half_spectrum_applies(n):
+        return Route("staged", _STAGED, kernel, (n1, n2), "half-spectrum", stage_b="half")
+    return Route("staged", _STAGED, kernel, (n1, n2), "folded", stage_b="K4" if stage_b_kernel_applies(n2) else "torch")
+
+
+def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
+    """Explain how a (batch, n) transform will dispatch: a view of
+    :func:`route` in the call's precision mode (JAX:
+    ``gpu_fft_tpu.plan.describe_plan``, which says ``fourstep`` where the
+    port names the whole-transform band's kernel).
 
     >>> describe_plan(256)["path"]
     'direct'
@@ -454,47 +549,21 @@ def describe_plan(n: int, batch: int = 1, real_input: bool = True) -> dict:
         raise ValueError(f"describe_plan requires power-of-two n >= 2, got {n}")
     if n > MAX_N:
         raise ValueError(f"n={n} exceeds MAX_N={MAX_N}")
-    mode = config.PRECISION
-    fast = "_bf16" if mode == "fast" else ""
-    out: dict = {"n": n, "batch": batch, "real_input": real_input, "precision": mode}
-    if n <= FUSED_MAX and whole_kernel_applies(batch, n) and mode != "high":
-        packed = n <= get_tuning().whole_packed_n_max
-        out.update(
-            path="whole",
-            engine=("K2" if packed else "K1") + ("F" if fast else "") + ", one launch",
-            kernel=("whole_transform_packed" if packed else "whole_transform") + fast,
-            split=(n // 128, 128),
-            layout=None,
-        )
-        return out
-    if n <= DIRECT_MAX:
-        out.update(path="direct", engine="torch matmul", split=(n, 1), layout=None)
-        return out
-    half = real_input and half_spectrum_applies(n)
-    if n <= FUSED_MAX:
-        if half:
-            out.update(path="fourstep", engine="torch four-step", split=balanced_split(n), wide=False,
-                       layout="half-spectrum")
-            return out
-        out.update(
-            path="fourstep",
-            engine="torch four-step",
-            split=fused_split(n, batch),
-            wide=wide_split_applies(batch, n),
-            layout="folded" if use_folded_layout(batch, n) else "transpose",
-        )
-        return out
-    n1 = _stage_a_n1(n)
-    n2 = n // n1
-    k4 = not half and stage_b_kernel_applies(n2)
-    out.update(
-        path="staged",
-        engine={"full": "K3 stage_a", "fast": "K3F stage_a_bf16", "high": "torch stage_a"}[mode]
-        + (" + K4 stage_b" if k4 else " + torch stage B"),
-        split=(n1, n2),
-        layout="half-spectrum" if half and stage_b_plannable(n2) else "folded",
-        stage_b_split=(n2 // 128, 128) if stage_b_plannable(n2) else None,
-    )
+    r = route(batch, n, real_input=real_input)
+    out: dict = {"n": n, "batch": batch, "real_input": real_input, "precision": config.PRECISION, "path": r.path,
+                 "split": r.split, "layout": r.layout}
+    if r.path == "whole":
+        out.update(engine=f"{r.kernel}, one launch", kernel=KERNELS[r.kernel])
+    elif r.path == "direct":
+        out["engine"] = "torch matmul"
+    elif r.path == "fourstep":
+        out.update(engine="torch four-step", wide=r.wide)
+    elif r.path == "staged":
+        stage_a = f"{r.kernel} {KERNELS[r.kernel]}" if r.kernel else "torch stage_a"
+        out.update(engine=stage_a + (" + K4 stage_b" if r.stage_b == "K4" else " + torch stage B"),
+                   stage_b_split=None if r.stage_b == "recursive" else (r.split[1] // 128, 128))
+    else:  # packed_real
+        out["engine"] = f"one {n // 2}-point complex transform"
     return out
 
 

@@ -167,6 +167,7 @@ def band_sweep(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     four-step through ``transform_any`` at every (B, n) of the grid."""
     import torch
 
+    from .. import plan as P
     from ..config import apply_precision
     from ..kernels import large as L
 
@@ -182,7 +183,7 @@ def band_sweep(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
     out = Path(out_dir) / "time_whole_band.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    shut = L.whole_kernel_applies
+    shut = P.whole_kernel_applies
     wins: dict = {}
     for n in BAND_N:
         for b in (b for b in BAND_B if b * n <= BAND_SAMPLES_MAX):
@@ -201,7 +202,7 @@ def band_sweep(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
                 outs = {}
                 try:
                     for side in ("whole", "torch", "torch", "whole"):
-                        L.whole_kernel_applies = (lambda b, n: True) if side == "whole" else (lambda b, n: False)
+                        P.whole_kernel_applies = (lambda b, n: True) if side == "whole" else (lambda b, n: False)
                         outs[side] = call()
                         # A profile that records no kernel (CUPTI missed the
                         # calls) is taken again, up to three times.
@@ -211,7 +212,7 @@ def band_sweep(quick: bool = False, out_dir: str = "chiprun_out") -> dict:
                         row["device_ms"][side].append(t)
                         row["host_ms"][side].append(host_ms(call, calls, 2 * profiles))
                 finally:
-                    L.whole_kernel_applies = shut
+                    P.whole_kernel_applies = shut
                 want = outs["torch"]
                 ref = max(float(w.abs().max()) for w in want)
                 row["max_abs_err"] = max(float((g - w).abs().max()) for g, w in zip(outs["whole"], want))

@@ -54,8 +54,6 @@ from dataclasses import dataclass
 import torch
 
 from .. import plan as _plan
-from ..config import DIRECT_MAX, FUSED_MAX
-from ..tuning import get_tuning
 
 __all__ = [
     "CALIBRATED_CHIPS",
@@ -202,56 +200,41 @@ def count_kernels(step, x0) -> int:
 
 def transform_stages(b: int, n: int, real_input: bool):
     """Per-matmul-stage (flops, contraction) list and elementwise flops of
-    the port's dispatch (``kernels/large.py:transform_any``): the whole
-    kernel band, direct, half-spectrum, the fused split, and staged.  A real
+    the port's dispatch, on its route (``plan.route``): the whole kernel
+    band, direct, half-spectrum, the fused split, and staged.  A real
     matmul (m, k) @ (k, j) counts 2*m*k*j, a complex one 3 real products
-    (Karatsuba), a complex elementwise multiply 6 flops.  A real input
-    where ``rfft_pack_applies`` is the n/2-point complex transform's stages
+    (Karatsuba), a complex elementwise multiply 6 flops.  A packed real
+    input (``packed_real``) is the n/2-point complex transform's stages
     plus the recombination, charged 8 flops per element.
     """
-    if real_input and n >= 8 and _plan.rfft_pack_applies(b, n):
+    r = _plan.route(b, n, real_input=real_input)
+    if r.path == "packed_real":
         stages, elem = transform_stages(b, n // 2, real_input=False)
         return stages, elem + 8.0 * b * n
-    if DIRECT_MAX < n <= FUSED_MAX and _plan.whole_kernel_applies(b, n):
-        # K1/K2: n2 = 128, stage 1 contracts n1 = n/128 (2 real or 3
-        # Karatsuba products), stage 2 the 128 columns (3), one twiddle.
-        n1 = n // 128
-        if real_input:
-            return [(2 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * 128, 128)], 6.0 * b * n
-        return [(3 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * 128, 128)], 6.0 * b * n
-    if n <= DIRECT_MAX:
-        if real_input:
-            return [(2 * 2.0 * b * n * n, n)], 0.0
-        return [(3 * 2.0 * b * n * n, n)], 7.0 * b * n
-    if n <= FUSED_MAX:
-        if real_input and _plan.half_spectrum_applies(n):
-            # fused_fft_half: full first stage, then only h = n1/2 + 1 k1
-            # rows; the mirror epilogue charged ~2 flops/elem.
-            n1, n2 = _plan.balanced_split(n)
-            frac = (n1 // 2 + 1) / n1
-            stages = [(2 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * n2 * frac, n2)]
-            return stages, (6.0 + 5.0) * b * n * frac + 2.0 * b * n
-        n1, n2 = _plan.fused_split(n, b)
-        if real_input:
-            stages = [(2 * 2.0 * b * n * n1, n1)]
-            elem = 6.0 * b * n
-        else:
-            stages = [(3 * 2.0 * b * n * n1, n1)]
-            elem = 6.0 * b * n + 5.0 * b * n
+    p = 2 if real_input else 3  # real products of a first contraction (3: Karatsuba)
+    if r.path == "whole":
+        # K1/K2: n2 = 128, stage 1 contracts n1 = n/128, stage 2 the 128
+        # columns (3), one twiddle.
+        n1 = r.split[0]
+        return [(p * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * 128, 128)], 6.0 * b * n
+    if r.path == "direct":
+        return [(p * 2.0 * b * n * n, n)], 0.0 if real_input else 7.0 * b * n
+    n1, n2 = r.split
+    half = r.layout == "half-spectrum"
+    if r.path == "fourstep" and half:
+        # fused_fft_half: full first stage, then only h = n1/2 + 1 k1
+        # rows; the mirror epilogue charged ~2 flops/elem.
+        frac = (n1 // 2 + 1) / n1
+        stages = [(2 * 2.0 * b * n * n1, n1), (3 * 2.0 * b * n * n2 * frac, n2)]
+        return stages, (6.0 + 5.0) * b * n * frac + 2.0 * b * n
+    # A real input's half path computes stage_a_real_rows(n1) k1 rows of
+    # stage A; a complex first stage adds 5 flops an element.
+    frac_a = _plan.stage_a_real_rows(n1) / n1 if half else 1.0
+    stages = [(p * 2.0 * b * n * n1 * frac_a, n1)]
+    elem = 6.0 * b * n * frac_a + (0.0 if real_input else 5.0 * b * n)
+    if r.path == "fourstep":
         stages.append((3 * 2.0 * b * n * n2, n2))
         return stages, elem + 5.0 * b * n
-    n1 = _plan._stage_a_n1(n)
-    n2 = n // n1
-    half = real_input and _plan.half_spectrum_applies(n)
-    # Row-limited stage A: a real input's half path computes
-    # stage_a_real_rows(n1) k1 rows.
-    frac_a = _plan.stage_a_real_rows(n1) / n1 if half else 1.0
-    if real_input:
-        stages = [(2 * 2.0 * b * n * n1 * frac_a, n1)]
-        elem = 6.0 * b * n * frac_a
-    else:
-        stages = [(3 * 2.0 * b * n * n1, n1)]
-        elem = 6.0 * b * n + 5.0 * b * n
     s2, e2 = transform_stages(b * n1, n2, real_input=False)
     if half:
         # stage_b_half: h = n1/2 + 1 rows of stage B, plus the mirror.
@@ -263,15 +246,16 @@ def transform_stages(b: int, n: int, real_input: bool):
 
 def irfft_stages(b: int, n: int):
     """Stage list of the real-OUTPUT inverse (``kernels/large.py:
-    inverse_real``): the fused Hermitian fold at irfft_half_min <= n <=
-    FUSED_MAX, stage A on the first ceil((n2/2 + 1) / ct) column tiles plus
-    the per-row stage-B fold at n >= irfft_half_staged_min, else the full
-    complex inverse.  Returns (stages, elem_flops, read_fraction): the fold
-    reads only its kept fraction of the input spectrum, and the byte charge
-    follows it.
+    inverse_real``), on its route: the fused Hermitian fold
+    (``irfft_fold``), stage A on the first ceil((n2/2 + 1) / ct) column
+    tiles plus the per-row stage-B fold (``irfft_fold_staged``), else the
+    full complex inverse.  Returns (stages, elem_flops, read_fraction): the
+    fold reads only its kept fraction of the input spectrum, and the byte
+    charge follows it.
     """
-    if 16 <= n <= FUSED_MAX and _plan.irfft_half_applies(n):
-        n1, n2 = _plan.balanced_split(n)
+    r = _plan.route(b, n, real_output=True)
+    if r.path == "irfft_fold":
+        n1, n2 = r.split
         h1 = n1 // 2 + 1
         stages = [
             # Stage 1: Karatsuba complex contraction of k2 over h1 columns.
@@ -281,9 +265,8 @@ def irfft_stages(b: int, n: int):
         ]
         elem = 6.0 * b * h1 * n2 + 2.0 * b * n  # twiddle + Nyquist broadcast
         return stages, elem, h1 / n1
-    if n > FUSED_MAX and _plan.irfft_half_staged_applies(n):
-        n1 = _plan._stage_a_n1(n)
-        n2 = n // n1
+    if r.path == "irfft_fold_staged":
+        n1, n2 = r.split
         ct = _plan.stage_a_col_tile(n1, n2)
         w = -(-(n2 // 2 + 1) // ct) * ct  # stage-A columns computed
         p, q = n2 // 128, 128
@@ -392,7 +375,7 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
         # sizes two real products contracting hw against the folded tables).
         hw = n // 2 + 1
         stages, elem = parts((b, n, True), (hw, b, False), (hw, b, False))
-        if n <= DIRECT_MAX:
+        if _plan.route(b, n, real_output=True, one_sided=True).path.startswith("irfft_direct"):
             stages.append((2 * 2.0 * b * n * hw, hw))
         else:
             s2, e2 = parts((b, n, False))
@@ -411,11 +394,12 @@ def transform_cost(b: int, n: int, kind: str = "fft") -> dict:
     elif kind == "stft_roundtrip":
         # The inverse leg is inverse_real_half: at direct frame sizes two
         # real products against the folded tables (K = n/2 with the
-        # Nyquist broadcast where irfft_direct_k128, else h = n/2 + 1
+        # Nyquist broadcast on the irfft_direct_k128 route, else h = n/2 + 1
         # deep), above them the full roundtrip's charge.
-        if n <= DIRECT_MAX:
+        inverse = _plan.route(b, n, real_output=True, one_sided=True).path
+        if inverse.startswith("irfft_direct"):
             stages, elem = parts((b, n, True))
-            if n >= 256 and get_tuning().irfft_direct_k128:
+            if inverse == "irfft_direct_k128":
                 stages.append((2 * 2.0 * b * n * (n // 2), n // 2))
             else:
                 stages.append((2 * 2.0 * b * n * (n // 2 + 1), n // 2 + 1))

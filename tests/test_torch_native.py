@@ -3,8 +3,10 @@ host entry points ``fft_native`` / ``ifft_native`` and ``warmup``, on the
 CPU.
 
 NATIVE loads the repo's host C++ library ``native/libtpufft.so``, built by
-``make -C native``; where it is missing the tests build a private copy
-(``native_library``) and skip only where no toolchain can build it.  Both packages call
+``make -C native``.  The tests build a private copy from ``native/``
+(``native_library``) and load only that one, since another test process
+(``tests/test_native.py``) may be building the repo's at the same moment;
+they skip only where no toolchain can build it.  Both packages call
 the same library through the same ctypes contract, so their outputs are
 bit-equal; numpy's float64 transform is the oracle within 5*log2(N)*eps of
 max|ref|.
@@ -32,12 +34,13 @@ def _bound(n):
 
 
 def native_library(mp, tmp_dir) -> bool:
-    """Whether NATIVE's library loads.  Where the repo's is missing, build a
-    private one from ``native/`` in ``tmp_dir`` (another test process may be
-    building the repo's at the same moment) and point both packages at it
-    through ``GPU_FFT_TPU_NATIVE_LIB`` on ``mp`` (a MonkeyPatch)."""
-    if native.is_available():
-        return True
+    """Whether NATIVE's library loads: build a private one from ``native/``
+    in ``tmp_dir`` and point both packages at it through
+    ``GPU_FFT_TPU_NATIVE_LIB`` on ``mp`` (a MonkeyPatch).  The repo's own
+    ``native/libtpufft.so`` is never loaded: another test process may be
+    writing it, and a handle cached in ``_load`` by an earlier test may name
+    a library that is gone, so both caches are cleared once the variable is
+    set."""
     build = pathlib.Path(tmp_dir) / "native"
     shutil.copytree(NATIVE_DIR, build, ignore=shutil.ignore_patterns("*.so"))
     try:

@@ -1,6 +1,8 @@
 """Plans of the PyTorch port against the JAX package's: identical tables,
 identical dispatch predicates, and the deliberate packed-plan guard."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -299,3 +301,85 @@ def test_transform_any_takes_the_band_engine(monkeypatch, mode, b, n, engine, re
         assert name in ("gft.engine.direct", "gft.engine.fourstep", "gft.engine.fourstep_folded",
                         "gft.engine.fourstep_half")
         assert ran == {}
+
+
+# ── The route is what runs ───────────────────────────────────────────────────
+
+# (B, n): both sides of every gate, B = 4,097 one past ``whole_batch_max``.
+ROUTE_CASES = [(b, n) for n in (256, 1024, 16384, 32768, 65536, 1 << 17, 1 << 18) for b in (1, 3)] + [(4097, 1024)]
+INVERSE_CASES = [(1, 256), (3, 1024), (1, 32768), (3, 65536), (1, 1 << 17), (3, 1 << 18)]
+
+
+def _ran_by_route(monkeypatch, mode, call):
+    """The ``gft.engine.*`` spans (outer before inner) and the kernels'
+    plain-call counts of one CPU call in precision ``mode``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpu_fft_tpu_torch import config
+    from gpu_fft_tpu_torch.kernels import fused as K
+
+    monkeypatch.setattr(config, "PRECISION", mode)
+    K.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    spans = sorted((e.time_range.start, -e.time_range.end, e.name) for e in prof.events()
+                   if e.name.startswith("gft.engine."))
+    ran = Counter({k: c.plain_calls for k, c in K.COUNTS.items() if c.plain_calls})
+    return tuple(name for *_, name in spans), ran
+
+
+def _route_kernels(r):
+    return Counter(tplan.KERNELS[k] for k in r.kernels)
+
+
+@pytest.mark.parametrize("mode", ["full", "high", "fast"])
+@pytest.mark.parametrize("real_input", [True, False])
+@pytest.mark.parametrize("b,n", ROUTE_CASES)
+def test_route_is_what_transform_any_runs(monkeypatch, mode, b, n, real_input):
+    """``plan.route``'s spans and kernels are the engine spans a CPU profile
+    of ``transform_any`` records and the kernels' plain calls, in each mode."""
+    from gpu_fft_tpu_torch.kernels.large import transform_any
+
+    x = torch.zeros(b, n)
+    xi = None if real_input else torch.zeros(b, n)
+    spans, ran = _ran_by_route(monkeypatch, mode, lambda: transform_any(x, xi, n, -1))
+    r = tplan.route(b, n, real_input=real_input)
+    assert (spans, ran) == (r.spans, _route_kernels(r)), r
+
+
+@pytest.mark.parametrize("mode", ["full", "high", "fast"])
+@pytest.mark.parametrize("one_sided", [False, True])
+@pytest.mark.parametrize("b,n", INVERSE_CASES)
+def test_route_is_what_the_real_output_inverses_run(monkeypatch, mode, b, n, one_sided):
+    """The same for ``inverse_real`` (a Hermitian (B, n) spectrum) and
+    ``inverse_real_half`` (its n/2 + 1 bins)."""
+    from gpu_fft_tpu_torch.kernels.large import inverse_real, inverse_real_half
+
+    w = n // 2 + 1 if one_sided else n
+    x = torch.zeros(b, w)
+    fn = inverse_real_half if one_sided else inverse_real
+    spans, ran = _ran_by_route(monkeypatch, mode, lambda: fn(x, x, n))
+    r = tplan.route(b, n, real_output=True, one_sided=one_sided)
+    assert (spans, ran) == (r.spans, _route_kernels(r)), r
+
+
+@pytest.mark.parametrize("call", ["real", "complex", "inverse_real"])
+def test_route_of_the_forced_small_staged_path(monkeypatch, call):
+    """Stage B not plannable (forced-small configs): the route recurses into
+    the rows' own route, and the staged real-output inverse falls back to the
+    complex inverse's."""
+    from gpu_fft_tpu_torch.kernels.large import inverse_real, transform_any
+
+    n = 1 << 18
+    x = torch.zeros(1, n)
+    run = {"real": lambda: transform_any(x, None, n, -1), "complex": lambda: transform_any(x, x, n, -1),
+           "inverse_real": lambda: inverse_real(x, x, n)}[call]
+    monkeypatch.setattr(tplan, "stage_b_plannable", lambda n2: False)
+    try:
+        spans, ran = _ran_by_route(monkeypatch, "full", run)
+        r = tplan.route(1, n, real_input=call == "real", real_output=call == "inverse_real")
+    finally:  # stage-A plans built under the patch lack their stage-B tables
+        tplan.get_stage_a_plan.cache_clear()
+        tplan.clear_device_cache()
+    assert r.path == "staged" and r.stage_b == "recursive" and r.inner.path == "whole"
+    assert (spans, ran) == (r.spans, _route_kernels(r)), r

@@ -258,20 +258,16 @@ def test_input_validation(call, match):
 
 @pytest.mark.parametrize("complex_", [False, True])
 def test_recursive_stage_b_matches_folded(monkeypatch, complex_):
-    """A plan without stage-B tables (forced-small configs) takes the
-    recursive row transforms + digit reversal, with the same result."""
-    import gpu_fft_tpu_torch.kernels.large as tlarge
+    """A stage B that is not plannable (forced-small configs: the route's
+    ``stage_b_plannable``) takes the recursive row transforms + digit
+    reversal, with the same result."""
+    import gpu_fft_tpu_torch.plan as tplan
 
     n = 1 << 17
     xr, xi = _inputs(1, n)
     args = (torch.from_numpy(xr), torch.from_numpy(xi) if complex_ else None, n, -1)
-    want = transform_any(*args)
-    real_plan = tlarge.get_stage_a_plan
-
-    def without_stage_b(*a):
-        return dict(real_plan(*a), stage_b=None)
-
-    monkeypatch.setattr(tlarge, "get_stage_a_plan", without_stage_b)
+    want = transform_any(*args)  # (also caches the stage-A plan with its stage-B tables)
+    monkeypatch.setattr(tplan, "stage_b_plannable", lambda n2: False)
     K.reset_counts()
     got = transform_any(*args)
     _assert_close([g.numpy() for g in got], [w.numpy() for w in want])
