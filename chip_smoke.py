@@ -16,7 +16,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    2^18 … 2^24 for ct = 512, 1,024, 2,048); K4 (stage B of a complex
    staged transform) at B = 1 at 2^17, 2^20, 2^22 and 2^24 and at the
    matched filter's (64, 128, 8,192), the forward unscaled and the inverse
-   with 1/n in its store; K3-legacy (K3's radix kernel
+   with 1/n in its store; the matched filter's correlation and SNR kernels
+   (``kernels/matched.py``) at (T, N) = (2, 2^17) and (64, 2^20) on strided
+   template rows, the SNR over the cell's window and over one whose edges
+   are no multiple of 4 (the kernel's 4-byte path), the peak's index the
+   first maximum, then one ``matched_filter_device`` call each with its
+   five launches pinned and counted (correlation, K3, K4, SNR, peak; timed
+   in phase 4 at (64, 2^20));
+   K3-legacy (K3's radix kernel
    reading a materialized twiddle) at every ablate_large shape and in its
    complex, rows and col_tiles forms, S2 at n1 = 32, 128 and 256, and S3 of
    the stage-A ablation harnesses, with S3's error against float64 (gate
@@ -258,6 +265,13 @@ IRFFT_TIMED = ((1, 32768), (1, 65536), (1, 1 << 20), (1, 1 << 22), (16, 65536))
 # first row the kernels line's (PERF.md's kernel table has the three).
 STAGE_B_CASES = ((1, 1 << 17), (1, 1 << 20), (1, 1 << 22), (1, 1 << 24), (64, 1 << 20))
 STAGE_B_TIMED = ((64, 1 << 20), (1, 1 << 17), (1, 1 << 22))
+# The matched filter's own kernels (kernels/matched.py) at the benchmark
+# cell's (T, N) = (64, 2^20) and at (2, 2^17): held against their plain
+# versions in phase 2 (one matched_filter_device call each, its launches
+# pinned), timed at the cell's shape in phase 4 (the cell's proportions:
+# scripts/time_matched.py, layout).
+MATCHED_CASES = ((2, 1 << 17), (64, 1 << 20))
+MATCHED_LAUNCHES = {"matched_correlate": 1, "matched_snr": 2}
 # Phase 3b: the Parseval gradient at (1, n) and the kernel whose band n is
 # (None: the torch engines, the control); dot tests; forward mode.
 GRAD_SIZES = ((1024, "whole_transform_packed"), (4096, "whole_transform"), (16384, "whole_transform"),
@@ -515,9 +529,11 @@ def cuda_ms(fn, iters: int = 20, repeats: int = 5) -> float:
 def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str = ""):
     """Device time per call (ms) summed over the CUDA kernels torch.profiler
     records for ``iters`` warm calls whose name holds ``match``, and the
-    ``top`` kernels by time.  A profile that comes back with no such kernel
-    is taken again, up to ``attempts`` times; None where none of them
-    records one."""
+    ``top`` kernels by time.  A profile that comes back with no such kernel,
+    or with a kernel recorded other than a whole number of times a call
+    (CUPTI at times starts a few ms late and loses a profile's first
+    kernels), is taken again, up to ``attempts`` times; None where none of
+    them records one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -530,11 +546,10 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, top: int = 4, match: str =
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0.0)
-            if us > 0 and match in e.key:
-                by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1000.0
-        if by_name:
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0.0) > 0 and match in e.key]
+        by_name = {e.key: e.self_device_time_total / iters / 1000.0 for e in events}
+        if by_name and all(e.count % iters == 0 for e in events):
             break
     if not by_name:
         return None, []
@@ -3007,6 +3022,7 @@ def main() -> None:
     from gpu_fft_tpu_torch.kernels import ablation as A
     from gpu_fft_tpu_torch.kernels import engines as E
     from gpu_fft_tpu_torch.kernels import fused as K
+    from gpu_fft_tpu_torch.kernels import matched as Mk
     from gpu_fft_tpu_torch.kernels import probes as Pr
     from gpu_fft_tpu_torch.scripts import (
         ablate_2e20_levers,
@@ -3017,6 +3033,7 @@ def main() -> None:
         calibrate_chip,
         calibrate_latency,
         calibrate_matmul,
+        time_matched,
     )
 
     dev = torch.device("cuda")
@@ -3049,7 +3066,7 @@ def main() -> None:
     stamp("phase 2")
     print("phase 2: kernels vs plain torch (gate max|d| <= 1e-5 max|plain|)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {name: 0.0 for name in (*K.COUNTS, *A.COUNTS, *E.COUNTS, *Pr.COUNTS)}
+    max_err = {name: 0.0 for name in (*K.COUNTS, *A.COUNTS, *E.COUNTS, *Pr.COUNTS, *Mk.COUNTS)}
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32)
@@ -3132,6 +3149,46 @@ def main() -> None:
                     K.stage_b_kernel_plain(yr, yi, *args))
             del yr, yi
         torch.cuda.synchronize()
+
+    # The matched filter's kernels: the correlation (q and the norm's sum),
+    # then the SNR epilogue on the inverse (rho, the peak; the peak's index
+    # the first maximum of the outputs' |rho|^2) over the cell's window and
+    # over one whose edges are no multiple of 4 (the 4-byte path), strided
+    # template rows as the benchmark passes them; then one whole call, its
+    # launches pinned and added into the kernels line's.
+    matched_launches = dict.fromkeys(MATCHED_LAUNCHES, 0)
+    for t, n in MATCHED_CASES:
+        x = time_matched.make_input(t, n, dev, t * n)
+        kmin, start, stop = time_matched.layout(n)
+        args = (x[2:, 0], x[2:, 1], x[0, 0], x[0, 1], x[1, 0], kmin)
+        got, want = Mk.matched_correlate(*args), Mk.matched_correlate_plain(*args)
+        compare("matched_correlate", f"({t}, {n}) kmin={kmin} q", got[:2], want[:2])
+        compare("matched_correlate", f"({t}, {n}) norm's sum", (got[2].double().sum(-1),),
+                (want[2].double().sum(-1),))
+        yr, yi = gt.ifft_device(*got[:2])
+        for lo, hi in ((start, stop), (start + 1, stop - 2)):
+            sr, si, peak, at = Mk.matched_snr(yr, yi, got[2], 0.5, lo, hi)
+            wr, wi, wpeak, _ = Mk.matched_snr_plain(yr, yi, want[2], 0.5, lo, hi)
+            compare("matched_snr", f"({t}, {n}) [{lo}, {hi}) rho, peak", (sr, si, peak), (wr, wi, wpeak))
+            mag = torch.addcmul(sr * sr, si, si)
+            if not torch.equal(at, mag.argmax(dim=-1) + lo) or not torch.equal(peak, mag.max(dim=-1).values.sqrt()):
+                fail(f"matched_snr ({t}, {n}) [{lo}, {hi}): the peak is not the first largest |rho| of the outputs")
+        K.reset_counts()
+        Mk.reset_counts()
+        gt.matched_filter_device(*args[:5], delta_f=0.5, kmin=kmin, valid=(start, stop))
+        torch.cuda.synchronize()
+        launched = {**{k: c.launches for k, c in Mk.COUNTS.items()},
+                    **{k: c.launches for k, c in K.COUNTS.items() if c.launches}}
+        print(f"  matched_filter_device ({t}, {n}): launches {launched}")
+        if launched != {**MATCHED_LAUNCHES, "stage_a": 1, "stage_b": 1} or any(
+                c.plain_calls for c in (*Mk.COUNTS.values(), *K.COUNTS.values())):
+            fail(f"matched_filter_device ({t}, {n}) launched {launched}")
+        for k in matched_launches:
+            matched_launches[k] += launched[k]
+        del x, got, want, yr, yi, sr, si, wr, wi, mag
+        torch.cuda.synchronize()
+    K.reset_counts()
+    Mk.reset_counts()
 
     # K3-legacy: every (n, n1) of the ablate_large sweep (materialized
     # twiddle, real input as staged_fft gives it), and the complex, rows and
@@ -3488,6 +3545,23 @@ def main() -> None:
                         stage_b_bound(b, n1, n2))
         rec.update(geometry=K.stage_b_geometry(n1, n2 // 128))
         del yr, yi
+    # The matched filter's kernels at the cell's shape; no one PyTorch call
+    # computes either (library: none).
+    t, n = MATCHED_CASES[-1]
+    x = time_matched.make_input(t, n, dev, t * n)
+    kmin, start, stop = time_matched.layout(n)
+    args = (x[2:, 0], x[2:, 1], x[0, 0], x[0, 1], x[1, 0], kmin)
+    corr_bound, snr_bound = (bound(0, "fp32", b) for b in time_matched.bytes_moved(t, n))
+    time_pair(f"matched_correlate ({t}, {n}) kmin={kmin}", "matched_correlate",
+              lambda: Mk.matched_correlate(*args), lambda: Mk.matched_correlate_plain(*args), corr_bound)
+    qr, qi, parts = Mk.matched_correlate(*args)
+    pparts = Mk.matched_correlate_plain(*args)[2]
+    yr, yi = gt.ifft_device(qr, qi)
+    del qr, qi
+    time_pair(f"matched_snr ({t}, {n}) [{start}, {stop}) + peak", "matched_snr",
+              lambda: Mk.matched_snr(yr, yi, parts, 0.5, start, stop),
+              lambda: Mk.matched_snr_plain(yr, yi, pparts, 0.5, start, stop), snr_bound)
+    del x, yr, yi
     for n in (1 << 20, 1 << 22):
         plan = P.on_device(P.get_stage_a_plan, n, -1, P.stage_a_ct_full_range(n), device=dev)
         n1, n2, ct = plan["n1"], plan["n2"], plan["ct"]
@@ -3771,6 +3845,8 @@ def main() -> None:
         "fused_fft_lm": ("gpu_fft_tpu_torch/csrc/fused_lm.cu", "scripts/ablate_engines.py:111"),
         "operand_probe": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/ablate_whole_packed.py:66"),
         "copy_min": ("gpu_fft_tpu_torch/csrc/probes.cu", "scripts/calibrate_latency.py:79"),
+        **dict.fromkeys(MATCHED_LAUNCHES, ("gpu_fft_tpu_torch/csrc/matched.cu",
+                                           "none: the JAX package has no matched filter")),
     }
     # The main path's launches: fft/ifft and the real-output path together.
     # Phase 3i's stand apart (gate_closed_path_launches): no tuning row
@@ -3781,7 +3857,8 @@ def main() -> None:
                        for k in MAIN_PATH_KERNELS},
                     **second_launches, **{k: third_launches[k] for k in CALIBRATION_KERNELS},
                     **precision["launches"],
-                    **fast_legacy["launches"]}
+                    **fast_legacy["launches"],
+                    **matched_launches}
     max_err.update(precision["max_err"])
     for name, err in fast_legacy["max_err"].items():
         max_err[name] = max(fast_legacy_err[name], err)

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # xr, xi, f1r, f1i, twr, twi, f2r, f2i, yr, yi,
     # batch, n1, cluster, threads, smem_bytes, stream
@@ -70,6 +70,13 @@ _SIGNATURES = {
     "gft_copy_min": [_P] * 3,
     # x, t0 .. t7, o, k, stream
     "gft_operand_probe": [_P] * 10 + [_I, _P],
+    # hr, hi, ldr, ldi, sr, si, psd, qr, qi, parts, t_count, n, kmin, tile_blocks, stream
+    "gft_matched_correlate": [_P] * 2 + [_L] * 2 + [_P] * 6 + [_I] * 4 + [_P],
+    # yr, yi, parts, nparts, outr, outi, best_v, best_i,
+    # t_count, n, start, len, seg, vec, c_sigma, c_norm, stream
+    "gft_matched_snr": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 2 + [_P],
+    # best_v, best_i, blocks, t_count, start, peak, index, stream
+    "gft_matched_peak": [_P] * 2 + [_I] * 3 + [_P] * 3,
 }
 
 

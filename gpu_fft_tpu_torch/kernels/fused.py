@@ -55,8 +55,9 @@ either device.  ``COUNTS[name]`` counts inside the operator's kernels:
 ``launches`` where the kernel is launched, ``plain_calls`` where the plain
 version runs.  Every hand-written kernel of the port is launched through
 :func:`_launch`, which counts the launch and wraps the C call in the
-profiler span ``gft.launch.<name>``.  A tensor on any other device raises
-in the wrapper.
+profiler span ``gft.launch.<name>`` (or the span it is given: the matched
+filter's kernels, :mod:`.matched`, are the entry op's own work and name a
+``gft.entry.`` one).  A tensor on any other device raises in the wrapper.
 """
 
 from __future__ import annotations
@@ -183,11 +184,13 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(counts: dict, kernel: str, entry, *args) -> None:
+def _launch(counts: dict, kernel: str, entry, *args, span_name: str | None = None) -> None:
     """Launch ``kernel`` by its C entry, ``entry(*args)``, inside the span
-    ``gft.launch.<kernel>``; raise on its error and count the launch in
+    ``span_name``, by default ``gft.launch.<kernel>`` (a kernel of an entry
+    op's own work names a ``gft.entry.`` span, the layer its device time
+    belongs to); raise on its error and count the launch in
     ``counts[kernel]``: the span and the counter share this one site."""
-    with span("gft.launch." + kernel):
+    with span(span_name or "gft.launch." + kernel):
         err = entry(*args)
     _build.check(err, kernel)
     counts[kernel].launches += 1

@@ -12,8 +12,13 @@ its one-sided PSD S, frequency spacing Δf):
 
 All templates of the block go through ONE batched inverse,
 ``ifft_device`` on the (T, N) buffer (so ``kernels/large.py:transform_any``,
-on ``plan.route``'s engine).  No step
-reads a value back to the host.  The body is the profiler span
+on ``plan.route``'s engine).  Around it the entry op's own passes are two
+operators of ``kernels/matched.py``: ``matched_correlate`` (q̃ and σ²'s
+partial sums) before, ``matched_snr`` (ρ over the window and its peak)
+after; on a card hand-written kernels, each a pass over its bytes, on the
+CPU their plain torch versions.  Inputs that require grad take the plain
+versions on every device, which autograd follows.  No step reads a value
+back to the host.  The body is the profiler span
 ``gft.entry.matched_filter``; ``COUNTS["matched_filter"]`` counts calls and
 templates filtered.
 """
@@ -25,6 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import resolve_device
+from ..kernels import matched as kernels
 from ..utils.profiling import span
 from .transform import _one_sided_n, ifft_device
 
@@ -96,23 +102,15 @@ def matched_filter_device(htilde_r, htilde_i, stilde_r, stilde_i, psd, *, delta_
             raise ValueError(f"matched_filter_device: valid must be (start, stop) with "
                              f"0 <= start < stop <= N = {n}, got {valid}")
 
-        band = slice(kmin, n // 2)
-        hr, hi = hr[:, band], hi[:, band]
-        w = s_psd[band].reciprocal()
-        ar, ai = sr[band] * w, si[band] * w  # s̃ / S
-        qr = torch.zeros((t, n), dtype=torch.float32, device=dev)
-        qi = torch.zeros((t, n), dtype=torch.float32, device=dev)
-        qr[:, band] = torch.addcmul(hr * ar, hi, ai)  # Re conj(h̃) s̃ / S
-        qi[:, band] = torch.addcmul(hr * ai, hi, ar, value=-1.0)  # Im
-        sigmasq = (4.0 * delta_f) * (torch.addcmul(hr * hr, hi, hi) * w).sum(dim=-1)
-        # ifft_device scales by 1/N; PyCBC's inverse is unnormalised.
-        norm = (n * 4.0 * delta_f) * sigmasq.rsqrt()
+        inputs = (hr, hi, sr, si, s_psd)
+        if torch.is_grad_enabled() and any(v.requires_grad for v in inputs):
+            correlate, snr = kernels.matched_correlate_plain, kernels.matched_snr_plain
+        else:
+            correlate, snr = kernels.matched_correlate, kernels.matched_snr
+        qr, qi, parts = correlate(*inputs, kmin)
         yr, yi = ifft_device(qr, qi)
         del qr, qi  # each (T, N) buffer goes back to the allocator as soon as it is read
-        snr_r = yr[:, start:stop] * norm[:, None]
-        snr_i = yi[:, start:stop] * norm[:, None]
-        del yr, yi
-        peak_sq, at = torch.addcmul(snr_r * snr_r, snr_i, snr_i).max(dim=-1)
+        snr_r, snr_i, peak, at = snr(yr, yi, parts, delta_f, start, stop)
         COUNTS["matched_filter"].calls += 1
         COUNTS["matched_filter"].templates += t
-        return (snr_r, snr_i), peak_sq.sqrt(), at + start
+        return (snr_r, snr_i), peak, at

@@ -104,8 +104,11 @@ CALIBRATED_CHIPS = frozenset({"h100"})
 #: holds one of these is one of the port's own.
 OWN_KERNELS = (
     "copy_min_kernel",
+    "correlate_kernel",
     "dense_f32_kernel",
     "operand_probe_kernel",
+    "peak_kernel",
+    "snr_kernel",
     "stage_a_dot_wgmma_kernel",
     "stage_a_radix_kernel",
     "stage_b_kernel",
